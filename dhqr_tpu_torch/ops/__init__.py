@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (see dhqr_tpu_torch/__init__.py)."""
