@@ -5,28 +5,43 @@
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error:
+on any error (0-6 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
 1. every kernel against its plain PyTorch version on the card, at the main
-   path's panel shapes, with its time, the plain version's time,
-   ``torch.geqrf``'s time on the same panel (a yardstick the port never
-   calls) and the card's bound for the work;
-2. main path, float32, square: ``qr`` -> ``solve`` and ``lstsq`` at
-   16384 x 16384, backward error and kernel launch counts;
-3. main path, float32, tall: ``lstsq`` at 65536 x 256 against
-   ``torch.linalg.lstsq`` (yardstick) on the normal-equations residual;
-4. main path, complex64: ``qr`` -> ``solve`` at 8192 x 4096;
+   path's panel shapes and at the shapes that stress the kernel's grid (an
+   offset inside a CTA's slice, a ragged last CTA, a panel on a few CTAs,
+   the tall 64-wide leaf, 12-decade data over every SM, and panels too
+   tall for shared memory, which the kernel streams), with its grid,
+   residency, shared memory, registers and spills, a bit-identical repeat
+   launch, and at the main path's shapes its time, the plain version's
+   time, ``torch.geqrf``'s time on the same panel (a yardstick the port
+   never calls) and the card's bound for the work (streamed panels: the
+   kernel's time alone);
+2. main path, float32, square: ``qr`` and ``solve`` (each timed on its
+   first call, which holds first-use set-up, and on a steady-state second
+   call) and ``lstsq`` at 16384 x 16384, backward error and kernel launch
+   counts;
+3. main path, float32, tall: ``lstsq`` at 65536 x 256 and at 524288 x 128
+   (streamed 16-wide leaves) against ``torch.linalg.lstsq`` (yardstick) on
+   the normal-equations residual;
+4. main path, complex64: ``qr`` (first and second call) -> ``solve`` at
+   8192 x 4096;
 5. the reference's criterion: ``lstsq`` at 4400 x 4000, float32 and
    complex64, within 8x of numpy's LAPACK QR on the normal-equations
    residual;
 6. where the time goes: ``torch.profiler`` device time of one 16384^2
    float32 ``qr`` by kernel class (panel kernel, GEMM, triangular solve,
-   other) and the device's busy share of the call's wall time.
+   other) and the device's busy share of the call's wall time;
+7. (opt-in: ``--phases 0,7``) where a panel's time goes: the kernel's time
+   per call at panels from 5 to 132 CTAs, and the SM cycles per column in
+   each section of a column step (merge, column pass, trailing pass, grid
+   barrier) from a second build with section timers
+   (``-DDHQR_PANEL_PROFILE``).
 
 Launch counts are zeroed right before phase 2 and read right after
-phase 5 (phase 6 is a measurement and is not counted). Each phase prints one JSON line; then the ``kernels`` line, the
+phase 5 (phases 6 and 7 are measurements and are not counted). Each phase prints one JSON line; then the ``kernels`` line, the
 card's ``nvidia-smi`` name and power limit, and last the result line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -149,10 +164,9 @@ def phase_setup():
     t0 = time.perf_counter()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
-    from dhqr_tpu_torch.ops.hopper_panel import _launcher, KERNELS
+    from dhqr_tpu_torch.ops.hopper_panel import _library
 
-    for name in KERNELS.values():
-        _launcher(name)
+    _library()
     assert torch.backends.cuda.matmul.allow_tf32 is False, \
         "TF32 matmuls are on: precision='highest' needs full FP32"
     assert torch.get_float32_matmul_precision() == "highest"
@@ -169,21 +183,34 @@ def phase_kernels(seed):
     from dhqr_tpu_torch.ops import hopper_panel as hp
 
     rng = np.random.default_rng(seed)
-    cases = [  # (kernel, m, nb, offset, 12-decade data, main-path shape)
-        ("panel_qr_f32", 16384, 128, 0, False, True),
-        ("panel_qr_f32", 8193, 128, 0, False, False),
-        ("panel_qr_f32", 4096, 32, 5, False, False),
-        ("panel_qr_f32", 767, 8, 0, True, False),
-        ("panel_qr_c64", 8192, 128, 0, False, True),
-        ("panel_qr_c64", 4096, 32, 5, False, False),
+    cases = [  # (kernel, m, nb, offset, 12-decade data, main-path shape,
+        #        slice resident in shared memory)
+        ("panel_qr_f32", 16384, 128, 0, False, True, True),
+        ("panel_qr_f32", 16384, 128, 64, False, False, True),  # mid-slice
+        ("panel_qr_f32", 8193, 128, 0, False, False, True),    # ragged last
+        ("panel_qr_f32", 129, 128, 0, False, False, True),     # a few CTAs
+        ("panel_qr_f32", 65536, 64, 0, False, False, True),    # the tall leaf
+        ("panel_qr_f32", 4096, 32, 5, False, False, True),
+        ("panel_qr_f32", 767, 8, 0, True, False, True),
+        ("panel_qr_f32", 16384, 8, 0, True, False, True),      # 132 CTAs
+        ("panel_qr_f32", 65536, 128, 0, False, False, False),  # streamed
+        ("panel_qr_f32", 524288, 16, 0, False, False, False),  # streamed leaf
+        ("panel_qr_c64", 8192, 128, 0, False, True, True),
+        ("panel_qr_c64", 4096, 32, 5, False, False, True),
+        ("panel_qr_c64", 131, 128, 3, False, False, True),
+        ("panel_qr_c64", 32768, 128, 7, False, False, False),  # streamed
+        ("panel_qr_c64", 262144, 16, 3, False, False, False),  # streamed leaf
     ]
     stats = {}
-    for name, m, nb, off, decades, main_shape in cases:
+    for name, m, nb, off, decades, main_shape, resident in cases:
         dtype = torch.float32 if name.endswith("f32") else torch.complex64
         tol = TOL_F32 if dtype == torch.float32 else TOL_C64
+        grid = hp.kernel_launch_info(m, nb, off, dtype)
         panel = random_panel(rng, m, nb, dtype, decades)
         pf, alpha = hp._panel_qr_kernel(panel, off)
+        pf2, alpha2 = hp._panel_qr_kernel(panel, off)  # fixed-order merges
         torch.cuda.synchronize()
+        repeat_equal = bool(torch.equal(pf, pf2) and torch.equal(alpha, alpha2))
         at = panel.T.contiguous()
         alpha_p = hp._PLAIN[dtype](at, off)
         pf_p = at.T
@@ -195,17 +222,25 @@ def phase_kernels(seed):
         finite = bool(torch.isfinite(torch.view_as_real(pf) if pf.is_complex()
                                      else pf).all())
         row = {"phase": 1, "kernel": name, "m": m, "nb": nb, "offset": off,
-               "rel_err_pf": err_pf, "rel_err_alpha": err_alpha,
+               "grid": grid, "rel_err_pf": err_pf, "rel_err_alpha": err_alpha,
                "max_abs_err": abs_err, "tol": tol, "rows_above_kept": kept,
-               "finite": finite}
-        ok = err_pf <= tol and err_alpha <= tol and kept and finite
+               "repeat_bit_identical": repeat_equal, "finite": finite}
+        ok = (err_pf <= tol and err_alpha <= tol and kept and finite
+              and repeat_equal and grid["resident"] == resident)
+        if m <= 1024:  # the schedule model at the kernel's grid
+            at_m = panel.T.contiguous()
+            alpha_m = hp._panel_qr_grid_model(at_m, off, grid["ctas"])
+            row["rel_err_vs_grid_model"] = max(rel_err(pf, at_m.T),
+                                               rel_err(alpha, alpha_m))
+            ok = ok and row["rel_err_vs_grid_model"] <= tol
         if decades:
             s64 = float(np.linalg.norm(panel[:, 0].double().cpu().numpy()))
             dev = abs(abs(float(alpha[0])) - s64) / s64
             row.update(alpha0_rel_dev=dev, tol_decades=TOL_DECADES)
             ok = ok and dev < TOL_DECADES
-        if main_shape:
+        if main_shape or not resident:
             row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off), 5)
+        if main_shape:
             at2 = panel.T.contiguous()
             row["plain_ms"] = cuda_ms(
                 lambda: hp._PLAIN[dtype](at2.copy_(panel.T), off), 2)
@@ -221,7 +256,7 @@ def phase_kernels(seed):
         if main_shape:
             st.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")})
-        del panel, pf, at, pf_p
+        del panel, pf, pf2, at, pf_p
     torch.cuda.empty_cache()
     return stats
 
@@ -230,15 +265,23 @@ def expected_launches(m, n, dtype):
     """Kernel leaves the blocked engine's own routing chooses for (m, n)."""
     from dhqr_tpu_torch.ops import blocked
 
+    from dhqr_tpu_torch.ops import hopper_panel as hp
+
     nb = blocked.DEFAULT_BLOCK_SIZE
-    kernel = blocked._resolve_kernel("auto", m, min(nb, n), dtype,
-                                     torch.device("cuda"))
-    plan = blocked.panel_plan(m, n, nb, kernel, dtype)
-    off = [k for k, w, on in plan if not on]
+    cuda = torch.device("cuda")
+    kernel = blocked._resolve_kernel("auto", m, dtype, cuda)
+    plan = blocked.panel_plan(m, n, nb, kernel, dtype, cuda)
+    off = [k for k, w, leaf in plan if not leaf]
     if off:
         print(f"panels not on the kernel for {m}x{n} {dtype}: columns {off}",
               flush=True)
-    return sum(blocked.kernel_leaves(w) for k, w, on in plan if on)
+    limits = hp.device_limits(cuda)
+    streamed = [k for k, w, leaf in plan
+                if leaf and not hp.kernel_resident(m - k, leaf, dtype, *limits)]
+    print(f"kernel leaf widths for {m}x{n} {dtype}: "
+          f"{sorted({leaf for k, w, leaf in plan if leaf})}; panels streamed: "
+          f"{len(streamed)} of {len(plan)}", flush=True)
+    return sum(blocked.kernel_leaves(w, leaf) for k, w, leaf in plan if leaf)
 
 
 def phase_square(dt, hp, seed, n=16384):
@@ -247,8 +290,11 @@ def phase_square(dt, hp, seed, n=16384):
     b = torch.rand((n,), generator=g, device="cuda", dtype=torch.float32)
     expect = expected_launches(n, n, torch.float32)
     l0 = hp.LAUNCHES["panel_qr_f32"]
-    fact, t_factor = wall(lambda: dt.qr(A))
+    fact, t_factor_first = wall(lambda: dt.qr(A))  # first-use set-up inside
     l_qr = hp.LAUNCHES["panel_qr_f32"] - l0
+    del fact
+    fact, t_factor = wall(lambda: dt.qr(A))
+    x, t_solve_first = wall(lambda: fact.solve(b))  # first-use set-up inside
     x, t_solve = wall(lambda: fact.solve(b))
     x2, t_lstsq = wall(lambda: dt.lstsq(A, b))
     l_all = hp.LAUNCHES["panel_qr_f32"] - l0
@@ -266,7 +312,9 @@ def phase_square(dt, hp, seed, n=16384):
     _, t_geqrf = wall(lambda: torch.geqrf(A))
     flops = 4.0 / 3.0 * n ** 3
     row = {"phase": 2, "name": "main_f32_square", "shape": [n, n],
-           "factor_s": t_factor, "solve_s": t_solve, "lstsq_s": t_lstsq,
+           "factor_first_s": t_factor_first, "factor_s": t_factor,
+           "solve_first_s": t_solve_first,
+           "solve_s": t_solve, "lstsq_s": t_lstsq,
            "gflops": flops / t_factor / 1e9, "geqrf_s": t_geqrf,
            "geqrf_gflops": flops / t_geqrf / 1e9,
            "backward_error": backward, "tol_backward": TOL_BACKWARD_F32,
@@ -275,37 +323,44 @@ def phase_square(dt, hp, seed, n=16384):
            "expected_per_factorization": expect, "finite": finite}
     row["ok"] = (backward < TOL_BACKWARD_F32 and agree <= TOL_SOLVE_AGREE
                  and finite and expect >= 1 and l_qr == expect
-                 and l_all == 2 * expect)
+                 and l_all == 3 * expect)
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"main path f32 square failed: {row}")
 
 
-def phase_tall(dt, hp, seed, m=65536, n=256):
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    A = torch.rand((m, n), generator=g, device="cuda", dtype=torch.float32)
-    b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
-    expect = expected_launches(m, n, torch.float32)
-    l0 = hp.LAUNCHES["panel_qr_f32"]
-    x, t_lstsq = wall(lambda: dt.lstsq(A, b))
-    l_run = hp.LAUNCHES["panel_qr_f32"] - l0
-    x_ref, t_ref = wall(lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
-    A64, b64 = A.double(), b.double()
+def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128))):
+    """The second shape is too tall for any leaf's slices to fit shared
+    memory: its panel runs as streamed 16-wide leaves."""
+    for i, (m, n) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(seed + 1 + 10 * i)
+        A = torch.rand((m, n), generator=g, device="cuda", dtype=torch.float32)
+        b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
+        expect = expected_launches(m, n, torch.float32)
+        l0 = hp.LAUNCHES["panel_qr_f32"]
+        x, t_lstsq = wall(lambda: dt.lstsq(A, b))
+        l_run = hp.LAUNCHES["panel_qr_f32"] - l0
+        x_ref, t_ref = wall(
+            lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
+        A64, b64 = A.double(), b.double()
 
-    def ne_res(xx):
-        return float(torch.linalg.vector_norm(A64.T @ (A64 @ xx.double() - b64)))
+        def ne_res(xx):
+            return float(torch.linalg.vector_norm(
+                A64.T @ (A64 @ xx.double() - b64)))
 
-    res, res_ref = ne_res(x), ne_res(x_ref)
-    row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n],
-           "lstsq_s": t_lstsq, "torch_lstsq_s": t_ref,
-           "normal_eq_residual": res, "torch_lstsq_residual": res_ref,
-           "ratio": res / res_ref, "criterion": CRITERION,
-           "launches": l_run, "expected": expect}
-    row["ok"] = bool(np.isfinite(res)) and res <= CRITERION * res_ref \
-        and l_run == expect
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError(f"main path f32 tall failed: {row}")
+        res, res_ref = ne_res(x), ne_res(x_ref)
+        row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n],
+               "lstsq_s": t_lstsq, "torch_lstsq_s": t_ref,
+               "normal_eq_residual": res, "torch_lstsq_residual": res_ref,
+               "ratio": res / res_ref, "criterion": CRITERION,
+               "launches": l_run, "expected": expect}
+        row["ok"] = bool(np.isfinite(res)) and res <= CRITERION * res_ref \
+            and l_run == expect
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"main path f32 tall failed: {row}")
+        del A, b, A64, b64, x, x_ref
+        torch.cuda.empty_cache()
 
 
 def phase_complex(dt, hp, seed, m=8192, n=4096):
@@ -316,8 +371,10 @@ def phase_complex(dt, hp, seed, m=8192, n=4096):
                       torch.rand((m,), generator=g, device="cuda"))
     expect = expected_launches(m, n, torch.complex64)
     l0 = hp.LAUNCHES["panel_qr_c64"]
-    fact, t_factor = wall(lambda: dt.qr(A))
+    fact, t_factor_first = wall(lambda: dt.qr(A))  # first-use set-up inside
     l_qr = hp.LAUNCHES["panel_qr_c64"] - l0
+    del fact
+    fact, t_factor = wall(lambda: dt.qr(A))
     x, t_solve = wall(lambda: fact.solve(b))
     R = torch.cat([fact.r_matrix(), A.new_zeros((m - n, n))])
     QR = fact.matmul_q(R)
@@ -325,7 +382,8 @@ def phase_complex(dt, hp, seed, m=8192, n=4096):
                      / torch.linalg.vector_norm(A.to(torch.complex128)))
     finite = bool(torch.isfinite(torch.view_as_real(x)).all())
     row = {"phase": 4, "name": "main_c64", "shape": [m, n],
-           "factor_s": t_factor, "solve_s": t_solve,
+           "factor_first_s": t_factor_first, "factor_s": t_factor,
+           "solve_s": t_solve,
            "gflops_real": 4 * (2 * m * n * n - 2.0 / 3.0 * n ** 3) / t_factor / 1e9,
            "backward_error": backward, "tol_backward": TOL_BACKWARD_C64,
            "launches_qr": l_qr, "expected": expect, "finite": finite}
@@ -385,11 +443,38 @@ def phase_breakdown(dt, seed, n=16384):
     emit(row)
 
 
+def phase_kernel_profile(seed):
+    from dhqr_tpu_torch.ops import hopper_panel as hp
+
+    rng = np.random.default_rng(seed + 7)
+    for name, m, nb in (("panel_qr_f32", 129, 128), ("panel_qr_f32", 4224, 128),
+                        ("panel_qr_f32", 16384, 128), ("panel_qr_f32", 65536, 64),
+                        ("panel_qr_c64", 8192, 128),
+                        ("panel_qr_f32", 65536, 128),  # streamed
+                        ("panel_qr_f32", 524288, 16)):  # streamed leaf
+        dtype = torch.float32 if name.endswith("f32") else torch.complex64
+        panel = random_panel(rng, m, nb, dtype)
+        grid = hp.kernel_launch_info(m, nb, 0, dtype)
+        ms = cuda_ms(lambda: hp._panel_qr_kernel(panel, 0), 10)
+        cycles = hp.kernel_section_cycles(panel)
+        emit({"phase": 7, "name": "kernel_profile", "kernel": name, "m": m,
+              "nb": nb, "ctas": grid["ctas"], "rows_per_cta": grid["rows_per_cta"],
+              "resident": grid["resident"],
+              "ms": ms, "us_per_column": 1e3 * ms / nb,
+              "cycles_per_column": cycles})
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": 7, "name": "sm_clocks", "clocks_sm_now_and_max": clocks})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="0,1,2,3,4,5,6",
-                    help="comma-separated phases to run (0 always runs)")
+                    help="comma-separated phases to run (0 always runs; 7, "
+                         "the section timers, only on request)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")} | {0}
     if not torch.cuda.is_available():
@@ -418,6 +503,8 @@ def main(argv=None) -> int:
     counts = dict(hp.LAUNCHES)
     if 6 in phases:
         phase_breakdown(dt, args.seed)
+    if 7 in phases:
+        phase_kernel_profile(args.seed)
     main_path = phases & {2, 3, 4, 5}
     kernels = []
     for name in hp.KERNELS.values():

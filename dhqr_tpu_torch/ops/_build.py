@@ -12,7 +12,9 @@ source and the flags, so an edited source is never served a stale
 library), with nvcc's output (the ``-Xptxas -v`` register and shared-memory
 report) beside it as ``.log``. All sources build in parallel, one nvcc
 each. A failed build raises with nvcc's stderr. Nothing here runs at
-import time.
+import time. ``load(name, defines)`` builds a variant of one source with
+``-D`` macros (``DHQR_PANEL_PROFILE`` adds the panel kernel's section
+timers) into a library of its own, on first use.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_LIBS: "dict[str, ctypes.CDLL]" = {}
+_LIBS: "dict[tuple, ctypes.CDLL]" = {}
 
 
 def _nvcc() -> str:
@@ -44,18 +46,17 @@ def _nvcc() -> str:
         "PATH): the port's Hopper kernels are built from source at first use")
 
 
-def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> "list[str]":
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(src: Path, defines=()) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all() -> "dict[str, Path]":
-    """Compile every ``csrc/*.cu`` whose library is missing, all at once.
-
-    Returns ``{name: path to the .so}``.
-    """
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    targets = {src.stem: _target(src) for src in sources}
+def _build(sources, defines=()) -> "dict[str, Path]":
+    targets = {src.stem: _target(src, defines) for src in sources}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in sources:
@@ -64,7 +65,7 @@ def build_all() -> "dict[str, Path]":
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((src, out, tmp, proc))
     failures = []
@@ -81,15 +82,26 @@ def build_all() -> "dict[str, Path]":
     return targets
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def build_all() -> "dict[str, Path]":
+    """Compile every ``csrc/*.cu`` whose library is missing, all at once.
+
+    Returns ``{name: path to the .so}``.
+    """
+    return _build(sorted(CSRC_DIR.glob("*.cu")))
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``-D`` ``defines``),
+    built on first use."""
+    key = (name, tuple(defines))
     with _LOCK:
-        if name not in _LIBS:
-            paths = build_all()
-            if name not in paths:
+        if key not in _LIBS:
+            src = CSRC_DIR / f"{name}.cu"
+            if not src.exists():
                 raise RuntimeError(f"no CUDA source csrc/{name}.cu")
-            _LIBS[name] = ctypes.CDLL(str(paths[name]))
-        return _LIBS[name]
+            paths = build_all() if not defines else _build([src], defines)
+            _LIBS[key] = ctypes.CDLL(str(paths[name]))
+        return _LIBS[key]
 
 
 def build_log(name: str) -> str:

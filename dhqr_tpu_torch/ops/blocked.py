@@ -21,8 +21,10 @@ import torch
 
 from dhqr_tpu_torch.ops.hopper_panel import (
     KERNEL_MAX_WIDTH,
+    KERNELS,
     _panel_qr_kernel,
-    panel_kernel_supported,
+    device_limits,
+    kernel_flat_width,
 )
 from dhqr_tpu_torch.ops.householder import (
     DEFAULT_PRECISION,
@@ -34,10 +36,12 @@ from dhqr_tpu_torch.utils.device import as_tensor
 
 DEFAULT_BLOCK_SIZE = 128
 
-# Widest panel the kernel factors flat; wider panels split into kernel
-# leaves by the geqrt3 recursion. 128 = one launch per default panel (a
-# starting point to measure on the H100, not a tuned value).
+# Widest leaf the kernel factors flat; wider panels, and panels too tall
+# for a 128-wide slice to fit each CTA's shared memory, split into narrower
+# kernel leaves by the geqrt3 recursion (hopper_panel.kernel_flat_width).
 KERNEL_FLAT_WIDTH = KERNEL_MAX_WIDTH
+# Where panels too tall for the kernel's int32 element indices arrive.
+_TALL_PANELS_ITEM = "Queue B2 item 7 (64-bit element indices in the panel kernel)"
 
 
 def wy_upper(Y: torch.Tensor) -> torch.Tensor:
@@ -90,9 +94,10 @@ def _panel_factor(panel, offset, norm="accurate", panel_impl="loop"):
                      f"{panel_impl!r}")
 
 
-def _panel_factor_kernel(panel, offset, base=KERNEL_FLAT_WIDTH):
+def _panel_factor_kernel(panel, offset, base):
     """Kernel panel factorization: one flat kernel launch up to ``base``
-    width, the geqrt3 recursion with the kernel as leaf above it."""
+    width (the plan's leaf, :func:`kernel_flat_width`), the geqrt3
+    recursion with the kernel as leaf above it."""
     return _panel_qr_recursive(panel, offset, base=base,
                                leaf=_panel_qr_kernel)
 
@@ -106,45 +111,50 @@ def kernel_leaves(width: int, base: int = KERNEL_FLAT_WIDTH) -> int:
     return kernel_leaves(h, base) + kernel_leaves(width - h, base)
 
 
-def _resolve_kernel(mode: str, m: int, nb: int, dtype, device) -> bool:
-    """Map a ``use_pallas`` value to "does the blocked engine route its
-    panels through the Hopper kernel?".
+def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
+    """Map a ``use_pallas`` value to "does the blocked engine route the
+    panels of an m-row matrix through the Hopper kernel?".
 
     "auto": yes for float32/complex64 on a CUDA device; float64/complex128
     and CPU tensors take the plain panel engine (as the JAX package's
     "auto" stays on the XLA path off-TPU). "always": yes — on a CPU tensor
     the wrapper then runs the kernel's plain version, the analogue of the
-    Pallas interpreter; raises if the kernel cannot take the panels.
-    "never": no. There is no lowering probe: a CUDA kernel that fails to
-    build or launch raises instead of degrading to another path.
+    Pallas interpreter; raises ValueError for another dtype. "never": no.
+    Every height the kernel takes a leaf of runs on it (streamed past
+    shared memory); a taller one raises :class:`NotPortedError` rather than
+    leave the kernel on the card. There is no lowering probe: a CUDA kernel
+    that fails to build or launch raises instead of degrading to another
+    path.
     """
-    supported = panel_kernel_supported(m, min(nb, KERNEL_FLAT_WIDTH), dtype)
-    if mode == "never":
+    if mode not in ("auto", "always", "never"):
+        raise ValueError(
+            f"use_pallas must be 'auto', 'always' or 'never', got {mode!r}")
+    if mode == "never" or (mode == "auto" and (
+            dtype not in KERNELS or torch.device(device).type != "cuda")):
         return False
-    if mode == "always":
-        if not supported:
-            raise ValueError(
-                f"use_pallas='always' but an ({m}, {nb}) {dtype} panel is "
-                "unsupported (float32/complex64 only)")
-        return True
-    if mode == "auto":
-        return supported and torch.device(device).type == "cuda"
-    raise ValueError(
-        f"use_pallas must be 'auto', 'always' or 'never', got {mode!r}")
+    if dtype not in KERNELS:
+        raise ValueError(f"use_pallas='always' but the panel kernel takes "
+                         f"float32/complex64 only, got {dtype}")
+    if kernel_flat_width(m, dtype, *device_limits(device)) == 0:
+        raise NotPortedError(f"a panel kernel leaf of {m} rows",
+                             _TALL_PANELS_ITEM)
+    return True
 
 
-def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype):
-    """The blocked engine's panels: ``[(k, width, on_kernel), ...]``.
+def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None):
+    """The blocked engine's panels: ``[(k, width, leaf), ...]``.
 
-    ``on_kernel`` is the routing decision for that panel (the kernel must
-    take its height and leaf width); the engine follows this list, so the
+    ``leaf`` is the routing decision for that panel: the kernel's leaf
+    width (:func:`kernel_flat_width` of its m - k rows on ``device``'s card,
+    the H100's on the CPU), or 0 when ``kernel`` is False and the panel
+    takes the plain panel engine. The engine follows this list, so the
     kernel launches of a factorization are
-    ``sum(kernel_leaves(w) for k, w, on in panel_plan(...) if on)``.
+    ``sum(kernel_leaves(w, leaf) for k, w, leaf in panel_plan(...) if leaf)``.
     """
     nb = min(nb, n)
+    limits = device_limits(device)
     return [(k, min(nb, n - k),
-             kernel and panel_kernel_supported(
-                 m - k, min(nb, n - k, KERNEL_FLAT_WIDTH), dtype))
+             kernel_flat_width(m - k, dtype, *limits) if kernel else 0)
             for k in range(0, n, nb)]
 
 
@@ -153,10 +163,11 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     """Factor H (m x n, m >= n) in place; returns ``(H, alpha)``."""
     m, n = H.shape
     alpha = H.new_zeros(n)
-    for k, b, on_kernel in panel_plan(m, n, block_size, kernel, H.dtype):
+    for k, b, leaf in panel_plan(m, n, block_size, kernel, H.dtype,
+                                 H.device):
         panel = H[k:, k:k + b]
-        if on_kernel:
-            pf, alpha_k = _panel_factor_kernel(panel, 0)
+        if leaf:
+            pf, alpha_k = _panel_factor_kernel(panel, 0, base=leaf)
         else:
             pf, alpha_k = _panel_factor(panel, 0, norm, panel_impl)
         panel.copy_(pf)
@@ -213,7 +224,7 @@ def blocked_householder_qr(
             f"blocked_householder_qr requires m >= n, got {tuple(A.shape)}")
     nb = auto_block_size(m, A.dtype, use_pallas) if block_size is None \
         else int(block_size)
-    kernel = _resolve_kernel(use_pallas, m, min(nb, n), A.dtype, A.device)
+    kernel = _resolve_kernel(use_pallas, m, A.dtype, A.device)
     return _blocked_qr_impl(A if donate else A.clone(), nb, kernel=kernel,
                             norm=norm, panel_impl=panel_impl)
 

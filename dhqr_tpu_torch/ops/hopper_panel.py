@@ -2,7 +2,10 @@
 
 The fused panel factorization (float32, and complex64) runs as a CUDA C++
 kernel written for ``sm_90a`` (``csrc/panel_qr.cu``; its header says what
-bounds it and how it is built). This module holds, per kernel:
+bounds it and how it is built): one cooperative grid of up to one CTA per
+SM, each CTA holding a slice of the panel's rows in shared memory (or,
+for a panel too tall for that, streaming it in place), one grid barrier
+per column. This module holds, per kernel:
 
 * the **wrapper** :func:`_panel_qr_kernel` — checks the panel, transposes
   it into a contiguous (nb, m) buffer as the JAX side does, factors that
@@ -13,6 +16,13 @@ bounds it and how it is built). This module holds, per kernel:
   :func:`_panel_qr_plain_c64` — the TPU kernels' algorithm step by step in
   eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch rounds
   every op on its own, so the Veltkamp split holds as written);
+* the **schedule model** :func:`_panel_qr_grid_model` — the CUDA kernel's
+  row partition and one-round merge in eager PyTorch (tests and
+  ``chip_smoke.py`` only);
+* the **launch plan** :func:`kernel_grid` / :func:`kernel_resident` /
+  :func:`kernel_flat_width` — the kernel's row partition, whether the
+  slices fit shared memory, and the leaf width the blocked engine plans
+  with. The launcher only checks the plan it is given;
 * the **launch counts** :data:`LAUNCHES`, one integer per kernel, which
   the wrapper raises by one per launch and nowhere else.
 """
@@ -26,9 +36,24 @@ import torch.nn.functional as F
 
 from dhqr_tpu_torch.ops import _build
 
-# Widest panel one launch takes (csrc/panel_qr.cu kMaxWidth); the blocked
-# engine's recursion splits wider panels into kernel leaves of this width.
+# Widest panel one launch takes (csrc/panel_qr.cu kMaxWidth), and the leaf
+# widths the blocked engine may split a panel into, widest first.
 KERNEL_MAX_WIDTH = 128
+KERNEL_LEAF_WIDTHS = (128, 64, 32, 16)
+# The row partition: at most one CTA per SM and at most KERNEL_MAX_CTAS
+# (csrc/panel_qr.cu kMaxCtas; the launcher refuses more), at least this
+# many rows per CTA.
+KERNEL_MIN_ROWS_PER_CTA = 32
+KERNEL_MAX_CTAS = 144
+# H100 SXM values (NVIDIA's data sheet), used where no card can be asked:
+# SMs, and the opt-in shared memory of one block in bytes.
+H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448
+# Shared memory set aside for the kernel's static arrays (ptxas: 2.7 KB
+# f32, 5.3 KB c64); the launcher checks the fit with the real figure.
+KERNEL_STATIC_SMEM = 8192
+# The kernel indexes a panel's elements with int32.
+KERNEL_MAX_ELEMENTS = 2**31 - 1
 
 KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64"}
 
@@ -40,13 +65,68 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def device_limits(device=None) -> "tuple[int, int]":
+    """(SMs, opt-in shared memory bytes per block) of ``device``'s card;
+    the H100's values for a CPU device or where no card is present."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return H100_SMS, H100_SMEM_PER_BLOCK
+    props = torch.cuda.get_device_properties(device)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin",
+                    H100_SMEM_PER_BLOCK))
+
+
+def kernel_grid(rows: int, sms: int = H100_SMS) -> "tuple[int, int]":
+    """(CTAs, rows per CTA) of the kernel's partition of ``rows`` active
+    rows: at most ``sms`` (and :data:`KERNEL_MAX_CTAS`) CTAs, at least 32
+    rows each where there are enough; the last CTA may hold fewer."""
+    ctas = max(1, min(sms, KERNEL_MAX_CTAS,
+                      -(-rows // KERNEL_MIN_ROWS_PER_CTA)))
+    per = -(-rows // ctas)
+    return -(-rows // per), per
+
+
+def kernel_resident(rows: int, nb: int, dtype, sms: int = H100_SMS,
+                    smem_per_block: int = H100_SMEM_PER_BLOCK) -> bool:
+    """True when each CTA's slice of ``rows`` active rows, ``nb`` columns
+    wide, fits its shared memory on a card of ``sms`` SMs: the kernel then
+    keeps the slice on chip; otherwise it streams the slice in place."""
+    per = kernel_grid(rows, sms)[1]
+    elem = 8 if dtype == torch.complex64 else 4
+    return per * nb * elem <= smem_per_block - KERNEL_STATIC_SMEM
+
+
 def panel_kernel_supported(m: int, nb: int, dtype) -> bool:
     """True when the kernel takes an (m, nb) panel of ``dtype``: float32 or
     complex64, 1 <= nb <= :data:`KERNEL_MAX_WIDTH`, m >= nb, and int32
-    element indices. The panel stays in global memory, so there is no
-    capacity gate beyond that."""
+    element indices. Any height that passes runs on the card: resident in
+    shared memory where it fits (:func:`kernel_resident`), streamed where
+    it does not."""
     return (dtype in KERNELS and 1 <= nb <= KERNEL_MAX_WIDTH and m >= nb
-            and m * nb < 2**31)
+            and m * nb <= KERNEL_MAX_ELEMENTS)
+
+
+def kernel_flat_width(rows: int, dtype, sms: int = H100_SMS,
+                      smem_per_block: int = H100_SMEM_PER_BLOCK) -> int:
+    """The leaf width the blocked engine gives the kernel for panels of
+    ``rows`` rows (its recursion splits a wider panel into leaves this
+    wide): the widest in :data:`KERNEL_LEAF_WIDTHS` whose slices fit the
+    shared memory of a card of ``sms`` SMs; past that, the narrowest, which
+    the kernel streams; 0 for a ``dtype`` the kernel does not take or a
+    leaf past int32 element indices.
+
+    On an H100: 16384 rows f32 -> 128 (125 rows x 512 B per CTA); 65536
+    rows f32 -> 64 (497 rows x 256 B; 512 B would not fit 227 KB); from
+    ~462k rows f32 -> 16, streamed.
+    """
+    narrow = KERNEL_LEAF_WIDTHS[-1]
+    if dtype not in KERNELS or not 1 <= rows * narrow <= KERNEL_MAX_ELEMENTS:
+        return 0
+    for width in KERNEL_LEAF_WIDTHS:
+        if kernel_resident(rows, width, dtype, sms, smem_per_block):
+            return width
+    return narrow
 
 
 # -- plain versions ---------------------------------------------------------
@@ -150,38 +230,193 @@ def _panel_qr_plain_c64(at: torch.Tensor, offset: int) -> torch.Tensor:
 _PLAIN = {torch.float32: _panel_qr_plain, torch.complex64: _panel_qr_plain_c64}
 
 
+# -- the CUDA kernel's schedule, in plain PyTorch ----------------------------
+
+def _comp_merge(s, err, s2, e2):
+    """(s, err) += (s2, e2): the kernel's TwoSum merge, rounded per op."""
+    t = s + s2
+    z = t - s
+    err = (err + ((s - (t - z)) + (s2 - z))) + e2
+    return t, err
+
+
+def _panel_qr_grid_model(at: torch.Tensor, offset: int,
+                         n_slices: int) -> torch.Tensor:
+    """The CUDA kernel's schedule on the CPU: factor ``at`` (nb, m) float32
+    or complex64 in place; returns alpha (nb,).
+
+    The active rows [offset, m) are cut into slices of
+    ceil((m - offset) / n_slices) rows, as the kernel cuts them over that
+    many CTAs (``n_slices`` = :func:`kernel_grid`'s CTAs). Per column,
+    each slice forms its compensated sum of squares (s, err) and its
+    partial dots sum conj(x_i) y_i over its rows >= j; the slices are
+    merged in slice order (TwoSum for the norm), and the one-round
+    identity W = f (<x, y> - conj(alpha) y_j) replaces the dots with v.
+    Within a slice the compensated pair is formed in float64, where every
+    float32 square is exact, and split into two float32 words. Tests and
+    ``chip_smoke.py`` hold it against the JAX kernel, the plain versions
+    and the CUDA kernel.
+    """
+    nb, m = at.shape
+    per = -(-(m - offset) // n_slices)
+    bounds = [(lo, min(m, lo + per)) for lo in range(offset, m, per)]
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32)
+    alpha = at.new_zeros(nb)
+    for jl in range(nb):
+        j = offset + jl
+        x = at[jl]
+        s, err = zero, zero
+        dots = at.new_zeros(nb - jl - 1)
+        for lo, hi in bounds:
+            lo = max(lo, j)
+            if lo >= hi:
+                ps, pe = zero, zero
+                pd = at.new_zeros(nb - jl - 1)
+            else:
+                xs = x[lo:hi]
+                sq = torch.sum(torch.view_as_real(xs).double() ** 2
+                               if xs.is_complex() else xs.double() ** 2)
+                ps = sq.to(f32)
+                pe = (sq - ps.double()).to(f32)
+                pd = torch.matmul(at[jl + 1:, lo:hi], xs.conj())
+            s, err = _comp_merge(s, err, ps, pe)
+            dots = dots + pd
+        sn = torch.sqrt(s + err)
+        a_jj = x[j]
+        if at.is_complex():
+            mag = torch.sqrt(a_jj.real * a_jj.real + a_jj.imag * a_jj.imag)
+            live = mag > 0
+            inv = torch.where(live, 1.0 / torch.where(live, mag, 1.0), 0.0)
+            alpha_j = torch.complex(
+                sn * torch.where(live, -a_jj.real * inv, -1.0),
+                sn * torch.where(live, -a_jj.imag * inv, 0.0))
+        else:
+            mag = a_jj.abs()
+            alpha_j = torch.where(a_jj >= 0, -sn, sn)
+        f = _inv_scale(sn, mag)
+        W = (dots - alpha_j.conj() * at[jl + 1:, j]) * f
+        v = x[j:].clone()
+        v[0] = v[0] - alpha_j
+        v = v * f
+        at[jl + 1:, j:] -= W[:, None] * v[None, :]
+        at[jl, j:] = v
+        alpha[jl] = alpha_j
+    return alpha
+
+
 # -- the kernels ------------------------------------------------------------
 
-_LAUNCHERS: "dict[str, object]" = {}
+_LIBS: "dict[bool, ctypes.CDLL]" = {}
+
+# Sections of a column step timed by the build with -DDHQR_PANEL_PROFILE.
+PROFILE_SECTIONS = ("merge", "column_pass", "trailing_pass", "barrier")
 
 
-def _launcher(name: str):
-    if name not in _LAUNCHERS:
-        lib = _build.load("panel_qr")
+def _library(profile: bool = False) -> ctypes.CDLL:
+    """The kernels' library; ``profile=True`` is the build with section
+    timers, a library of its own."""
+    if profile not in _LIBS:
+        lib = _build.load("panel_qr",
+                          ("DHQR_PANEL_PROFILE",) if profile else ())
         lib.dhqr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dhqr_cuda_error_string.restype = ctypes.c_char_p
+        lib.dhqr_panel_qr_info.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.dhqr_panel_qr_info.restype = ctypes.c_int
+        lib.dhqr_panel_qr_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.dhqr_panel_qr_scratch_floats.restype = ctypes.c_longlong
         for kname in KERNELS.values():
             fn = getattr(lib, f"dhqr_{kname}")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p,
+                           *[ctypes.c_int] * 6, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _LAUNCHERS[kname] = (fn, lib.dhqr_cuda_error_string)
-    return _LAUNCHERS[name]
+        if profile:
+            lib.dhqr_panel_qr_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.dhqr_panel_qr_profile.restype = ctypes.c_int
+        _LIBS[profile] = lib
+    return _LIBS[profile]
 
 
-def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int) -> None:
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _library().dhqr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: cudaError {err} ({msg})")
+
+
+def _plan(m: int, nb: int, offset: int, dtype, device) -> "tuple[int, int, bool]":
+    """(CTAs, rows per CTA, resident) of the launch for an (m, nb) panel at
+    ``offset`` on ``device``'s card."""
+    limits = device_limits(device)
+    ctas, rows = kernel_grid(m - offset, limits[0])
+    return ctas, rows, kernel_resident(m - offset, nb, dtype, *limits)
+
+
+def kernel_launch_info(m: int, nb: int, offset: int, dtype,
+                       device=None) -> dict:
+    """The launch the CUDA kernel makes for an (m, nb) panel at ``offset``
+    on ``device``'s card: CTAs, rows per CTA and residency as planned here,
+    and from the launcher the shared bytes per CTA, registers and spill
+    bytes per thread, resident CTAs per SM and the scratch's floats. Raises
+    what the launch would raise."""
+    device = torch.device("cuda" if device is None else device)
+    ctas, rows, resident = _plan(m, nb, offset, dtype, device)
+    out = (ctypes.c_int * 5)()
+    complex64 = int(dtype == torch.complex64)
+    with torch.cuda.device(device):
+        lib = _library()
+        err = lib.dhqr_panel_qr_info(complex64, m, nb, offset, ctas, rows,
+                                     int(resident), out)
+        _raise_on(err, f"{KERNELS[dtype]} launch plan for ({m}, {nb}) at "
+                  f"{offset}")
+        scratch = lib.dhqr_panel_qr_scratch_floats(complex64, ctas, nb)
+    keys = ("smem_dynamic_bytes", "smem_static_bytes", "registers",
+            "spill_bytes", "ctas_per_sm")
+    return {"ctas": ctas, "rows_per_cta": rows, "resident": resident,
+            **dict(zip(keys, out)), "scratch_floats": scratch}
+
+
+def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
+            profile: bool = False) -> None:
     name = KERNELS[at.dtype]
-    fn, error_string = _launcher(name)
+    lib = _library(profile)
     nb, m = at.shape
     if not (at.is_contiguous() and alpha.is_contiguous()):
         raise ValueError("the panel kernel takes contiguous buffers")
+    ctas, rows, resident = _plan(m, nb, offset, at.dtype, at.device)
+    floats = lib.dhqr_panel_qr_scratch_floats(int(at.dtype == torch.complex64),
+                                              ctas, nb)
+    scratch = torch.empty(floats, dtype=torch.float32, device=at.device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=at.device)
     with torch.cuda.device(at.device):
         stream = torch.cuda.current_stream(at.device).cuda_stream
-        err = fn(at.data_ptr(), alpha.data_ptr(), m, nb, offset, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err} "
-                           f"({error_string(err).decode()})")
+        err = getattr(lib, f"dhqr_{name}")(
+            at.data_ptr(), alpha.data_ptr(), scratch.data_ptr(), floats,
+            barrier.data_ptr(), m, nb, offset, ctas, rows, int(resident),
+            stream)
+    _raise_on(err, f"{name} launch")
     LAUNCHES[name] += 1
+
+
+def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
+    """Factor a CUDA panel once with the kernel's timed build; returns, for
+    each of :data:`PROFILE_SECTIONS`, the SM cycles per column that each
+    CTA's first thread spent there, as the mean and the max over the CTAs.
+    A measurement, not a path of the port."""
+    m, nb = panel.shape
+    at = panel.T.contiguous()
+    alpha = torch.empty(nb, dtype=panel.dtype, device=panel.device)
+    _launch(at, alpha, offset, profile=True)
+    torch.cuda.synchronize(panel.device)
+    ctas = _plan(m, nb, offset, panel.dtype, panel.device)[0]
+    buf = (ctypes.c_ulonglong * (len(PROFILE_SECTIONS) * ctas))()
+    with torch.cuda.device(panel.device):
+        _raise_on(_library(True).dhqr_panel_qr_profile(buf, ctas),
+                  "reading the section timers")
+    cycles = torch.tensor(list(buf), dtype=torch.float64).reshape(ctas, -1) / nb
+    return {"mean": dict(zip(PROFILE_SECTIONS, cycles.mean(0).tolist())),
+            "max": dict(zip(PROFILE_SECTIONS, cycles.max(0).values.tolist()))}
 
 
 def _panel_qr_kernel(panel: torch.Tensor, offset: int):
@@ -189,15 +424,16 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int):
     row ``offset + jj``; returns ``(pf, alpha)`` in the packed storage of
     ``householder._panel_qr_masked``. ``panel`` itself is not modified.
 
-    A CUDA tensor launches the Hopper kernel; a CPU tensor runs the plain
-    version. Anything the kernel does not take raises.
+    A CUDA tensor launches the Hopper kernel (its slices resident in shared
+    memory where they fit, streamed where they do not); a CPU tensor runs
+    the plain version. Anything the kernel does not take raises.
     """
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
         raise ValueError(
-            f"the panel kernel takes float32/complex64 panels with m >= nb "
-            f"and nb <= {KERNEL_MAX_WIDTH}, got {tuple(panel.shape)} "
-            f"{panel.dtype}")
+            f"the panel kernel takes float32/complex64 panels with m >= nb, "
+            f"nb <= {KERNEL_MAX_WIDTH} and at most 2^31 - 1 elements, got "
+            f"{tuple(panel.shape)} {panel.dtype}")
     if not 0 <= offset <= m - nb:
         raise ValueError(f"panel offset {offset} out of range for "
                          f"{tuple(panel.shape)}")

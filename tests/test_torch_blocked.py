@@ -114,16 +114,18 @@ def test_building_blocks_match_jax():
 def test_kernel_routing_modes():
     cuda = torch.device("cuda")  # only its type is read; no card needed
     cpu = torch.device("cpu")
-    assert tbl._resolve_kernel("auto", 1024, 128, torch.float32, cuda)
-    assert tbl._resolve_kernel("auto", 1024, 128, torch.complex64, cuda)
-    assert not tbl._resolve_kernel("auto", 1024, 128, torch.float64, cuda)
-    assert not tbl._resolve_kernel("auto", 1024, 128, torch.float32, cpu)
-    assert tbl._resolve_kernel("always", 1024, 128, torch.float32, cpu)
-    assert not tbl._resolve_kernel("never", 1024, 128, torch.float32, cuda)
+    assert tbl._resolve_kernel("auto", 1024, torch.float32, cuda)
+    assert tbl._resolve_kernel("auto", 1024, torch.complex64, cuda)
+    assert not tbl._resolve_kernel("auto", 1024, torch.float64, cuda)
+    assert not tbl._resolve_kernel("auto", 1024, torch.float32, cpu)
+    assert tbl._resolve_kernel("always", 1024, torch.float32, cpu)
+    assert not tbl._resolve_kernel("never", 1024, torch.float32, cuda)
     with pytest.raises(ValueError):
-        tbl._resolve_kernel("always", 1024, 128, torch.float64, cpu)
+        tbl._resolve_kernel("always", 1024, torch.float64, cpu)
     with pytest.raises(ValueError):
-        tbl._resolve_kernel("sometimes", 1024, 128, torch.float32, cpu)
+        tbl._resolve_kernel("sometimes", 1024, torch.float32, cpu)
+    with pytest.raises(NotImplementedError):  # NotPortedError: int32 indices
+        tbl._resolve_kernel("auto", 2**27, torch.float32, cuda)
 
 
 def test_engine_follows_its_panel_plan(monkeypatch):
@@ -140,11 +142,14 @@ def test_engine_follows_its_panel_plan(monkeypatch):
     A, _ = random_problem(300, 200, np.float32, seed=11)
     tbl.blocked_householder_qr(A, 64, use_pallas="always", device="cpu")
     plan = tbl.panel_plan(300, 200, 64, True, torch.float32)
-    assert [(w, 300 - k) for k, w, on in plan if on] == \
+    assert [(w, 300 - k) for k, w, leaf in plan if leaf] == \
         [(nb, m) for nb, m in calls]
-    assert sum(tbl.kernel_leaves(w) for _, w, on in plan if on) == len(calls)
+    assert {leaf for _, _, leaf in plan} == {128}  # short panels: widest leaf
+    assert sum(tbl.kernel_leaves(w, leaf) for _, w, leaf in plan if leaf) \
+        == len(calls)
     assert tbl.kernel_leaves(128) == 1 and tbl.kernel_leaves(256) == 2
     assert tbl.kernel_leaves(384) == 4  # 192 -> 96 + 96, twice
+    assert tbl.kernel_leaves(128, 64) == 2 and tbl.kernel_leaves(256, 64) == 4
 
 
 def test_wide_panels_split_into_kernel_leaves(monkeypatch):
@@ -160,7 +165,7 @@ def test_wide_panels_split_into_kernel_leaves(monkeypatch):
     monkeypatch.setitem(hp._PLAIN, torch.float32, counting)
     A, _ = random_problem(300, 256, np.float32, seed=12)
     At = torch.from_numpy(A)
-    pf, alpha = tbl._panel_factor_kernel(At, 0)
+    pf, alpha = tbl._panel_factor_kernel(At, 0, tbl.KERNEL_FLAT_WIDTH)
     assert calls == [((128, 300), 0), ((128, 300), 128)]
     pf0, alpha0 = tbl._panel_factor(At, 0)
     torch.testing.assert_close(pf, pf0, atol=5e-4, rtol=5e-4)
@@ -168,5 +173,10 @@ def test_wide_panels_split_into_kernel_leaves(monkeypatch):
 
 
 def test_auto_block_size_is_128():
+    """128-wide panels; 128 is the widest kernel leaf, and the leaf narrows
+    where a 128-wide slice would not fit shared memory."""
     assert tbl.auto_block_size(16384, torch.float32) == 128
     assert tbl.DEFAULT_BLOCK_SIZE == 128 and tbl.KERNEL_FLAT_WIDTH == 128
+    assert tbl.KERNEL_FLAT_WIDTH == max(hp.KERNEL_LEAF_WIDTHS)
+    assert [leaf for _, _, leaf in
+            tbl.panel_plan(65536, 256, 128, True, torch.float32)] == [64, 64]

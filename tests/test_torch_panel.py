@@ -102,6 +102,8 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 
 
 def test_supported_predicate():
+    """Type, width and height; a panel whose slices do not fit shared
+    memory is still taken, streamed (H100 values on the CPU)."""
     assert hp.panel_kernel_supported(16384, 128, torch.float32)
     assert hp.panel_kernel_supported(8192, 128, torch.complex64)
     assert not hp.panel_kernel_supported(8192, 128, torch.float64)
@@ -109,6 +111,10 @@ def test_supported_predicate():
     assert not hp.panel_kernel_supported(8192, 256, torch.float32)
     assert not hp.panel_kernel_supported(64, 128, torch.float32)
     assert not hp.panel_kernel_supported(2**25, 128, torch.float32)
+    assert hp.panel_kernel_supported(65536, 128, torch.float32)
+    assert not hp.kernel_resident(65536, 128, torch.float32)
+    assert hp.kernel_resident(65536, 64, torch.float32)
+    assert not hp.kernel_resident(16384, 128, torch.float32, sms=16)
 
 
 def test_wrapper_leaves_its_input_alone():
@@ -126,7 +132,10 @@ def test_kernel_source_carries_its_note():
     src = (_build.CSRC_DIR / "panel_qr.cu").read_text()
     for needle in ("_panel_kernel ", "_panel_kernel_c64", "3.35 TB/s",
                    "dhqr_panel_qr_f32", "dhqr_panel_qr_c64",
-                   "cudaGetLastError", "fmaf(x, x, -p)"):
+                   "cudaGetLastError", "fmaf(x, x, -p)",
+                   "cudaLaunchCooperativeKernel",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "memory_order_acquire", "__ldcg"):
         assert needle in src
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert set(hp.KERNELS.values()) == set(hp.LAUNCHES)
