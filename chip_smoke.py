@@ -1,24 +1,24 @@
 #!/usr/bin/env python3
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--phases 0,1,2,3,4,5,6]
+    python3 chip_smoke.py [--seed N] [--phases 0,1,2,3,4,5,6,8,9,10]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 run by default, 7 on request):
+on any error (0-6 and 8-10 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
-1. every kernel against its plain PyTorch version on the card, at the main
-   path's panel shapes and at the shapes that stress the kernel's grid (an
+1. every kernel against its plain PyTorch version on the card, at the
+   leading panel shapes of the main, TSQR and gradient paths and at the
+   shapes that stress the kernel's grid (an
    offset inside a CTA's slice, a ragged last CTA, a panel on a few CTAs,
    the tall 64-wide leaf, 12-decade data over every SM, and panels too
    tall for shared memory, which the kernel streams), with its grid,
    residency, shared memory, registers and spills, a bit-identical repeat
-   launch, and at the main path's shapes its time, the plain version's
-   time, ``torch.geqrf``'s time on the same panel (a yardstick the port
-   never calls) and the card's bound for the work (streamed panels: the
-   kernel's time alone);
+   launch, and at the main path's shapes and the streamed ones its time,
+   the plain version's time, ``torch.geqrf``'s time on the same panel (a
+   yardstick the port never calls) and the card's bound for the work;
 2. main path, float32, square: ``qr`` and ``solve`` (each timed on its
    first call, which holds first-use set-up, and on a steady-state second
    call) and ``lstsq`` at 16384 x 16384, backward error and kernel launch
@@ -38,12 +38,36 @@ on any error (0-6 run by default, 7 on request):
    per call at panels from 5 to 132 CTAs, and the SM cycles per column in
    each section of a column step (merge, column pass, trailing pass, grid
    barrier) from a second build with section timers
-   (``-DDHQR_PANEL_PROFILE``).
+   (``-DDHQR_PANEL_PROFILE``);
+8. precision: the ``"high"`` (3 bf16 passes) and ``"default"`` (1 pass)
+   products of ``ops/gemm.py`` on the card against their plain versions at
+   the trailing update's shapes, f32 and c64, with their times and the full
+   FP32 product's; ``qr`` at 16384^2 f32 for each trailing precision
+   (steady-state second call, backward error); ``lstsq`` at 4400 x 4000,
+   f32 and c64, for every ``POLICY_LADDER`` cell and the three presets, as
+   a ratio to numpy's LAPACK QR (``accurate`` must meet 8x, the other
+   rungs must be finite and say whether they do), beside the same ratio of
+   three witnesses (``torch.linalg.lstsq``; the port's factors with Q^H b
+   through an explicit Q; the port on the plain panel loop);
+9. engines at ``BASELINE.json``'s tall-skinny 65536 x 256 f32:
+   ``tsqr_lstsq`` (8 leaves of 8192 x 256; and c64 at 32768 x 256),
+   ``tsqr_r`` (Gram identity), ``cholesky_qr_lstsq`` (shift off and on) and
+   ``lstsq(engine=...)`` for tsqr, cholqr2 and cholqr3, each against
+   ``torch.linalg.lstsq`` (yardstick) under the 8x bar and timed; each
+   TSQR call's kernel launches equal the port's panel plan;
+10. gradients: ``lstsq_diff`` at 4096 x 512 f32 (and 2048 x 256 c64), the
+   gradient of a scalar loss against the float64 normal-equations gradient
+   autograd computes on the card (a yardstick the port never calls), the
+   adjoint identity between ``jvp`` and ``backward``, forward + backward
+   time against the forward alone, and the forward's kernel launches.
 
-Launch counts are zeroed right before phase 2 and read right after
-phase 5 (phases 6 and 7 are measurements and are not counted). Each phase prints one JSON line; then the ``kernels`` line, the
-card's ``nvidia-smi`` name and power limit, and last the result line.
-Imports nothing of JAX or of the JAX package.
+Launch counts are zeroed right before each counted path and read right
+after it: the main path (phases 2-5), the precision path (8), the TSQR
+path (9) and the gradient path (10); the ``kernels`` line sums them.
+Phases 6 and 7 are measurements and are not counted. Each phase prints
+JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
+power limit, and last the result line. Imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -69,6 +93,10 @@ TOL_BACKWARD_F32 = 1e-5   # ||QR - A|| / ||A||, float32 (BASELINE.json)
 TOL_BACKWARD_C64 = 5e-5   # the same, complex64
 TOL_SOLVE_AGREE = 1e-5    # ||x - x2|| / ||x2||, qr().solve vs lstsq
 CRITERION = 8.0           # normal-equations residual factor (reference)
+TOL_BF16 = 1e-5      # bf16 pass vs plain: max|diff| / max(|C| + |A||B|)
+TOL_GRAM = 2e-5      # ||R^H R - A^H A|| / ||A^H A||, f32 TSQR R
+TOL_GRAD = 1e-4      # f32 gradient vs the f64 normal-equations gradient
+TOL_ADJOINT = 1e-4   # |<w, J u> - <J^T w, u>| / |<w, J u>|, f32
 
 KERNEL_SOURCE = "dhqr_tpu_torch/csrc/panel_qr.cu"
 REPLACES = {"panel_qr_f32": "dhqr_tpu/ops/pallas_panel.py:192",
@@ -126,21 +154,6 @@ def random_panel(rng, m, nb, dtype, decades=False):
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
-# -- the reference's oracle (a copy of dhqr_tpu/utils/testing.py's) ----------
-
-def normal_equations_residual(A, x, b) -> float:
-    Ah = A.conj().T
-    return float(np.linalg.norm(Ah @ A @ x - Ah @ b))
-
-
-def oracle_residual(A, b) -> float:
-    import scipy.linalg
-
-    Q, R = np.linalg.qr(A, mode="reduced")
-    x = scipy.linalg.solve_triangular(R, Q.conj().T @ b, lower=False)
-    return normal_equations_residual(A, x, b)
-
-
 def random_problem(m, n, dtype, seed):
     rng = np.random.default_rng(seed)
     if np.issubdtype(np.dtype(dtype), np.complexfloating):
@@ -195,11 +208,25 @@ def phase_kernels(seed):
         ("panel_qr_f32", 16384, 8, 0, True, False, True),      # 132 CTAs
         ("panel_qr_f32", 65536, 128, 0, False, False, False),  # streamed
         ("panel_qr_f32", 524288, 16, 0, False, False, False),  # streamed leaf
+        # the leading panels of the TSQR path (phase 9: leaves of 8192 rows,
+        # a 2048-row combine on 64 and 60 CTAs) and of the gradient path
+        # (phase 10: 4096 rows)
+        ("panel_qr_f32", 8192, 128, 0, False, False, True),
+        ("panel_qr_f32", 8064, 128, 0, False, False, True),
+        ("panel_qr_f32", 2048, 128, 0, False, False, True),
+        ("panel_qr_f32", 1920, 128, 0, False, False, True),
+        ("panel_qr_f32", 4096, 128, 0, False, False, True),
         ("panel_qr_c64", 8192, 128, 0, False, True, True),
         ("panel_qr_c64", 4096, 32, 5, False, False, True),
         ("panel_qr_c64", 131, 128, 3, False, False, True),
         ("panel_qr_c64", 32768, 128, 7, False, False, False),  # streamed
         ("panel_qr_c64", 262144, 16, 3, False, False, False),  # streamed leaf
+        # TSQR (leaves of 4096 rows, a 2048-row combine) and gradient
+        # (2048 rows) panels
+        ("panel_qr_c64", 4096, 128, 0, False, False, True),
+        ("panel_qr_c64", 3968, 128, 0, False, False, True),
+        ("panel_qr_c64", 2048, 128, 0, False, False, True),
+        ("panel_qr_c64", 1920, 128, 0, False, False, True),
     ]
     stats = {}
     for name, m, nb, off, decades, main_shape, resident in cases:
@@ -240,13 +267,14 @@ def phase_kernels(seed):
             ok = ok and dev < TOL_DECADES
         if main_shape or not resident:
             row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off), 5)
-        if main_shape:
             at2 = panel.T.contiguous()
             row["plain_ms"] = cuda_ms(
-                lambda: hp._PLAIN[dtype](at2.copy_(panel.T), off), 2)
+                lambda: hp._PLAIN[dtype](at2.copy_(panel.T), off),
+                2 if main_shape else 1)
             row["library_ms"] = cuda_ms(lambda: torch.geqrf(panel), 5)
             row["bound_ms"], row["bound_by"] = panel_bound(
                 m, nb, dtype == torch.complex64)
+            del at2
         row["ok"] = ok
         emit(row)
         if not ok:
@@ -394,6 +422,11 @@ def phase_complex(dt, hp, seed, m=8192, n=4096):
 
 
 def phase_reference(dt, hp, seed, m=4400, n=4000):
+    from dhqr_tpu_torch.utils.testing import (
+        normal_equations_residual,
+        oracle_residual,
+    )
+
     for dtype, name in ((np.float32, "panel_qr_f32"),
                         (np.complex64, "panel_qr_c64")):
         A, b = random_problem(m, n, dtype, seed + 3)
@@ -469,10 +502,305 @@ def phase_kernel_profile(seed):
     emit({"phase": 7, "name": "sm_clocks", "clocks_sm_now_and_max": clocks})
 
 
+# -- phase 8: precision -----------------------------------------------------
+
+def magnitude(a, b, c=None):
+    """max over entries of |a||b| (+ |c|): the scale a product's rounding
+    is measured against."""
+    mag = torch.matmul(a.abs(), b.abs())
+    if c is not None:
+        mag += c.abs()
+    return float(mag.max())
+
+
+def phase_precision_gemms(seed, m=16384, k=128, n=16256):
+    """The bf16 passes on the card against their plain versions, at the
+    trailing update's shapes: the update product Y Z, the in-place update
+    C - Y Z and the product Y^H C."""
+    from dhqr_tpu_torch.ops import gemm
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    for dtype in (torch.float32, torch.complex64):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+        Y, Z, C = rnd(m, k), rnd(k, n), rnd(m, n)
+        Yh = Y.mH
+        ops = {  # name: (card, plain, full FP32, scale)
+            "Y@Z": (lambda p: gemm.matmul(Y, Z, p),
+                    lambda p: gemm.matmul_plain(Y, Z, p),
+                    lambda: torch.matmul(Y, Z), magnitude(Y, Z)),
+            "C-=Y@Z": (lambda p: gemm.addmm(D, Y, Z, p, inplace=True),
+                       lambda p: gemm.addmm_plain(D, Y, Z, p, inplace=True),
+                       lambda: D.addmm_(Y, Z, alpha=-1), magnitude(Y, Z, C)),
+            "Y^H@C": (lambda p: gemm.matmul(Yh, C, p),
+                      lambda p: gemm.matmul_plain(Yh, C, p),
+                      lambda: torch.matmul(Yh, C), magnitude(Yh, C)),
+        }
+        for op, (card, plain, full, scale) in ops.items():
+            for prec in ("high", "default"):
+                D = C.clone()
+                got = card(prec)
+                D = C.clone()
+                want = plain(prec)
+                err = float((got - want).abs().max()) / scale
+                row = {"phase": 8, "name": "bf16_gemm", "op": op,
+                       "dtype": str(dtype).split(".")[-1], "precision": prec,
+                       "shape": [m, k, n], "err_vs_plain": err,
+                       "tol": TOL_BF16, "out_dtype": str(got.dtype),
+                       "ms": cuda_ms(lambda: card(prec), 5),
+                       "plain_ms": cuda_ms(lambda: plain(prec), 2),
+                       "highest_ms": cuda_ms(full, 5)}
+                row["ok"] = err <= TOL_BF16 and got.dtype == dtype
+                emit(row)
+                if not row["ok"]:
+                    raise AssertionError(f"bf16 pass check failed: {row}")
+                del got, want, D
+        del Y, Z, C, Yh
+        torch.cuda.empty_cache()
+
+
+def phase_precision_qr(dt, hp, seed, n=16384):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.rand((n, n), generator=g, device="cuda", dtype=torch.float32)
+    expect = expected_launches(n, n, torch.float32)
+    for trailing in ("highest", "high", "default"):
+        l0 = hp.LAUNCHES["panel_qr_f32"]
+        fact, t_first = wall(lambda: dt.qr(A, trailing_precision=trailing))
+        del fact
+        fact, t_factor = wall(lambda: dt.qr(A, trailing_precision=trailing))
+        launches = hp.LAUNCHES["panel_qr_f32"] - l0
+        R = fact.r_matrix()
+        QR = fact.matmul_q(R)
+        backward = float(torch.linalg.vector_norm((QR - A).double())
+                         / torch.linalg.vector_norm(A.double()))
+        del QR, R, fact
+        torch.cuda.empty_cache()
+        row = {"phase": 8, "name": "qr_trailing_precision", "shape": [n, n],
+               "trailing_precision": trailing, "factor_first_s": t_first,
+               "factor_s": t_factor,
+               "gflops": 4.0 / 3.0 * n ** 3 / t_factor / 1e9,
+               "backward_error": backward, "tol_backward": TOL_BACKWARD_F32,
+               "meets_tol": backward < TOL_BACKWARD_F32,
+               "launches": launches, "expected": 2 * expect}
+        row["ok"] = (bool(np.isfinite(backward)) and launches == 2 * expect
+                     and (trailing != "highest" or row["meets_tol"]))
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"qr trailing precision failed: {row}")
+
+
+def phase_precision_lstsq(dt, seed, m=4400, n=4000):
+    """Every POLICY_LADDER cell and preset at the reference's largest size,
+    on the reference's criterion: the normal-equations residual evaluated
+    with numpy in the input's precision (``utils/testing.py``; A^H A and
+    A^H b are formed once per dtype, the same operations in the same
+    order), as a ratio to numpy's LAPACK QR solution's. The same ratio
+    evaluated in float64 on the card is printed beside it, and both ratios
+    of three witnesses: ``torch.linalg.lstsq`` on the card (a yardstick the
+    port never calls), the port's own factors with Q^H b through an
+    explicit Q, and the port with its panels on the plain panel loop
+    (``use_pallas="never"``)."""
+    from dhqr_tpu_torch.precision import POLICY_LADDER, PRECISION_POLICIES
+    from dhqr_tpu_torch.utils.testing import lapack_lstsq
+
+    cells = [(f"highest/{p.resolved_trailing()}/r{p.refine}", p)
+             for p in POLICY_LADDER] + list(PRECISION_POLICIES.items())
+    for dtype in (np.float32, np.complex64):
+        A, b = random_problem(m, n, dtype, seed + 3)
+        x_lapack = lapack_lstsq(A, b)
+        Ah = A.conj().T
+        gram, rhs = Ah @ A, Ah @ b
+        At, bt = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
+        wide = torch.complex128 if At.is_complex() else torch.float64
+        A64, b64 = At.to(wide), bt.to(wide)
+
+        def ne(x):  # normal_equations_residual(A, x, b)
+            return float(np.linalg.norm(gram @ x - rhs))
+
+        def ne64(x):
+            x = torch.as_tensor(x, device="cuda").to(wide)
+            return float(torch.linalg.vector_norm(A64.mH @ (A64 @ x - b64)))
+
+        oracle, oracle64 = ne(x_lapack), ne64(x_lapack)
+        for name, pol in cells:
+            x, t = wall(lambda: dt.lstsq(At, bt, policy=pol))
+            finite = bool(torch.isfinite(torch.view_as_real(x) if x.is_complex()
+                                         else x).all())
+            ratio = ne(x.cpu().numpy()) / oracle
+            row = {"phase": 8, "name": "lstsq_policy", "policy": name,
+                   "dtype": np.dtype(dtype).name, "shape": [m, n],
+                   "lstsq_s": t, "ratio_to_lapack": ratio,
+                   "ratio_to_lapack_f64_eval": ne64(x) / oracle64,
+                   "criterion": CRITERION, "meets_8x": ratio < CRITERION,
+                   "finite": finite}
+            row["ok"] = finite and (name != "accurate" or row["meets_8x"])
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"lstsq policy cell failed: {row}")
+
+        def explicit_q():  # the port's factors, Q^H b through Q formed whole
+            fact = dt.qr(At)
+            c = fact.q_columns().mH @ bt
+            return torch.linalg.solve_triangular(
+                fact.r_matrix(), c[:, None], upper=True)[:, 0]
+
+        witnesses = {  # second opinions on the f64-evaluated ratio
+            "torch_linalg_lstsq": lambda: torch.linalg.lstsq(
+                At, bt[:, None]).solution[:, 0],
+            "port_qr_explicit_q": explicit_q,
+            "port_plain_panels": lambda: dt.lstsq(At, bt, use_pallas="never")}
+        for name, fn in witnesses.items():
+            x, t = wall(fn)
+            emit({"phase": 8, "name": "lstsq_witness", "solver": name,
+                  "dtype": np.dtype(dtype).name, "shape": [m, n], "s": t,
+                  "ratio_to_lapack": ne(x.cpu().numpy()) / oracle,
+                  "ratio_to_lapack_f64_eval": ne64(x) / oracle64})
+        del At, bt, A64, b64
+        torch.cuda.empty_cache()
+
+
+# -- phase 9: the tall-skinny engines -----------------------------------------
+
+def tsqr_expected_launches(m, n, n_blocks, dtype):
+    """Kernel leaves of one TSQR call by the port's own panel plans for its
+    leaves and its combine."""
+    from dhqr_tpu_torch.ops import blocked, tsqr
+
+    cuda = torch.device("cuda")
+    kernel = blocked._resolve_kernel("auto", m // n_blocks, dtype, cuda)
+    return sum(count * sum(blocked.kernel_leaves(w, leaf)
+                           for _, w, leaf in plan if leaf)
+               for plan, count in tsqr.tsqr_panel_plans(
+                   m, n, n_blocks, blocked.DEFAULT_BLOCK_SIZE, kernel, dtype,
+                   cuda))
+
+
+def phase_engines(dt, hp, seed, shapes=((65536, 256, torch.float32),
+                                        (32768, 256, torch.complex64))):
+    for i, (m, n, dtype) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(seed + 9 + i)
+        A = torch.rand((m, n), generator=g, device="cuda", dtype=dtype)
+        b = torch.rand((m,), generator=g, device="cuda", dtype=dtype)
+        kname = hp.KERNELS[dtype]
+        wide = torch.complex128 if A.is_complex() else torch.float64
+        A64, b64 = A.to(wide), b.to(wide)
+
+        def ne(x):
+            return float(torch.linalg.vector_norm(
+                A64.mH @ (A64 @ x.to(wide) - b64)))
+
+        ref = lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0]  # noqa: E731
+        wall(ref)
+        x_ref, t_ref = wall(ref)
+        res_ref = ne(x_ref)
+        tsqr = tsqr_expected_launches(m, n, 8, dtype)
+        cases = [("tsqr_lstsq", lambda: dt.tsqr_lstsq(A, b, n_blocks=8), tsqr),
+                 ("lstsq_engine_tsqr", lambda: dt.lstsq(A, b, engine="tsqr"),
+                  tsqr)]
+        if dtype == torch.float32:
+            cases += [
+                ("cholesky_qr_lstsq", lambda: dt.cholesky_qr_lstsq(A, b), 0),
+                ("cholesky_qr_lstsq_shift",
+                 lambda: dt.cholesky_qr_lstsq(A, b, shift=True), 0),
+                ("lstsq_engine_cholqr2",
+                 lambda: dt.lstsq(A, b, engine="cholqr2"), 0),
+                ("lstsq_engine_cholqr3",
+                 lambda: dt.lstsq(A, b, engine="cholqr3"), 0)]
+        for name, fn, expect in cases:
+            l0 = hp.LAUNCHES[kname]
+            x, t_first = wall(fn)
+            launches = hp.LAUNCHES[kname] - l0
+            x, t = wall(fn)
+            res = ne(x)
+            row = {"phase": 9, "name": name, "dtype": str(dtype).split(".")[-1],
+                   "shape": [m, n], "first_s": t_first, "s": t,
+                   "torch_lstsq_s": t_ref, "normal_eq_residual": res,
+                   "torch_lstsq_residual": res_ref, "ratio": res / res_ref,
+                   "criterion": CRITERION, "launches": launches,
+                   "expected": expect}
+            row["ok"] = (bool(np.isfinite(res)) and res <= CRITERION * res_ref
+                         and launches == expect)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"engine check failed: {row}")
+        l0 = hp.LAUNCHES[kname]
+        R, t_first = wall(lambda: dt.tsqr_r(A, n_blocks=8))
+        launches = hp.LAUNCHES[kname] - l0
+        R, t = wall(lambda: dt.tsqr_r(A, n_blocks=8))
+        G = A64.mH @ A64
+        R64 = R.to(wide)
+        gram = float(torch.linalg.matrix_norm(R64.mH @ R64 - G)
+                     / torch.linalg.matrix_norm(G))
+        row = {"phase": 9, "name": "tsqr_r", "dtype": str(dtype).split(".")[-1],
+               "shape": [m, n], "first_s": t_first, "s": t,
+               "gram_rel_err": gram, "tol_gram": TOL_GRAM,
+               "launches": launches, "expected": tsqr}
+        row["ok"] = gram <= TOL_GRAM and launches == tsqr
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"tsqr_r check failed: {row}")
+        del A, b, A64, b64, G, R, R64
+        torch.cuda.empty_cache()
+
+
+# -- phase 10: gradients ------------------------------------------------------
+
+def phase_gradients(dt, hp, seed, shapes=((4096, 512, torch.float32),
+                                          (2048, 256, torch.complex64))):
+    for i, (m, n, dtype) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(seed + 10 + i)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+        A, b, w, dA, db = rnd(m, n), rnd(m), rnd(n), rnd(m, n), rnd(m)
+        kname = hp.KERNELS[dtype]
+        expect = expected_launches(m, n, dtype)
+
+        def grads(A, b, solve):
+            At = A.detach().clone().requires_grad_()
+            bt = b.detach().clone().requires_grad_()
+            x = solve(At, bt)
+            torch.real(torch.vdot(w.to(x.dtype), x)).backward()
+            return x, At.grad, bt.grad
+
+        l0 = hp.LAUNCHES[kname]
+        x, gA, gb = grads(A, b, dt.lstsq_diff)
+        launches = hp.LAUNCHES[kname] - l0
+        wide = torch.complex128 if A.is_complex() else torch.float64
+
+        def normal_equations(A, b):  # the yardstick, float64 autograd
+            return torch.linalg.solve(A.mH @ A, A.mH @ b)
+
+        _, gA64, gb64 = grads(A.to(wide), b.to(wide), normal_equations)
+        err = max(rel_err(gA.to(wide), gA64), rel_err(gb.to(wide), gb64))
+        _, Ju = torch.func.jvp(dt.lstsq_diff, (A, b), (dA, db))
+        lhs = float(torch.real(torch.vdot(w, Ju)))
+        rhs = float(torch.real(torch.vdot(gA.flatten(), dA.flatten())
+                               + torch.vdot(gb, db)))
+        adjoint = abs(lhs - rhs) / abs(lhs)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: dt.lstsq_diff(A, b), 3)
+        fwd_bwd_ms = cuda_ms(lambda: grads(A, b, dt.lstsq_diff), 3)
+        row = {"phase": 10, "name": "lstsq_diff_gradient",
+               "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+               "grad_rel_err_vs_f64": err, "tol_grad": TOL_GRAD,
+               "adjoint_rel_err": adjoint, "tol_adjoint": TOL_ADJOINT,
+               "forward_ms": fwd_ms, "forward_backward_ms": fwd_bwd_ms,
+               "backward_over_forward": fwd_bwd_ms / fwd_ms - 1.0,
+               "launches_forward": launches, "expected": expect}
+        row["ok"] = (err <= TOL_GRAD and adjoint <= TOL_ADJOINT
+                     and launches == expect)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"gradient check failed: {row}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     args = ap.parse_args(argv)
@@ -491,29 +819,49 @@ def main(argv=None) -> int:
 
     smi = phase_setup()
     stats = phase_kernels(args.seed) if 1 in phases else {}
-    hp.reset_launches()  # counts from here on are the main path's
-    if 2 in phases:
-        phase_square(dt, hp, args.seed)
-    if 3 in phases:
-        phase_tall(dt, hp, args.seed)
-    if 4 in phases:
-        phase_complex(dt, hp, args.seed)
-    if 5 in phases:
-        phase_reference(dt, hp, args.seed)
-    counts = dict(hp.LAUNCHES)
+    paths = {}  # launches per counted path: zeroed before it, read after
+
+    def main_path():
+        if 2 in phases:
+            phase_square(dt, hp, args.seed)
+        if 3 in phases:
+            phase_tall(dt, hp, args.seed)
+        if 4 in phases:
+            phase_complex(dt, hp, args.seed)
+        if 5 in phases:
+            phase_reference(dt, hp, args.seed)
+
+    def counted(key, drive):
+        hp.reset_launches()
+        drive()
+        paths[key] = dict(hp.LAUNCHES)
+
+    if phases & {2, 3, 4, 5}:
+        counted("main", main_path)
     if 6 in phases:
         phase_breakdown(dt, args.seed)
     if 7 in phases:
         phase_kernel_profile(args.seed)
-    main_path = phases & {2, 3, 4, 5}
+    if 8 in phases:
+        counted("precision", lambda: (phase_precision_gemms(args.seed),
+                                      phase_precision_qr(dt, hp, args.seed),
+                                      phase_precision_lstsq(dt, args.seed)))
+    if 9 in phases:
+        counted("tsqr", lambda: phase_engines(dt, hp, args.seed))
+    if 10 in phases:
+        counted("gradients", lambda: phase_gradients(dt, hp, args.seed))
+    emit({"launches_by_path": paths})
     kernels = []
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
-        if main_path and counts[name] < 1:
-            raise AssertionError(f"{name} never launched on the main path")
+        for key in ("main", "tsqr", "gradients"):
+            if key in paths and paths[key][name] < 1:
+                raise AssertionError(f"{name} never launched on the {key} "
+                                     "path")
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in paths.values()),
             "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
             "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
             "bound_by": st.get("bound_by"),

@@ -3,20 +3,38 @@
 Same packed Householder storage as the JAX package (reflectors with
 ||v||^2 = 2 below the diagonal, R's strict upper triangle in ``H``, R's
 diagonal in ``alpha``), same public names. GEMMs and triangular solves go
-to PyTorch (cuBLAS on the card); the fused panel factorization — a Pallas
-kernel in the JAX package — is a CUDA C++ kernel written for ``sm_90a``
+to PyTorch (cuBLAS on the card; the lower precision names as bf16 passes,
+``ops/gemm.py``); the fused panel factorization — a Pallas kernel in the
+JAX package — is a CUDA C++ kernel written for ``sm_90a``
 (``csrc/panel_qr.cu``), built with nvcc at first use.
 
     >>> fact = dhqr_tpu_torch.qr(A)          # on the CUDA card by default
     >>> x = fact.solve(b)
-    >>> x = dhqr_tpu_torch.lstsq(A, b)
+    >>> x = dhqr_tpu_torch.lstsq(A, b)       # differentiable (autograd)
+    >>> x = dhqr_tpu_torch.lstsq(A, b, engine="tsqr")
+    >>> x = dhqr_tpu_torch.lstsq(A, b, policy="balanced")
     >>> x = dhqr_tpu_torch.lstsq(A, b, device="cpu")   # plain PyTorch path
 
 This package imports neither ``jax`` nor ``dhqr_tpu``.
 """
 
-from dhqr_tpu_torch.models.qr_model import QRFactorization, lstsq, qr, solve
+from dhqr_tpu_torch.models.qr_model import (
+    QRFactorization,
+    lstsq,
+    qr,
+    qr_explicit,
+    solve,
+)
+from dhqr_tpu_torch.numeric.errors import (
+    Breakdown,
+    IllConditioned,
+    NonFiniteInput,
+    NumericalError,
+    ResidualGateFailed,
+)
 from dhqr_tpu_torch.ops.blocked import blocked_householder_qr
+from dhqr_tpu_torch.ops.cholqr import cholesky_qr2, cholesky_qr_lstsq
+from dhqr_tpu_torch.ops.differentiable import lstsq_diff
 from dhqr_tpu_torch.ops.householder import alphafactor, householder_qr
 from dhqr_tpu_torch.ops.solve import (
     apply_q,
@@ -24,23 +42,45 @@ from dhqr_tpu_torch.ops.solve import (
     back_substitute,
     solve_least_squares,
 )
+from dhqr_tpu_torch.ops.tsqr import tsqr_lstsq, tsqr_r
+from dhqr_tpu_torch.precision import (
+    POLICY_LADDER,
+    PRECISION_POLICIES,
+    PrecisionPolicy,
+    resolve_policy,
+)
 from dhqr_tpu_torch.utils.config import DHQRConfig, NotPortedError
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Breakdown",
     "DHQRConfig",
+    "IllConditioned",
+    "NonFiniteInput",
     "NotPortedError",
+    "NumericalError",
+    "POLICY_LADDER",
+    "PRECISION_POLICIES",
+    "PrecisionPolicy",
     "QRFactorization",
+    "ResidualGateFailed",
     "alphafactor",
     "apply_q",
     "apply_qt",
     "back_substitute",
     "blocked_householder_qr",
+    "cholesky_qr2",
+    "cholesky_qr_lstsq",
     "householder_qr",
     "lstsq",
+    "lstsq_diff",
     "qr",
+    "qr_explicit",
+    "resolve_policy",
     "solve",
     "solve_least_squares",
+    "tsqr_lstsq",
+    "tsqr_r",
     "__version__",
 ]

@@ -2,12 +2,15 @@
 (single-device tier).
 
 * :class:`QRFactorization` holds the packed factorization ``(H, alpha)``;
-* :func:`qr` factors, :meth:`QRFactorization.solve` / :func:`solve` solve;
+* :func:`qr` factors, :meth:`QRFactorization.solve` / :func:`solve` solve,
+  :func:`qr_explicit` returns ``(Q, R)``;
 * :func:`lstsq` is the one-shot least-squares solve (minimum-norm for
-  m < n).
+  m < n), routed by ``engine`` to the blocked Householder engine (through
+  the differentiable :func:`~dhqr_tpu_torch.ops.differentiable.lstsq_diff`),
+  TSQR or CholeskyQR.
 
-Knobs the port does not run yet (mesh, policy, plan, guards, the alternate
-engines, lookahead/aggregation, the lower precisions) raise
+Knobs the port does not run yet (mesh, plan, guards, sketch,
+lookahead/aggregation, compressed comms) raise
 :class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the ROADMAP
 item that brings them.
 """
@@ -22,8 +25,22 @@ import torch
 from dhqr_tpu_torch.ops import blocked as _blocked
 from dhqr_tpu_torch.ops import householder as _hh
 from dhqr_tpu_torch.ops import solve as _solve
-from dhqr_tpu_torch.utils.config import DHQRConfig, refuse_unported
+from dhqr_tpu_torch.ops.cholqr import cholesky_qr_lstsq
+from dhqr_tpu_torch.ops.differentiable import lstsq_diff
+from dhqr_tpu_torch.ops.tsqr import tsqr_lstsq
+from dhqr_tpu_torch.precision import (
+    apply_policy_to_factor_args,
+    resolve_comms,
+    resolve_policy,
+)
+from dhqr_tpu_torch.utils.config import (
+    ENGINES,
+    DHQRConfig,
+    refuse_unported,
+)
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
+
+LSTSQ_ENGINES = ENGINES
 
 
 @dataclasses.dataclass
@@ -35,9 +52,11 @@ class QRFactorization:
          R's strict upper triangle in rows < j.
       alpha: (n,) — R's diagonal.
       block_size: compact-WY panel width used to apply Q/Q^H in solves.
-      precision: matmul precision of the solves ("highest").
+      precision: matmul precision of the solves' Q/Q^H applies (a policy's
+        ``apply`` field when built by ``qr(A, policy=...)``).
       refine: iterative-refinement sweeps :meth:`solve` runs by default.
-      matrix: the original A, needed only by refinement.
+      matrix: the original A, kept only when refinement was requested at
+        factor time (the residual must be measured against the true A).
     """
 
     H: torch.Tensor
@@ -83,32 +102,36 @@ class QRFactorization:
         return torch.sum(d > rtol * d.max())
 
     def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
-        c = _blocked._apply_qt_impl(self.H, b, self.block_size)
+        c = _blocked._apply_qt_impl(self.H, b, self.block_size, self.precision)
         return _solve._back_substitute(self.H, self.alpha, c)
 
     def solve(self, b, refine: Optional[int] = None) -> torch.Tensor:
         """Least-squares solve ``x = argmin ||A x - b||``: apply Q^H,
         back-substitute R. ``refine`` sweeps (default: the recorded count)
-        of ``x += solve(b - A x)`` need the original ``matrix``."""
+        of ``x += solve(b - A x)``, residual at full precision, need the
+        original ``matrix``."""
         steps = self.refine if refine is None else int(refine)
         b = self._rhs(b)
         x = self._solve_once(b)
         if steps:
             if self.matrix is None:
                 raise ValueError(
-                    "refinement needs the original matrix: build the "
-                    "factorization with matrix=A, or pass refine=0")
+                    "refinement needs the original matrix: factor with "
+                    "qr(A, policy=...) (policy.refine > 0 keeps A on the "
+                    "factorization), or pass refine=0")
             for _ in range(steps):
                 x = x + self._solve_once(b - torch.matmul(self.matrix, x))
         return x
 
     def matmul_q(self, b) -> torch.Tensor:
         """Q @ b (b of length m, or (m, k))."""
-        return _blocked._apply_q_impl(self.H, self._rhs(b), self.block_size)
+        return _blocked._apply_q_impl(self.H, self._rhs(b), self.block_size,
+                                      self.precision)
 
     def matmul_qt(self, b) -> torch.Tensor:
         """Q^H @ b."""
-        return _blocked._apply_qt_impl(self.H, self._rhs(b), self.block_size)
+        return _blocked._apply_qt_impl(self.H, self._rhs(b), self.block_size,
+                                       self.precision)
 
 
 def _reject_nonblocked_knobs(cfg: DHQRConfig) -> None:
@@ -116,14 +139,58 @@ def _reject_nonblocked_knobs(cfg: DHQRConfig) -> None:
         raise ValueError(
             "use_pallas applies to the blocked engines only "
             f"(got use_pallas={cfg.use_pallas!r} with blocked=False)")
+    if cfg.trailing_precision is not None:
+        raise ValueError(
+            "trailing_precision applies to the blocked engines only "
+            f"(got {cfg.trailing_precision!r} with blocked=False)")
 
 
-def _resolved(config, overrides, mesh) -> DHQRConfig:
+def _resolve_policy_cfg(cfg: DHQRConfig):
+    """Resolve ``cfg.policy`` into the classic precision knobs (shared by
+    ``qr`` and ``lstsq``).
+
+    Returns ``(cfg', policy-or-None)``: the returned config carries
+    ``precision``/``trailing_precision``/``apply_precision`` from the policy
+    and ``policy=None``; ``refine`` rides back on the policy for the caller
+    to place (``qr`` records it on the factorization, ``lstsq`` maps it into
+    ``cfg.refine``). A policy is mutually exclusive with setting the knobs
+    it resolves. ``comms`` is normalized first ("f32"/"none" -> None).
+    """
+    if cfg.comms is not None:
+        cfg = dataclasses.replace(cfg, comms=resolve_comms(cfg.comms))
+    if cfg.policy is None:
+        return cfg, None
+    pol = resolve_policy(cfg.policy)
+    precision, trailing = apply_policy_to_factor_args(
+        pol, cfg.precision, cfg.trailing_precision,
+        default_precision=DHQRConfig.precision)
+    if cfg.refine:
+        raise ValueError(
+            "pass either policy= or refine=, not both "
+            f"(policy sets refine={pol.refine})")
+    if cfg.apply_precision is not None:
+        raise ValueError(
+            "pass either policy= or apply_precision=, not both "
+            f"(policy resolves apply to {pol.resolved_apply()!r})")
+    if cfg.comms is not None:
+        raise ValueError(
+            "pass either policy= or comms=, not both "
+            f"(policy sets the wire format to {pol.comms!r})")
+    apply = pol.resolved_apply()
+    cfg = dataclasses.replace(
+        cfg, precision=precision, trailing_precision=trailing,
+        apply_precision=None if apply == pol.panel else apply,
+        comms=pol.comms, policy=None)
+    return cfg, pol
+
+
+def _resolved(config, overrides, mesh):
     cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
+    cfg, pol = _resolve_policy_cfg(cfg)
     refuse_unported(cfg, mesh)
     if cfg.block_size is None:
         cfg = dataclasses.replace(cfg, block_size=_blocked.DEFAULT_BLOCK_SIZE)
-    return cfg
+    return cfg, pol
 
 
 def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
@@ -133,26 +200,49 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     >>> fact = qr(A)                  # blocked compact-WY, panels on the kernel
     >>> fact = qr(A, blocked=False)   # unblocked reference-parity engine
     >>> fact = qr(A, donate=True)     # factors in place in A's storage
+    >>> fact = qr(A, policy="balanced")  # bf16x3 trailing GEMMs, refined solves
 
+    ``policy=`` names the precision tuple at once: panel and trailing
+    precision go to the factor engine, ``apply`` becomes the
+    factorization's solve precision, and ``refine > 0`` arms refinement in
+    every later ``.solve(b)`` (the factorization then keeps A).
     ``device=None`` runs on the CUDA card (inputs are moved there).
     """
-    cfg = _resolved(config, overrides, mesh)
+    cfg, pol = _resolved(config, overrides, mesh)
+    if cfg.engine != "householder":
+        raise ValueError(
+            f"qr() supports only engine='householder' (got {cfg.engine!r}): "
+            "the factorization object stores packed reflectors; the "
+            "tsqr/cholqr engines are lstsq-only paths")
     if cfg.refine:
         raise ValueError(
             "refine applies to lstsq() only — qr() returns the raw "
-            "factorization; use lstsq(A, b, refine=...)")
+            "factorization; use lstsq(A, b, refine=...), or pass a policy= "
+            "with refine > 0 (which arms refinement on the solves)")
+    solve_refine = pol.refine if pol is not None else 0
+    if solve_refine and donate:
+        raise ValueError(
+            "donate=True cannot be combined with a refining policy: "
+            "refinement must keep the original A, which donation "
+            "invalidates")
     A = as_tensor(A, device)
     check_fp32_matmul(A.device)
     if cfg.blocked:
         H, alpha = _blocked.blocked_householder_qr(
-            A, cfg.block_size, donate=donate, use_pallas=cfg.use_pallas,
-            norm=cfg.norm, panel_impl=cfg.panel_impl, device=A.device)
+            A, cfg.block_size, donate=donate, precision=cfg.precision,
+            use_pallas=cfg.use_pallas, norm=cfg.norm,
+            panel_impl=cfg.panel_impl,
+            trailing_precision=cfg.trailing_precision, device=A.device)
     else:
         if donate:
             raise ValueError("donate=True is only supported on the blocked path")
         _reject_nonblocked_knobs(cfg)
-        H, alpha = _hh.householder_qr(A, norm=cfg.norm, device=A.device)
-    return QRFactorization(H, alpha, block_size=cfg.block_size)
+        H, alpha = _hh.householder_qr(A, precision=cfg.precision,
+                                      norm=cfg.norm, device=A.device)
+    return QRFactorization(
+        H, alpha, block_size=cfg.block_size,
+        precision=cfg.apply_precision or cfg.precision, refine=solve_refine,
+        matrix=A if solve_refine else None)
 
 
 def solve(fact: QRFactorization, b) -> torch.Tensor:
@@ -160,35 +250,134 @@ def solve(fact: QRFactorization, b) -> torch.Tensor:
     return fact.solve(b)
 
 
+def qr_explicit(A, config: Optional[DHQRConfig] = None, mesh=None,
+                device=None, **overrides):
+    """Explicit reduced factors ``(Q, R)`` — the ``torch.linalg.qr`` shape:
+    Q (m, n) with orthonormal columns, R (n, n) upper-triangular. The
+    packed form (:func:`qr`) is cheaper when only solves are needed."""
+    fact = qr(A, config=config, mesh=mesh, device=device, **overrides)
+    return fact.q_columns(), fact.r_matrix()
+
+
 def _minimum_norm_impl(A: torch.Tensor, b: torch.Tensor, block_size: int,
+                       precision: str = _hh.DEFAULT_PRECISION,
                        norm: str = "accurate") -> torch.Tensor:
     """Underdetermined (m < n, full row rank): factor A^H = Q R, then
     ``x = Q R^{-H} b`` is the minimum-norm solution of A x = b."""
     m, n = A.shape
-    H, alpha = _blocked._blocked_qr_impl(A.mH.clone(), block_size, norm=norm)
+    H, alpha = _blocked._blocked_qr_impl(A.mH.clone(), block_size, norm=norm,
+                                         precision=precision)
     R = _solve.r_matrix(H, alpha)  # (m, m) upper; A = R^H Q^H
     B = b[:, None] if b.ndim == 1 else b
     Y = torch.linalg.solve_triangular(R.mH, B, upper=False)  # R^H Y = b
     Yp = Y.new_zeros((n,) + tuple(Y.shape[1:]))
     Yp[:m] = Y
-    X = _blocked._apply_q_impl(H, Yp, block_size)
+    X = _blocked._apply_q_impl(H, Yp, block_size, precision)
     return X[:, 0] if b.ndim == 1 else X
+
+
+def _validate_alt_engine_cfg(cfg: DHQRConfig) -> None:
+    """Option rejections shared by every route into the alt engines (the
+    plain path and the refine path)."""
+    if cfg.layout != "block":
+        raise ValueError(
+            f"layout applies only to the householder engines; "
+            f"engine={cfg.engine!r} shards rows (layout={cfg.layout!r})")
+    if cfg.engine != "tsqr" and cfg.use_pallas != "auto":
+        raise ValueError(
+            f"use_pallas applies to engines with panel loops (householder, "
+            f"tsqr); engine={cfg.engine!r} is all-GEMM "
+            f"(use_pallas={cfg.use_pallas!r})")
+    if cfg.trailing_precision is not None:
+        raise ValueError(
+            "trailing_precision applies to the blocked householder engines "
+            f"only (engine={cfg.engine!r}; the ops-level entry points "
+            "accept a policy= directly — tsqr_lstsq, cholesky_qr_lstsq)")
+    if cfg.apply_precision is not None:
+        raise ValueError(
+            "apply_precision applies to the householder engines only "
+            f"(engine={cfg.engine!r})")
+
+
+def _lstsq_impl(A, b, cfg: DHQRConfig):
+    """The householder engine, m >= n: blocked through ``lstsq_diff``
+    (gradients at every ``refine``), or the unblocked engine."""
+    if cfg.blocked:
+        return lstsq_diff(
+            A, b, cfg.block_size, cfg.precision, cfg.use_pallas, cfg.norm,
+            cfg.panel_impl, cfg.refine, cfg.trailing_precision,
+            apply_precision=cfg.apply_precision, device=A.device)
+    _reject_nonblocked_knobs(cfg)
+    H, alpha = _hh.householder_qr(A, precision=cfg.precision, norm=cfg.norm,
+                                  device=A.device)
+    ap = cfg.apply_precision or cfg.precision
+
+    def qr_solve(rhs):
+        return _solve._back_substitute(
+            H, alpha, _solve.apply_qt(H, alpha, rhs, precision=ap,
+                                      device=A.device))
+
+    x = qr_solve(b)
+    for _ in range(cfg.refine):
+        x = x + qr_solve(b - torch.matmul(A, x))
+    return x
+
+
+def _lstsq_refined(A, b, cfg: DHQRConfig):
+    """``refine`` sweeps of iterative refinement around one factorization:
+    the householder engine refines inside ``lstsq_diff``'s forward
+    (gradients intact), the cholqr engines reuse their explicit (Q, R);
+    tsqr refuses (its tree keeps no reusable factorization, so each sweep
+    would repeat the whole factorization)."""
+    if cfg.engine == "tsqr":
+        raise ValueError(
+            "refine is not supported with engine='tsqr' (no reusable "
+            "factorization in the tree); use householder or cholqr")
+    if cfg.engine in ("cholqr2", "cholqr3"):
+        _validate_alt_engine_cfg(cfg)
+        return cholesky_qr_lstsq(A, b, precision=cfg.precision,
+                                 shift=cfg.engine == "cholqr3",
+                                 refine=cfg.refine, device=A.device)
+    return _lstsq_impl(A, b, cfg)
+
+
+def _lstsq_alt_engine(A, b, cfg: DHQRConfig):
+    """Route ``lstsq`` to TSQR ("tsqr", row blocks looped, leaves on the
+    panel kernel) or CholeskyQR ("cholqr2"/"cholqr3", all GEMMs)."""
+    _validate_alt_engine_cfg(cfg)
+    if cfg.engine == "tsqr":
+        m, n = A.shape
+        n_blocks = max(1, min(8, m // max(n, 1)))
+        while n_blocks > 1 and m % n_blocks:
+            n_blocks -= 1
+        return tsqr_lstsq(A, b, n_blocks=n_blocks, block_size=cfg.block_size,
+                          precision=cfg.precision, use_pallas=cfg.use_pallas,
+                          device=A.device)
+    return cholesky_qr_lstsq(A, b, precision=cfg.precision,
+                             shift=cfg.engine == "cholqr3", device=A.device)
 
 
 def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
           **overrides) -> torch.Tensor:
     """One-shot least squares ``x = argmin ||A x - b||``.
 
-    For m >= n: the blocked factorization (panels on the Hopper kernel by
-    default), Q^H b through the compact-WY applies, back-substitution, and
-    ``refine`` sweeps ``x += solve(b - A x)`` with the residual in full
-    FP32; ``blocked=False`` runs the unblocked engine. For m < n: the
-    minimum-norm solution.
+    For m >= n, ``engine="householder"`` (default): the blocked
+    factorization (panels on the Hopper kernel by default), Q^H b through
+    the compact-WY applies, back-substitution, and ``refine`` sweeps with
+    the residual in full precision — through
+    :func:`~dhqr_tpu_torch.ops.differentiable.lstsq_diff`, so
+    ``torch.autograd`` works through it at every ``refine``;
+    ``blocked=False`` runs the unblocked engine. ``engine="tsqr"`` /
+    ``"cholqr2"`` / ``"cholqr3"`` route to the tall-skinny engines. For
+    m < n: the minimum-norm solution.
 
-    Not differentiable yet: the closed-form derivative (the JAX package's
-    ``lstsq_diff`` custom JVP) arrives with ROADMAP Queue A item 8.
+    ``policy=`` names the precision tuple at once: panel/trailing go to the
+    factor stage, ``apply`` to the Q^H applies, ``refine`` into the
+    refinement loop.
     """
-    cfg = _resolved(config, overrides, mesh)
+    cfg, pol = _resolved(config, overrides, mesh)
+    if pol is not None and pol.refine:
+        cfg = dataclasses.replace(cfg, refine=pol.refine)
     A = as_tensor(A, device)
     b = as_tensor(b, A.device, A.dtype)
     check_fp32_matmul(A.device)
@@ -196,28 +385,26 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
         raise ValueError(f"refine must be >= 0, got {cfg.refine}")
     m, n = A.shape
     if m < n:
-        if not cfg.blocked or cfg.use_pallas != "auto":
+        if cfg.engine != "householder":
+            raise ValueError(
+                f"m < n (got {tuple(A.shape)}) is supported only on the "
+                "single-device householder path (minimum-norm solve)")
+        if not cfg.blocked or cfg.use_pallas != "auto" \
+                or cfg.trailing_precision is not None \
+                or cfg.apply_precision is not None:
             raise ValueError(
                 "m < n supports only the default blocked path "
-                f"(got blocked={cfg.blocked}, use_pallas={cfg.use_pallas!r})")
+                f"(got blocked={cfg.blocked}, use_pallas={cfg.use_pallas!r}, "
+                f"trailing_precision={cfg.trailing_precision!r}, "
+                f"apply_precision={cfg.apply_precision!r})")
         if cfg.refine:
             raise ValueError(
                 "refine is not supported for m < n (the minimum-norm solve "
                 "is already exact to working precision)")
-        return _minimum_norm_impl(A, b, cfg.block_size, norm=cfg.norm)
-    if cfg.blocked:
-        fact = qr(A, config=dataclasses.replace(cfg, refine=0),
-                  device=A.device)
-        solve_once = fact._solve_once
-    else:
-        _reject_nonblocked_knobs(cfg)
-        H, alpha = _hh.householder_qr(A, norm=cfg.norm, device=A.device)
-
-        def solve_once(rhs):
-            return _solve._back_substitute(
-                H, alpha, _solve.apply_qt(H, alpha, rhs, device=A.device))
-
-    x = solve_once(b)
-    for _ in range(cfg.refine):
-        x = x + solve_once(b - torch.matmul(A, x))
-    return x
+        return _minimum_norm_impl(A, b, cfg.block_size, cfg.precision,
+                                  norm=cfg.norm)
+    if cfg.refine:
+        return _lstsq_refined(A, b, cfg)
+    if cfg.engine != "householder":
+        return _lstsq_alt_engine(A, b, cfg)
+    return _lstsq_impl(A, b, cfg)

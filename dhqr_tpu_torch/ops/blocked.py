@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.hopper_panel import (
     KERNEL_MAX_WIDTH,
     KERNELS,
@@ -31,6 +32,7 @@ from dhqr_tpu_torch.ops.householder import (
     _panel_qr_masked,
     _panel_qr_recursive,
 )
+from dhqr_tpu_torch.precision import apply_policy_to_factor_args
 from dhqr_tpu_torch.utils.config import NotPortedError, check_precision
 from dhqr_tpu_torch.utils.device import as_tensor
 
@@ -44,34 +46,39 @@ KERNEL_FLAT_WIDTH = KERNEL_MAX_WIDTH
 _TALL_PANELS_ITEM = "Queue B2 item 7 (64-bit element indices in the panel kernel)"
 
 
-def wy_upper(Y: torch.Tensor) -> torch.Tensor:
+def wy_upper(Y: torch.Tensor, precision: str = DEFAULT_PRECISION
+             ) -> torch.Tensor:
     """U = I + triu(Y^H Y, 1), the inverse of the compact-WY T factor."""
-    S = torch.matmul(Y.mH, Y)
+    S = gemm.matmul(Y.mH, Y, precision)
     return torch.eye(Y.shape[1], dtype=Y.dtype, device=Y.device) \
         + torch.triu(S, diagonal=1)
 
 
-def apply_block_reflector_h(Y: torch.Tensor, C: torch.Tensor, *,
+def apply_block_reflector_h(Y: torch.Tensor, C: torch.Tensor,
+                            precision: str = DEFAULT_PRECISION,
+                            gemm_precision: "str | None" = None, *,
                             inplace: bool = False) -> torch.Tensor:
     """C <- (I - Y T^H Y^H) C, i.e. apply H_nb ... H_1 (the Q^H direction).
-    ``inplace=True`` writes the result into C's storage."""
-    W = torch.matmul(Y.mH, C)
-    Z = torch.linalg.solve_triangular(wy_upper(Y).mH, W, upper=False,
-                                      unitriangular=True)
-    if inplace:
-        return C.addmm_(Y, Z, alpha=-1)
-    return torch.addmm(C, Y, Z, alpha=-1)
+
+    ``gemm_precision`` (default: ``precision``) applies to the two
+    panel-sized GEMMs only; the T factor (``wy_upper``) keeps ``precision``.
+    The triangular solve runs at full precision. ``inplace=True`` writes
+    the result into C's storage."""
+    gp = precision if gemm_precision is None else gemm_precision
+    W = gemm.matmul(Y.mH, C, gp)
+    Z = torch.linalg.solve_triangular(wy_upper(Y, precision).mH, W,
+                                      upper=False, unitriangular=True)
+    return gemm.addmm(C, Y, Z, gp, alpha=-1, inplace=inplace)
 
 
-def apply_block_reflector(Y: torch.Tensor, C: torch.Tensor, *,
+def apply_block_reflector(Y: torch.Tensor, C: torch.Tensor,
+                          precision: str = DEFAULT_PRECISION, *,
                           inplace: bool = False) -> torch.Tensor:
     """C <- (I - Y T Y^H) C, i.e. apply H_1 ... H_nb (the Q direction)."""
-    W = torch.matmul(Y.mH, C)
-    Z = torch.linalg.solve_triangular(wy_upper(Y), W, upper=True,
+    W = gemm.matmul(Y.mH, C, precision)
+    Z = torch.linalg.solve_triangular(wy_upper(Y, precision), W, upper=True,
                                       unitriangular=True)
-    if inplace:
-        return C.addmm_(Y, Z, alpha=-1)
-    return torch.addmm(C, Y, Z, alpha=-1)
+    return gemm.addmm(C, Y, Z, precision, alpha=-1, inplace=inplace)
 
 
 def shifted_tril(pf: torch.Tensor, offset: int) -> torch.Tensor:
@@ -80,13 +87,14 @@ def shifted_tril(pf: torch.Tensor, offset: int) -> torch.Tensor:
     return torch.tril(pf, diagonal=-offset)
 
 
-def _panel_factor(panel, offset, norm="accurate", panel_impl="loop"):
+def _panel_factor(panel, offset, precision=DEFAULT_PRECISION,
+                  norm="accurate", panel_impl="loop"):
     """The non-kernel panel engines: "loop" (masked column loop) or
     "recursive" (geqrt3 divide and conquer)."""
     if panel_impl == "recursive":
-        return _panel_qr_recursive(panel, offset, norm=norm)
+        return _panel_qr_recursive(panel, offset, precision, norm=norm)
     if panel_impl == "loop":
-        return _panel_qr_masked(panel, offset, norm=norm)
+        return _panel_qr_masked(panel, offset, precision, norm=norm)
     if panel_impl.startswith("reconstruct"):
         raise NotPortedError(f"panel_impl={panel_impl!r}",
                              "Queue A item 3 (the reconstruct trio)")
@@ -94,11 +102,12 @@ def _panel_factor(panel, offset, norm="accurate", panel_impl="loop"):
                      f"{panel_impl!r}")
 
 
-def _panel_factor_kernel(panel, offset, base):
+def _panel_factor_kernel(panel, offset, base, precision=DEFAULT_PRECISION):
     """Kernel panel factorization: one flat kernel launch up to ``base``
     width (the plan's leaf, :func:`kernel_flat_width`), the geqrt3
-    recursion with the kernel as leaf above it."""
-    return _panel_qr_recursive(panel, offset, base=base,
+    recursion with the kernel as leaf above it (its GEMMs at
+    ``precision``)."""
+    return _panel_qr_recursive(panel, offset, precision, base=base,
                                leaf=_panel_qr_kernel)
 
 
@@ -159,22 +168,28 @@ def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None):
 
 
 def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
-                     norm: str = "accurate", panel_impl: str = "loop"):
-    """Factor H (m x n, m >= n) in place; returns ``(H, alpha)``."""
+                     norm: str = "accurate", panel_impl: str = "loop",
+                     precision: str = DEFAULT_PRECISION,
+                     trailing_precision: "str | None" = None):
+    """Factor H (m x n, m >= n) in place; returns ``(H, alpha)``.
+
+    The panels and T factors run at ``precision``, the trailing-update
+    GEMMs at ``trailing_precision`` (None: the same)."""
     m, n = H.shape
     alpha = H.new_zeros(n)
     for k, b, leaf in panel_plan(m, n, block_size, kernel, H.dtype,
                                  H.device):
         panel = H[k:, k:k + b]
         if leaf:
-            pf, alpha_k = _panel_factor_kernel(panel, 0, base=leaf)
+            pf, alpha_k = _panel_factor_kernel(panel, 0, leaf, precision)
         else:
-            pf, alpha_k = _panel_factor(panel, 0, norm, panel_impl)
+            pf, alpha_k = _panel_factor(panel, 0, precision, norm,
+                                        panel_impl)
         panel.copy_(pf)
         alpha[k:k + b] = alpha_k
         if k + b < n:  # trailing update, in place in H
-            apply_block_reflector_h(torch.tril(pf), H[k:, k + b:],
-                                    inplace=True)
+            apply_block_reflector_h(torch.tril(pf), H[k:, k + b:], precision,
+                                    trailing_precision, inplace=True)
     return H, alpha
 
 
@@ -208,15 +223,21 @@ def blocked_householder_qr(
     ``use_pallas`` routes the panels through the Hopper panel kernel (see
     :func:`_resolve_kernel`). ``donate=True`` factors in place in A's
     storage (``H`` is then ``A``) when A already is a tensor of the target
-    device; otherwise the port factors a copy.
+    device; otherwise the port factors a copy. ``trailing_precision``
+    (default: ``precision``) sets the precision of the trailing-update
+    GEMMs only; ``policy`` sets both (the solve-stage fields ``apply`` and
+    ``refine`` do not apply to a factor-only entry point).
     """
     from dhqr_tpu_torch.utils.config import DHQRConfig, refuse_unported
 
+    precision, trailing_precision = apply_policy_to_factor_args(
+        policy, precision, trailing_precision,
+        default_precision=DEFAULT_PRECISION)
     refuse_unported(DHQRConfig(
         precision=precision, use_pallas=use_pallas, norm=norm,
         panel_impl=panel_impl, trailing_precision=trailing_precision,
         lookahead=lookahead, agg_panels=agg_panels,
-        overlap_depth=overlap_depth, policy=policy))
+        overlap_depth=overlap_depth))
     A = as_tensor(A, device)
     m, n = A.shape
     if m < n:
@@ -226,26 +247,30 @@ def blocked_householder_qr(
         else int(block_size)
     kernel = _resolve_kernel(use_pallas, m, A.dtype, A.device)
     return _blocked_qr_impl(A if donate else A.clone(), nb, kernel=kernel,
-                            norm=norm, panel_impl=panel_impl)
+                            norm=norm, panel_impl=panel_impl,
+                            precision=precision,
+                            trailing_precision=trailing_precision)
 
 
-def _apply_qt_impl(H: torch.Tensor, b: torch.Tensor, block_size: int):
+def _apply_qt_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,
+                   precision: str = DEFAULT_PRECISION):
     m, n = H.shape
     nb = min(block_size, n)
     B = b[:, None].clone() if b.ndim == 1 else b.clone()
     for k in range(0, n, nb):
         Y = torch.tril(H[k:, k:k + nb])
-        apply_block_reflector_h(Y, B[k:], inplace=True)
+        apply_block_reflector_h(Y, B[k:], precision, inplace=True)
     return B[:, 0] if b.ndim == 1 else B
 
 
-def _apply_q_impl(H: torch.Tensor, b: torch.Tensor, block_size: int):
+def _apply_q_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,
+                  precision: str = DEFAULT_PRECISION):
     m, n = H.shape
     nb = min(block_size, n)
     B = b[:, None].clone() if b.ndim == 1 else b.clone()
     for k in reversed(range(0, n, nb)):
         Y = torch.tril(H[k:, k:k + nb])
-        apply_block_reflector(Y, B[k:], inplace=True)
+        apply_block_reflector(Y, B[k:], precision, inplace=True)
     return B[:, 0] if b.ndim == 1 else B
 
 
@@ -256,7 +281,8 @@ def blocked_apply_qt(H, alpha, b, block_size: int = DEFAULT_BLOCK_SIZE,
     del alpha
     check_precision(precision)
     H = as_tensor(H, device)
-    return _apply_qt_impl(H, as_tensor(b, H.device, H.dtype), int(block_size))
+    return _apply_qt_impl(H, as_tensor(b, H.device, H.dtype), int(block_size),
+                          precision)
 
 
 def blocked_apply_q(H, alpha, b, block_size: int = DEFAULT_BLOCK_SIZE,
@@ -265,4 +291,5 @@ def blocked_apply_q(H, alpha, b, block_size: int = DEFAULT_BLOCK_SIZE,
     del alpha
     check_precision(precision)
     H = as_tensor(H, device)
-    return _apply_q_impl(H, as_tensor(b, H.device, H.dtype), int(block_size))
+    return _apply_q_impl(H, as_tensor(b, H.device, H.dtype), int(block_size),
+                         precision)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from dhqr_tpu_torch.ops import _build
+from dhqr_tpu_torch.utils.config import refuse_grad
 
 # Widest panel one launch takes (csrc/panel_qr.cu kMaxWidth), and the leaf
 # widths the blocked engine may split a panel into, widest first.
@@ -426,8 +427,10 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int):
 
     A CUDA tensor launches the Hopper kernel (its slices resident in shared
     memory where they fit, streamed where they do not); a CPU tensor runs
-    the plain version. Anything the kernel does not take raises.
+    the plain version. Anything the kernel does not take raises, and so
+    does a panel that requires grad.
     """
+    refuse_grad(panel, "the Hopper panel kernel")
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
         raise ValueError(

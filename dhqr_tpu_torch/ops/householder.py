@@ -20,11 +20,15 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.summation import norm2
-from dhqr_tpu_torch.utils.config import SUPPORTED_PRECISION, check_precision
+from dhqr_tpu_torch.utils.config import (
+    DEFAULT_PRECISION,
+    check_precision,
+    refuse_grad,
+)
 from dhqr_tpu_torch.utils.device import as_tensor
 
-DEFAULT_PRECISION = SUPPORTED_PRECISION
 RECURSIVE_BASE_WIDTH = 32
 
 
@@ -64,16 +68,17 @@ def householder_reflector(col: torch.Tensor, j: int, norm: str = "accurate"):
 
 
 def _panel_step(jj: int, P: torch.Tensor, alpha: torch.Tensor, offset: int,
-                norm: str = "accurate") -> None:
+                norm: str = "accurate",
+                precision: str = DEFAULT_PRECISION) -> None:
     """One column step on panel ``P``, in place: the reflector of local
     column ``jj`` (diagonal at row ``offset + jj``), then the rank-1 update
-    of the columns right of it."""
+    of the columns right of it (partial dots at ``precision``)."""
     j = offset + jj
     v, alpha_j = householder_reflector(P[:, jj], j, norm)
     P[j:, jj] = v[j:]  # rows < j keep R entries
     alpha[jj] = alpha_j
     vj = v[j:]
-    w = torch.matmul(vj.conj(), P[j:, jj + 1:])  # partial dots
+    w = gemm.matmul(vj.conj(), P[j:, jj + 1:], precision)  # partial dots
     P[j:, jj + 1:] -= torch.outer(vj, w)
 
 
@@ -83,12 +88,13 @@ def _panel_qr_masked(panel: torch.Tensor, offset: int,
     """Panel QR with the reflector of local column jj starting at row
     ``offset + jj``; rows above it are preserved. Returns a new
     ``(pf, alpha)``; ``offset=0`` on the whole matrix is the unblocked
-    engine."""
+    engine. A panel that requires grad raises."""
     check_precision(precision)
+    refuse_grad(panel, "the plain panel loop")
     P = panel.clone()
     alpha = P.new_zeros(P.shape[1])
     for jj in range(P.shape[1]):
-        _panel_step(jj, P, alpha, offset, norm)
+        _panel_step(jj, P, alpha, offset, norm, precision)
     return P, alpha
 
 
@@ -114,7 +120,8 @@ def _panel_qr_recursive(panel: torch.Tensor, offset: int,
     h = b // 2
     left_f, alpha_l = _panel_qr_recursive(panel[:, :h], offset, precision,
                                           norm, base, leaf)
-    right = apply_block_reflector_h(shifted_tril(left_f, offset), panel[:, h:])
+    right = apply_block_reflector_h(shifted_tril(left_f, offset), panel[:, h:],
+                                    precision)
     right_f, alpha_r = _panel_qr_recursive(right, offset + h, precision, norm,
                                            base, leaf)
     return torch.cat([left_f, right_f], dim=1), torch.cat([alpha_l, alpha_r])

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.summation import accurate_vdot
 from dhqr_tpu_torch.utils.config import check_precision
@@ -27,7 +28,7 @@ def as_matrix_rhs(b: torch.Tensor):
     return b, lambda x: x
 
 
-def _apply_reflectors(H, b, order, single_vdot: bool):
+def _apply_reflectors(H, b, order, single_vdot: bool, precision):
     B, restore = as_matrix_rhs(b)
     B = B.clone()
     single = single_vdot and B.shape[1] == 1
@@ -36,7 +37,7 @@ def _apply_reflectors(H, b, order, single_vdot: bool):
         if single:  # the compensated dot, as the JAX engine
             s = accurate_vdot(v, B[:, 0])[None]
         else:
-            s = torch.matmul(v.conj(), B)
+            s = gemm.matmul(v.conj(), B, precision)
         B -= v[:, None] * s[None, :]
     return restore(B)
 
@@ -44,12 +45,12 @@ def _apply_reflectors(H, b, order, single_vdot: bool):
 def apply_qt(H, alpha, b, precision: str = DEFAULT_PRECISION, device=None):
     """b <- Q^H b, reflectors j = 0..n-1 in order. A single right-hand side
     takes the compensated dot (:func:`accurate_vdot`); a block (m, k) one
-    matvec per reflector."""
+    matvec per reflector, at ``precision``."""
     del alpha  # R's diagonal is not needed to apply Q^H
     check_precision(precision)
     H = as_tensor(H, device)
     b = as_tensor(b, H.device, H.dtype)
-    return _apply_reflectors(H, b, range(H.shape[1]), single_vdot=True)
+    return _apply_reflectors(H, b, range(H.shape[1]), True, precision)
 
 
 def apply_q(H, alpha, b, precision: str = DEFAULT_PRECISION, device=None):
@@ -58,8 +59,8 @@ def apply_q(H, alpha, b, precision: str = DEFAULT_PRECISION, device=None):
     check_precision(precision)
     H = as_tensor(H, device)
     b = as_tensor(b, H.device, H.dtype)
-    return _apply_reflectors(H, b, reversed(range(H.shape[1])),
-                             single_vdot=False)
+    return _apply_reflectors(H, b, reversed(range(H.shape[1])), False,
+                             precision)
 
 
 def r_matrix(H: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

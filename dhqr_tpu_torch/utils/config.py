@@ -14,9 +14,14 @@ from __future__ import annotations
 import dataclasses
 import os
 
-# The one precision this port runs: full FP32 (and FP64) matmuls, i.e.
-# torch.matmul with torch.backends.cuda.matmul.allow_tf32 == False.
-SUPPORTED_PRECISION = "highest"
+import torch
+
+from dhqr_tpu_torch.precision import MXU_PASSES
+
+# The default matmul precision: full FP32 (and FP64) matmuls, i.e.
+# torch.matmul with torch.backends.cuda.matmul.allow_tf32 == False. The
+# lower names run as bf16 passes (ops/gemm.py).
+DEFAULT_PRECISION = "highest"
 
 
 class NotPortedError(NotImplementedError):
@@ -33,6 +38,18 @@ class NotPortedError(NotImplementedError):
             f"(arrives with ROADMAP.md {roadmap})")
 
 
+def refuse_grad(panel: torch.Tensor, engine: str) -> None:
+    """The panel engines write their factors where autograd cannot follow:
+    in place (the plain loop) or through a raw pointer (the Hopper kernel),
+    so a panel that requires grad raises rather than return a wrong
+    gradient. ``lstsq_diff`` factors with grad off and brings its own
+    derivative rules."""
+    if torch.is_grad_enabled() and panel.requires_grad:
+        raise NotPortedError(
+            f"gradients through {engine}",
+            "Queue A item 19 (gradients outside the blocked lstsq)")
+
+
 @dataclasses.dataclass(frozen=True)
 class DHQRConfig:
     """Knobs for the factorization/solve engines (fields and defaults as in
@@ -40,12 +57,14 @@ class DHQRConfig:
 
     What the port runs: ``block_size`` (None = 128), ``blocked``,
     ``use_pallas`` (here: the hand-written Hopper panel kernel —
-    "auto"/"always"/"never"), ``precision="highest"``, ``norm``,
-    ``engine="householder"``, ``panel_impl`` in ("loop", "recursive") and
-    ``refine`` (lstsq). ``mesh_axis`` and ``layout`` only steer the mesh
-    tier and are ignored on a single device, as in the JAX package. Every
-    other field must stay at its default: the entry points refuse it
-    (:func:`refuse_unported`).
+    "auto"/"always"/"never"), ``precision``, ``trailing_precision`` and
+    ``apply_precision`` (every name of ``precision.MXU_PASSES``; see
+    ``ops/gemm.py``), ``policy``, ``norm``, ``engine`` in ("householder",
+    "tsqr", "cholqr2", "cholqr3"), ``panel_impl`` in ("loop", "recursive")
+    and ``refine`` (lstsq). ``mesh_axis`` and ``layout`` only steer the
+    mesh tier and are ignored on a single device, as in the JAX package.
+    ``comms`` parses ("f32"/"none" mean None). Every other field must stay
+    at its default: the entry points refuse it (:func:`refuse_unported`).
     """
 
     block_size: "int | None" = None
@@ -70,7 +89,7 @@ class DHQRConfig:
 
     @staticmethod
     def from_env(**overrides) -> "DHQRConfig":
-        """Build a config from the main-path ``DHQR_*`` variables + overrides."""
+        """Build a config from the ported ``DHQR_*`` variables + overrides."""
         env = {}
         if "DHQR_BLOCK_SIZE" in os.environ:
             env["block_size"] = int(os.environ["DHQR_BLOCK_SIZE"])
@@ -82,42 +101,38 @@ class DHQRConfig:
                            ("DHQR_PRECISION", "precision"),
                            ("DHQR_ENGINE", "engine"),
                            ("DHQR_NORM", "norm"),
-                           ("DHQR_PANEL_IMPL", "panel_impl")):
+                           ("DHQR_PANEL_IMPL", "panel_impl"),
+                           ("DHQR_TRAILING_PRECISION", "trailing_precision"),
+                           ("DHQR_APPLY_PRECISION", "apply_precision")):
             if var in os.environ:
                 env[field] = os.environ[var]
         if "DHQR_REFINE" in os.environ:
             env["refine"] = int(os.environ["DHQR_REFINE"])
+        if "DHQR_POLICY" in os.environ:
+            env["policy"] = os.environ["DHQR_POLICY"].strip() or None
         env.update(overrides)
         return DHQRConfig(**env)
 
 
 def check_precision(precision: str) -> None:
-    """Refuse every matmul precision but full FP32 ("highest")."""
-    if precision != SUPPORTED_PRECISION:
-        raise NotPortedError(
-            f"precision={precision!r} (only 'highest', full FP32, runs)",
-            "Queue A item 1 (precision policies)")
+    """Refuse a name that is not a matmul precision."""
+    if precision not in MXU_PASSES:
+        raise ValueError(f"precision must be one of {sorted(MXU_PASSES)}, "
+                         f"got {precision!r}")
 
 
 # (field, ROADMAP item that brings it). Each must stay at its default.
 _UNPORTED_FIELDS = (
-    ("policy", "Queue A item 1 (precision policies)"),
-    ("trailing_precision", "Queue A item 1 (precision policies)"),
-    ("apply_precision", "Queue A item 1 (precision policies)"),
     ("plan", "Queue A item 14 (tune/)"),
-    ("guards", "Queue A item 10 (numeric/)"),
+    ("guards", "Queue A item 10 (numeric/ladder.py)"),
     ("lookahead", "Queue A item 5 (lookahead/aggregated schedules)"),
     ("agg_panels", "Queue A item 5 (lookahead/aggregated schedules)"),
     ("overlap_depth", "Queue A item 11 (parallel/)"),
     ("comms", "Queue A item 11 (parallel/)"),
 )
 
-_ENGINE_ITEMS = {
-    "tsqr": "Queue A item 9 (TSQR and CholeskyQR)",
-    "cholqr2": "Queue A item 9 (TSQR and CholeskyQR)",
-    "cholqr3": "Queue A item 9 (TSQR and CholeskyQR)",
-    "sketch": "Queue A item 12 (solvers/)",
-}
+ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
+_ENGINE_ITEMS = {"sketch": "Queue A item 12 (solvers/)"}
 
 
 def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
@@ -129,14 +144,15 @@ def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
     for field, item in _UNPORTED_FIELDS:
         if getattr(cfg, field) != getattr(defaults, field):
             raise NotPortedError(f"{field}={getattr(cfg, field)!r}", item)
-    if cfg.engine != "householder":
-        if cfg.engine not in _ENGINE_ITEMS:
-            raise ValueError(
-                f"unknown engine {cfg.engine!r}: expected one of "
-                f"{('householder',) + tuple(_ENGINE_ITEMS)}")
+    if cfg.engine not in ENGINES:
+        raise ValueError(
+            f"unknown engine {cfg.engine!r}: expected one of {ENGINES}")
+    if cfg.engine in _ENGINE_ITEMS:
         raise NotPortedError(f"engine={cfg.engine!r}",
                              _ENGINE_ITEMS[cfg.engine])
-    check_precision(cfg.precision)
+    for name in (cfg.precision, cfg.trailing_precision, cfg.apply_precision):
+        if name is not None:
+            check_precision(name)
     if cfg.panel_impl.startswith("reconstruct"):
         raise NotPortedError(f"panel_impl={cfg.panel_impl!r}",
                              "Queue A item 3 (the reconstruct trio)")

@@ -98,7 +98,12 @@ def test_facade_exports():
     wanted = {"qr", "lstsq", "solve", "QRFactorization", "householder_qr",
               "blocked_householder_qr", "apply_qt", "apply_q",
               "back_substitute", "solve_least_squares", "alphafactor",
-              "DHQRConfig", "__version__"}
+              "DHQRConfig", "__version__",
+              "qr_explicit", "lstsq_diff", "tsqr_lstsq", "tsqr_r",
+              "cholesky_qr2", "cholesky_qr_lstsq", "NumericalError",
+              "NonFiniteInput", "Breakdown", "IllConditioned",
+              "ResidualGateFailed", "PrecisionPolicy", "PRECISION_POLICIES",
+              "POLICY_LADDER", "resolve_policy"}
     assert wanted <= set(dt.__all__)
     assert (wanted - {"DHQRConfig"}) <= set(dhqr_tpu.__all__) | {"__version__"}
 

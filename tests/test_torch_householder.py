@@ -113,9 +113,25 @@ def test_zero_column_stays_finite():
 
 
 def test_rejects_wide_and_unported_precision():
-    from dhqr_tpu_torch.utils.config import NotPortedError
-
+    """A wide matrix and an unknown precision name raise; precision=
+    "default" now runs: in float64 it is full precision and matches the JAX
+    engine to 1e-12, in float32 its partial dots are one bf16 pass and the
+    factor stays within 2e-2 of the JAX engine's (relative to the largest
+    entry; bf16 keeps 8 bits) and backward stable to 1e-2."""
     with pytest.raises(ValueError):
         thh.householder_qr(np.zeros((4, 6)), device="cpu")
-    with pytest.raises(NotPortedError):
-        thh.householder_qr(np.eye(4), precision="default", device="cpu")
+    with pytest.raises(ValueError):
+        thh.householder_qr(np.eye(4), precision="bf17", device="cpu")
+    A = _matrix(44, 40, np.float64, seed=5)
+    H, alpha = thh.householder_qr(A, precision="default", device="cpu")
+    H0, alpha0 = jhh.householder_qr(jnp.asarray(A), precision="default")
+    _close(H, H0, TOL[np.float64])
+    _close(alpha, alpha0, TOL[np.float64])
+    A32 = A.astype(np.float32)
+    H, alpha = thh.householder_qr(A32, precision="default", device="cpu")
+    H0, alpha0 = jhh.householder_qr(jnp.asarray(A32))
+    _close(H, H0, 2e-2)
+    eye = torch.eye(44, 40, dtype=H.dtype)
+    QR = torch.matmul(apply_q(H, alpha, eye, device="cpu"), r_matrix(H, alpha))
+    At = torch.from_numpy(A32)
+    assert float(torch.linalg.norm(QR - At) / torch.linalg.norm(At)) < 1e-2

@@ -155,14 +155,45 @@ def test_solve_refine_needs_the_matrix():
 
 
 UNPORTED = [
-    {"policy": "accurate"}, {"plan": "auto"}, {"guards": "screen"},
-    {"engine": "tsqr"}, {"engine": "cholqr2"}, {"engine": "sketch"},
-    {"precision": "default"}, {"precision": "high"},
-    {"trailing_precision": "high"}, {"apply_precision": "high"},
+    {"plan": "auto"}, {"guards": "screen"}, {"engine": "sketch"},
     {"lookahead": True}, {"agg_panels": 2}, {"overlap_depth": 2},
     {"comms": "bf16"}, {"panel_impl": "reconstruct"},
     {"panel_impl": "reconstruct:64"},
 ]
+
+# Knobs that raised NotPortedError until the precision policies and the
+# tall-skinny engines were ported; each now runs.
+PORTED = [
+    {"policy": "accurate"}, {"engine": "tsqr"}, {"engine": "cholqr2"},
+    {"precision": "default"}, {"precision": "high"},
+    {"trailing_precision": "high"}, {"apply_precision": "high"},
+]
+
+
+@pytest.mark.parametrize("entry", ["qr", "lstsq"])
+@pytest.mark.parametrize("knob", PORTED, ids=lambda d: "-".join(
+    f"{k}={v}" for k, v in d.items()))
+def test_ported_knobs_run_and_match_jax(entry, knob):
+    """float64, where every precision name is full precision on both
+    sides: the port's x matches the JAX package's within 1e-10 (relative),
+    and the 8x criterion holds. qr() refuses the lstsq-only engines with
+    the JAX package's ValueError."""
+    A, b = random_problem(96, 24, np.float64, seed=28)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    if entry == "qr":
+        if "engine" in knob:
+            with pytest.raises(ValueError, match="lstsq-only"):
+                dt.qr(A, device="cpu", **knob)
+            with pytest.raises(ValueError):
+                dhqr_tpu.qr(Aj, **knob)
+            return
+        x = to_numpy(dt.qr(A, block_size=16, device="cpu", **knob).solve(b))
+        xj = np.asarray(dhqr_tpu.qr(Aj, block_size=16, **knob).solve(bj))
+    else:
+        x = to_numpy(dt.lstsq(A, b, block_size=16, device="cpu", **knob))
+        xj = np.asarray(dhqr_tpu.lstsq(Aj, bj, block_size=16, **knob))
+    assert _rel(x, xj) <= 1e-10
+    _criterion(A, x, b, np.float64)
 
 
 @pytest.mark.parametrize("entry", ["qr", "lstsq"])
