@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--phases 0,1,2,3,4,5,6,8,9,10]
+    python3 chip_smoke.py [--seed N] [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13]
+                          [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-10 run by default, 7 on request):
+on any error (0-6 and 8-13 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -14,7 +15,8 @@ on any error (0-6 and 8-10 run by default, 7 on request):
    shapes that stress the kernel's grid (an
    offset inside a CTA's slice, a ragged last CTA, a panel on a few CTAs,
    the tall 64-wide leaf, 12-decade data over every SM, and panels too
-   tall for shared memory, which the kernel streams), with its grid,
+   tall for shared memory, which the kernel streams, and the lookahead
+   schedule's launches capped at ``LOOKAHEAD_CTAS`` SMs), with its grid,
    residency, shared memory, registers and spills, a bit-identical repeat
    launch, and at the main path's shapes and the streamed ones its time,
    the plain version's time, ``torch.geqrf``'s time on the same panel (a
@@ -47,8 +49,13 @@ on any error (0-6 and 8-10 run by default, 7 on request):
    f32 and c64, for every ``POLICY_LADDER`` cell and the three presets, as
    a ratio to numpy's LAPACK QR (``accurate`` must meet 8x, the other
    rungs must be finite and say whether they do), beside the same ratio of
-   three witnesses (``torch.linalg.lstsq``; the port's factors with Q^H b
-   through an explicit Q; the port on the plain panel loop);
+   witnesses (``torch.linalg.lstsq``; the port's factors with Q^H b
+   through an explicit Q); and the factor quality at 4400 x 4000, f32 and
+   c64 (backward error and orthogonality in f64 on the card) of the
+   kernel's factors, the plain panel loop's and the kernel's schedule in
+   eager PyTorch (the grid model as the engine's leaf, on the card), the
+   kernel within 2x of the plain loop, with their ``lstsq`` ratios
+   (``--accuracy-seeds N`` repeats kernel and plain loop for N seeds);
 9. engines at ``BASELINE.json``'s tall-skinny 65536 x 256 f32:
    ``tsqr_lstsq`` (8 leaves of 8192 x 256; and c64 at 32768 x 256),
    ``tsqr_r`` (Gram identity), ``cholesky_qr_lstsq`` (shift off and on) and
@@ -59,11 +66,26 @@ on any error (0-6 and 8-10 run by default, 7 on request):
    gradient of a scalar loss against the float64 normal-equations gradient
    autograd computes on the card (a yardstick the port never calls), the
    adjoint identity between ``jvp`` and ``backward``, forward + backward
-   time against the forward alone, and the forward's kernel launches.
+   time against the forward alone, and the forward's kernel launches;
+11. schedules: ``qr`` at 16384^2 f32 and 8192 x 4096 c64 by default, with
+   ``lookahead=True`` and with ``agg_panels`` 2 and 4 (steady seconds,
+   GFLOP/s, backward error, distance from the default's factors, launches
+   = plan), the lookahead CTA cap swept over 16/33/66/132 with the
+   ``torch.profiler`` device time in which a panel kernel and a GEMM ran
+   at once, and ``lstsq`` at 4400 x 4000 per schedule under the 8x bar;
+12. reconstruct: ``qr`` + ``solve`` with ``panel_impl="reconstruct"`` and
+   ``"reconstruct:4096"`` at 16384 x 2048, f32 (plain panel path) and f64,
+   beside the ``"loop"`` engine, and ``lstsq`` at 4400 x 4000 under 8x;
+13. sketch: ``lstsq(engine="sketch")`` at 65536 x 256 and 131072 x 256 f32
+   and 32768 x 256 c64 (SRHT by "auto"), and the count sketch at 65536 x
+   256, against ``torch.linalg.lstsq`` (8x) beside it and ``cholqr2``,
+   with the operator draws per call.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
-path (9) and the gradient path (10); the ``kernels`` line sums them.
+path (9), the gradient path (10), the schedules path (11), and the
+reconstruct (12) and sketch (13) paths, which must launch no panel kernel;
+the ``kernels`` line sums them.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -165,6 +187,29 @@ def random_problem(m, n, dtype, seed):
     return A, b
 
 
+_LAPACK = {}
+
+
+def lapack_problem(m, n, dtype, seed):
+    """(A, b, numpy's LAPACK solution) of ``random_problem``, solved once
+    per process: phases 5, 8, 11 and 12 share the reference's problems."""
+    key = (m, n, np.dtype(dtype).name, seed)
+    if key not in _LAPACK:
+        from dhqr_tpu_torch.utils.testing import lapack_lstsq
+
+        A, b = random_problem(m, n, dtype, seed)
+        _LAPACK[key] = (A, b, lapack_lstsq(A, b))
+    return _LAPACK[key]
+
+
+def oracle_of(m, n, dtype, seed):
+    """(A, b, the oracle's normal-equations residual)."""
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
+
+    A, b, x = lapack_problem(m, n, dtype, seed)
+    return A, b, normal_equations_residual(A, x, b)
+
+
 # -- phases ------------------------------------------------------------------
 
 def phase_setup():
@@ -228,14 +273,20 @@ def phase_kernels(seed):
         ("panel_qr_c64", 2048, 128, 0, False, False, True),
         ("panel_qr_c64", 1920, 128, 0, False, False, True),
     ]
+    # the last field: the CTA cap; the lookahead schedule's capped launches
+    # at the main path's panels (phase 11)
+    cap = hp.LOOKAHEAD_CTAS
+    cases = [case + (None,) for case in cases] + [
+        ("panel_qr_f32", 16384, 128, 0, False, False, True, cap),
+        ("panel_qr_c64", 8192, 128, 0, False, False, True, cap)]
     stats = {}
-    for name, m, nb, off, decades, main_shape, resident in cases:
+    for name, m, nb, off, decades, main_shape, resident, sms in cases:
         dtype = torch.float32 if name.endswith("f32") else torch.complex64
         tol = TOL_F32 if dtype == torch.float32 else TOL_C64
-        grid = hp.kernel_launch_info(m, nb, off, dtype)
+        grid = hp.kernel_launch_info(m, nb, off, dtype, sms=sms)
         panel = random_panel(rng, m, nb, dtype, decades)
-        pf, alpha = hp._panel_qr_kernel(panel, off)
-        pf2, alpha2 = hp._panel_qr_kernel(panel, off)  # fixed-order merges
+        pf, alpha = hp._panel_qr_kernel(panel, off, sms)
+        pf2, alpha2 = hp._panel_qr_kernel(panel, off, sms)  # fixed order
         torch.cuda.synchronize()
         repeat_equal = bool(torch.equal(pf, pf2) and torch.equal(alpha, alpha2))
         at = panel.T.contiguous()
@@ -249,6 +300,7 @@ def phase_kernels(seed):
         finite = bool(torch.isfinite(torch.view_as_real(pf) if pf.is_complex()
                                      else pf).all())
         row = {"phase": 1, "kernel": name, "m": m, "nb": nb, "offset": off,
+               "cta_cap": sms,
                "grid": grid, "rel_err_pf": err_pf, "rel_err_alpha": err_alpha,
                "max_abs_err": abs_err, "tol": tol, "rows_above_kept": kept,
                "repeat_bit_identical": repeat_equal, "finite": finite}
@@ -265,8 +317,9 @@ def phase_kernels(seed):
             dev = abs(abs(float(alpha[0])) - s64) / s64
             row.update(alpha0_rel_dev=dev, tol_decades=TOL_DECADES)
             ok = ok and dev < TOL_DECADES
-        if main_shape or not resident:
-            row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off), 5)
+        if main_shape or not resident or sms:
+            row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off, sms),
+                                5)
             at2 = panel.T.contiguous()
             row["plain_ms"] = cuda_ms(
                 lambda: hp._PLAIN[dtype](at2.copy_(panel.T), off),
@@ -422,20 +475,16 @@ def phase_complex(dt, hp, seed, m=8192, n=4096):
 
 
 def phase_reference(dt, hp, seed, m=4400, n=4000):
-    from dhqr_tpu_torch.utils.testing import (
-        normal_equations_residual,
-        oracle_residual,
-    )
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
 
     for dtype, name in ((np.float32, "panel_qr_f32"),
                         (np.complex64, "panel_qr_c64")):
-        A, b = random_problem(m, n, dtype, seed + 3)
+        A, b, oracle = oracle_of(m, n, dtype, seed + 3)
         l0 = hp.LAUNCHES[name]
         x, t = wall(lambda: dt.lstsq(A, b))
         l_run = hp.LAUNCHES[name] - l0
         x = x.cpu().numpy()
         res = normal_equations_residual(A, x, b)
-        oracle = oracle_residual(A, b)
         row = {"phase": 5, "name": "reference_criterion",
                "dtype": np.dtype(dtype).name, "shape": [m, n], "lstsq_s": t,
                "normal_eq_residual": res, "lapack_residual": oracle,
@@ -596,19 +645,18 @@ def phase_precision_lstsq(dt, seed, m=4400, n=4000):
     with numpy in the input's precision (``utils/testing.py``; A^H A and
     A^H b are formed once per dtype, the same operations in the same
     order), as a ratio to numpy's LAPACK QR solution's. The same ratio
-    evaluated in float64 on the card is printed beside it, and both ratios
-    of three witnesses: ``torch.linalg.lstsq`` on the card (a yardstick the
-    port never calls), the port's own factors with Q^H b through an
-    explicit Q, and the port with its panels on the plain panel loop
-    (``use_pallas="never"``)."""
+    evaluated in float64 on the card is printed beside it (printed only:
+    it moves tenfold with summation order, see :func:`phase_factor_quality`),
+    and both ratios of two witnesses: ``torch.linalg.lstsq`` on the card (a
+    yardstick the port never calls) and the port's own factors with Q^H b
+    through an explicit Q. The plain panel loop's ratios are printed by
+    :func:`phase_factor_quality`."""
     from dhqr_tpu_torch.precision import POLICY_LADDER, PRECISION_POLICIES
-    from dhqr_tpu_torch.utils.testing import lapack_lstsq
 
     cells = [(f"highest/{p.resolved_trailing()}/r{p.refine}", p)
              for p in POLICY_LADDER] + list(PRECISION_POLICIES.items())
     for dtype in (np.float32, np.complex64):
-        A, b = random_problem(m, n, dtype, seed + 3)
-        x_lapack = lapack_lstsq(A, b)
+        A, b, x_lapack = lapack_problem(m, n, dtype, seed + 3)
         Ah = A.conj().T
         gram, rhs = Ah @ A, Ah @ b
         At, bt = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
@@ -648,14 +696,103 @@ def phase_precision_lstsq(dt, seed, m=4400, n=4000):
         witnesses = {  # second opinions on the f64-evaluated ratio
             "torch_linalg_lstsq": lambda: torch.linalg.lstsq(
                 At, bt[:, None]).solution[:, 0],
-            "port_qr_explicit_q": explicit_q,
-            "port_plain_panels": lambda: dt.lstsq(At, bt, use_pallas="never")}
+            "port_qr_explicit_q": explicit_q}  # the plain loop: factor_quality
         for name, fn in witnesses.items():
             x, t = wall(fn)
             emit({"phase": 8, "name": "lstsq_witness", "solver": name,
                   "dtype": np.dtype(dtype).name, "shape": [m, n], "s": t,
                   "ratio_to_lapack": ne(x.cpu().numpy()) / oracle,
                   "ratio_to_lapack_f64_eval": ne64(x) / oracle64})
+        del At, bt, A64, b64
+        torch.cuda.empty_cache()
+
+
+def factor_quality(H, alpha, A, nb):
+    """(||A - Q R|| / ||A||, ||I - Q^H Q||_F) of packed factors, evaluated
+    in float64 (complex128) on the card: Q formed from the stored
+    reflectors in double precision, R from H and alpha."""
+    from dhqr_tpu_torch.ops import blocked, solve
+
+    wide = torch.complex128 if H.is_complex() else torch.float64
+    m, n = H.shape
+    eye = torch.eye(m, n, dtype=wide, device=H.device)
+    Q = blocked._apply_q_impl(H.to(wide), eye, nb)
+    R = solve.r_matrix(H, alpha).to(wide)
+    A64 = A.to(wide)
+    backward = float(torch.linalg.matrix_norm(A64 - Q @ R)
+                     / torch.linalg.matrix_norm(A64))
+    orth = float(torch.linalg.matrix_norm(eye[:n] - Q.mH @ Q))
+    return backward, orth
+
+
+def phase_factor_quality(dt, hp, seed, n_seeds=1, m=4400, n=4000):
+    """Queue C item 1: are the f32 (and c64) kernel's factors as good as
+    the plain panel loop's? For the 4400 x 4000 problems of phase 8, the
+    backward error and orthogonality (f64 on the card) and the ratio to
+    numpy's LAPACK residual (in the input's precision, and in f64) of
+    three sets of factors: the kernel's (the default route), the plain
+    panel loop's (``use_pallas="never"``) and the kernel's schedule in
+    eager PyTorch (``hopper_panel._panel_qr_grid_leaf`` as the blocked
+    engine's leaf, on the card). The kernel must stay within 2x of the
+    plain loop on both factor measures. ``n_seeds`` > 1 repeats the kernel
+    and the plain loop, f32, for the next problem seeds."""
+    from dhqr_tpu_torch.ops import blocked
+
+    nb = blocked.DEFAULT_BLOCK_SIZE
+    runs = [(np.float32, seed + 3 + i) for i in range(n_seeds)]
+    runs.insert(1, (np.complex64, seed + 3))
+    for k, (dtype, pseed) in enumerate(runs):
+        A, b, x_lapack = lapack_problem(m, n, dtype, pseed)
+        At, bt = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
+        wide = torch.complex128 if At.is_complex() else torch.float64
+        A64, b64 = At.to(wide), bt.to(wide)
+        Ah = A.conj().T
+        gram, rhs = Ah @ A, Ah @ b
+
+        def ne64(x):
+            x = torch.as_tensor(x, device="cuda").to(wide)
+            return float(torch.linalg.vector_norm(A64.mH @ (A64 @ x - b64)))
+
+        def ne(x):
+            return float(np.linalg.norm(gram @ x - rhs))
+
+        oracle, oracle64 = ne(x_lapack), ne64(x_lapack)
+        sets = {"plain_loop": lambda: dt.qr(At, use_pallas="never"),
+                "kernel": lambda: dt.qr(At)}
+        if k < 2:  # the grid model on the base seed, f32 and c64
+            sets["grid_model"] = lambda: dt.QRFactorization(
+                *blocked._blocked_qr_impl(At.clone(), nb, kernel=True,
+                                          leaf=hp._panel_qr_grid_leaf),
+                block_size=nb)
+        quality = {}
+        for name, make in sets.items():
+            fact, t = wall(make)
+            backward, orth = factor_quality(fact.H, fact.alpha, At, nb)
+            x = fact.solve(bt)
+            quality[name] = (backward, orth)
+            row = {"phase": 8, "name": "factor_quality", "factors": name,
+                   "dtype": np.dtype(dtype).name, "shape": [m, n],
+                   "problem_seed": pseed, "factor_s": t,
+                   "backward_error_f64": backward,
+                   "orthogonality_f64": orth,
+                   "ratio_to_lapack": ne(x.cpu().numpy()) / oracle,
+                   "ratio_to_lapack_f64_eval": ne64(x) / oracle64}
+            if name != "plain_loop":
+                row["vs_plain_loop"] = [backward / quality["plain_loop"][0],
+                                        orth / quality["plain_loop"][1]]
+            emit(row)
+            del fact, x
+        kb, ko = quality["kernel"]
+        pb, po = quality["plain_loop"]
+        ok = kb <= 2 * pb and ko <= 2 * po
+        emit({"phase": 8, "name": "factor_quality_verdict",
+              "dtype": np.dtype(dtype).name, "problem_seed": pseed,
+              "kernel_over_plain_backward": kb / pb,
+              "kernel_over_plain_orthogonality": ko / po, "bar": 2.0,
+              "ok": ok})
+        if not ok:
+            raise AssertionError("the kernel's factors are more than 2x "
+                                 "worse than the plain panel loop's")
         del At, bt, A64, b64
         torch.cuda.empty_cache()
 
@@ -797,12 +934,295 @@ def phase_gradients(dt, hp, seed, shapes=((4096, 512, torch.float32),
             raise AssertionError(f"gradient check failed: {row}")
 
 
+# -- phase 11: the lookahead and aggregated schedules -------------------------
+
+SCHEDULES = (("lookahead", {"lookahead": True}), ("agg2", {"agg_panels": 2}),
+             ("agg4", {"agg_panels": 4}))
+LOOKAHEAD_CAPS = (16, 33, 66, 132)
+
+
+def schedule_launches(m, n, dtype, lookahead_ctas=None):
+    """Kernel leaves of one factorization by the engine's own plan (the
+    lookahead schedule's side-stream panels planned on ``lookahead_ctas``
+    SMs)."""
+    from dhqr_tpu_torch.ops import blocked
+
+    cuda = torch.device("cuda")
+    kernel = blocked._resolve_kernel("auto", m, dtype, cuda)
+    plan = blocked.panel_plan(m, n, blocked.DEFAULT_BLOCK_SIZE, kernel, dtype,
+                              cuda, lookahead_ctas)
+    return sum(blocked.kernel_leaves(w, leaf) for _, w, leaf in plan if leaf)
+
+
+def backward_error(fact, A):
+    """||Q R - A|| / ||A|| with Q R formed by the factorization's own apply."""
+    m, n = A.shape
+    R = torch.cat([fact.r_matrix(), A.new_zeros((m - n, n))])
+    QR = fact.matmul_q(R)
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    return float(torch.linalg.vector_norm((QR - A).to(wide))
+                 / torch.linalg.vector_norm(A.to(wide)))
+
+
+def overlap_profile(fn):
+    """(wall s, panel-kernel device s, GEMM device s, s where a panel kernel
+    and a GEMM ran at once, device busy s) of one call of ``fn`` under
+    ``torch.profiler``; None for the device figures when the profiler
+    recorded no kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, t_wall = wall(fn)
+    spans = {"panel": [], "gemm": [], "all": []}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        iv = (evt.time_range.start, evt.time_range.end)
+        name = evt.name.lower()
+        spans["all"].append(iv)
+        if "panel_qr" in name:
+            spans["panel"].append(iv)
+        elif "gemm" in name:
+            spans["gemm"].append(iv)
+
+    def union(ivs):
+        out = []
+        for lo, hi in sorted(ivs):
+            if out and lo <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], hi)
+            else:
+                out.append([lo, hi])
+        return out
+
+    def length(ivs):
+        return sum(hi - lo for lo, hi in ivs) / 1e6  # us -> s
+
+    if not spans["all"]:
+        return t_wall, None, None, None, None
+    gemm = union(spans["gemm"])
+    both = [(max(lo, g0), min(hi, g1)) for lo, hi in union(spans["panel"])
+            for g0, g1 in gemm if min(hi, g1) > max(lo, g0)]
+    return (t_wall, length(union(spans["panel"])), length(gemm),
+            length(both), length(union(spans["all"])))
+
+
+def phase_schedules(dt, hp, seed, cases=((16384, 16384, torch.float32),
+                                         (8192, 4096, torch.complex64))):
+    """``qr`` in each schedule against the default: steady seconds,
+    GFLOP/s, backward error, distance of the factors from the default's,
+    launches against the plan; for lookahead the CTA cap sweep and the
+    profiler's overlap; then ``lstsq`` at 4400 x 4000 in each schedule on
+    the reference's criterion."""
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
+
+    for i, (m, n, dtype) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(seed + 11 + i)
+        A = torch.rand((m, n), generator=g, device="cuda", dtype=dtype)
+        kname = hp.KERNELS[dtype]
+        tol = TOL_BACKWARD_F32 if dtype == torch.float32 else TOL_BACKWARD_C64
+        real_flops = (1 if dtype == torch.float32 else 4) * (
+            2 * m * n * n - 2.0 / 3.0 * n ** 3)
+        dt.qr(A)
+        ref, t_ref = wall(lambda: dt.qr(A))
+        emit({"phase": 11, "name": "schedule", "schedule": "default",
+              "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+              "factor_s": t_ref, "gflops": real_flops / t_ref / 1e9,
+              "backward_error": backward_error(ref, A)})
+        for sched, kw in SCHEDULES:
+            expect = schedule_launches(
+                m, n, dtype, hp.LOOKAHEAD_CTAS if "lookahead" in kw else None)
+            l0 = hp.LAUNCHES[kname]
+            fact, t_first = wall(lambda: dt.qr(A, **kw))
+            launches = hp.LAUNCHES[kname] - l0
+            del fact
+            fact, t = wall(lambda: dt.qr(A, **kw))
+            row = {"phase": 11, "name": "schedule", "schedule": sched,
+                   "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+                   "factor_first_s": t_first, "factor_s": t,
+                   "default_s": t_ref, "gflops": real_flops / t / 1e9,
+                   "backward_error": backward_error(fact, A), "tol": tol,
+                   "rel_diff_H": rel_err(fact.H, ref.H),
+                   "rel_diff_alpha": rel_err(fact.alpha, ref.alpha),
+                   "launches": launches, "expected": expect}
+            row["ok"] = (row["backward_error"] < tol and launches == expect
+                         and expect >= 1 and row["rel_diff_H"] < 1e-3)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"schedule check failed: {row}")
+            del fact
+        for cap in LOOKAHEAD_CAPS:  # the side-stream grid's CTA cap
+            run = lambda: blocked._blocked_qr_impl(  # noqa: E731
+                A.clone(), blocked.DEFAULT_BLOCK_SIZE, kernel=True,
+                lookahead=True, lookahead_ctas=cap)
+            run()
+            l0 = hp.LAUNCHES[kname]
+            _, t = wall(run)
+            launches = hp.LAUNCHES[kname] - l0
+            t_wall, panel_s, gemm_s, both_s, busy_s = overlap_profile(run)
+            row = {"phase": 11, "name": "lookahead_cap", "ctas": cap,
+                   "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+                   "factor_s": t, "default_s": t_ref,
+                   "profiled_wall_s": t_wall, "panel_device_s": panel_s,
+                   "gemm_device_s": gemm_s, "overlap_device_s": both_s,
+                   "device_busy_s": busy_s,
+                   "launches": launches,
+                   "expected": schedule_launches(m, n, dtype, cap)}
+            if panel_s is None:
+                row["note"] = "torch.profiler recorded no kernels: not measured"
+            row["ok"] = launches == row["expected"]
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"lookahead cap check failed: {row}")
+        t_wall, panel_s, gemm_s, both_s, busy_s = overlap_profile(
+            lambda: dt.qr(A))
+        emit({"phase": 11, "name": "default_profile",
+              "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+              "profiled_wall_s": t_wall, "panel_device_s": panel_s,
+              "gemm_device_s": gemm_s, "overlap_device_s": both_s,
+              "device_busy_s": busy_s})
+        del A, ref
+        torch.cuda.empty_cache()
+    for dtype, name in ((np.float32, "panel_qr_f32"),
+                        (np.complex64, "panel_qr_c64")):
+        A, b, oracle = oracle_of(4400, 4000, dtype, seed + 3)
+        for sched, kw in SCHEDULES:
+            l0 = hp.LAUNCHES[name]
+            x, t = wall(lambda: dt.lstsq(A, b, **kw))
+            res = normal_equations_residual(A, x.cpu().numpy(), b)
+            row = {"phase": 11, "name": "schedule_criterion",
+                   "schedule": sched, "dtype": np.dtype(dtype).name,
+                   "shape": [4400, 4000], "lstsq_s": t,
+                   "ratio": res / oracle, "criterion": CRITERION,
+                   "launches": hp.LAUNCHES[name] - l0}
+            row["ok"] = bool(np.isfinite(res)) and res < CRITERION * oracle \
+                and row["launches"] >= 1
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"schedule criterion failed: {row}")
+
+
+# -- phase 12: the reconstruct panel engine -----------------------------------
+
+TOL_BACKWARD_F64 = 1e-12
+
+
+def phase_reconstruct(dt, hp, seed, m=16384, n=2048):
+    """``qr`` + ``solve`` with ``panel_impl="reconstruct"`` and
+    ``"reconstruct:4096"``, f32 on the plain panel path and f64, beside the
+    ``"loop"`` engine; then ``lstsq`` at 4400 x 4000 on the reference's
+    criterion. No panel kernel runs here."""
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
+
+    for i, dtype in enumerate((torch.float32, torch.float64)):
+        g = torch.Generator(device="cuda").manual_seed(seed + 12 + i)
+        A = torch.rand((m, n), generator=g, device="cuda", dtype=dtype)
+        b = torch.rand((m,), generator=g, device="cuda", dtype=dtype)
+        tol = TOL_BACKWARD_F32 if dtype == torch.float32 else TOL_BACKWARD_F64
+        kw = {"use_pallas": "never"} if dtype == torch.float32 else {}
+        _, t_loop = wall(lambda: dt.qr(A, **kw))
+        for impl in ("reconstruct", "reconstruct:4096"):
+            dt.qr(A, panel_impl=impl, **kw)
+            fact, t = wall(lambda: dt.qr(A, panel_impl=impl, **kw))
+            x, t_solve = wall(lambda: fact.solve(b))
+            row = {"phase": 12, "name": "reconstruct", "panel_impl": impl,
+                   "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+                   "factor_s": t, "solve_s": t_solve, "loop_factor_s": t_loop,
+                   "backward_error": backward_error(fact, A), "tol": tol,
+                   "finite": bool(torch.isfinite(x).all())}
+            row["ok"] = row["backward_error"] < tol and row["finite"]
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"reconstruct check failed: {row}")
+            del fact, x
+        del A, b
+        torch.cuda.empty_cache()
+    for dtype in (np.float32, np.float64):
+        A, b, oracle = oracle_of(4400, 4000, dtype, seed + 3)
+        kw = {"use_pallas": "never"} if dtype == np.float32 else {}
+        for impl in ("reconstruct", "reconstruct:4096"):
+            x, t = wall(lambda: dt.lstsq(A, b, panel_impl=impl, **kw))
+            res = normal_equations_residual(A, x.cpu().numpy(), b)
+            row = {"phase": 12, "name": "reconstruct_criterion",
+                   "panel_impl": impl, "dtype": np.dtype(dtype).name,
+                   "shape": [4400, 4000], "lstsq_s": t,
+                   "ratio": res / oracle, "criterion": CRITERION}
+            row["ok"] = bool(np.isfinite(res)) and res < CRITERION * oracle
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"reconstruct criterion failed: {row}")
+
+
+# -- phase 13: the sketched solver --------------------------------------------
+
+def phase_sketch(dt, seed, cases=((65536, 256, torch.float32),
+                                  (131072, 256, torch.float32),
+                                  (32768, 256, torch.complex64))):
+    """``lstsq(engine="sketch")`` (the operator by "auto": SRHT at these
+    power-of-two heights) and, at 65536 x 256, ``sketched_lstsq`` with the
+    count sketch, against ``torch.linalg.lstsq`` (yardstick) on the
+    normal-equations residual, timed beside it and ``engine="cholqr2"``;
+    each new (operator, m, s, seed) draws its operator once."""
+    from dhqr_tpu_torch.solvers import sketch
+
+    for i, (m, n, dtype) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(seed + 13 + i)
+        A = torch.rand((m, n), generator=g, device="cuda", dtype=dtype)
+        b = torch.rand((m,), generator=g, device="cuda", dtype=dtype)
+        wide = torch.complex128 if A.is_complex() else torch.float64
+        A64, b64 = A.to(wide), b.to(wide)
+
+        def ne(x):
+            return float(torch.linalg.vector_norm(
+                A64.mH @ (A64 @ x.to(wide) - b64)))
+
+        ref = lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0]  # noqa: E731
+        wall(ref)
+        x_ref, t_ref = wall(ref)
+        res_ref = ne(x_ref)
+        dt.lstsq(A, b, engine="cholqr2")
+        _, t_chol = wall(lambda: dt.lstsq(A, b, engine="cholqr2"))
+        calls = [("lstsq_engine_sketch", "auto",
+                  lambda: dt.lstsq(A, b, engine="sketch"))]
+        if i == 0:
+            calls.append(("sketched_lstsq", "countsketch",
+                          lambda: dt.sketched_lstsq(A, b,
+                                                    operator="countsketch")))
+        for name, op, fn in calls:
+            d0 = sketch.COUNTERS.get("sketch_operator_draws")
+            x, t_first = wall(fn)
+            d1 = sketch.COUNTERS.get("sketch_operator_draws")
+            x, t = wall(fn)
+            d2 = sketch.COUNTERS.get("sketch_operator_draws")
+            res = ne(x)
+            row = {"phase": 13, "name": name, "operator":
+                   sketch.resolve_operator(op, m),
+                   "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+                   "s": t, "first_s": t_first, "torch_lstsq_s": t_ref,
+                   "cholqr2_s": t_chol, "normal_eq_residual": res,
+                   "torch_lstsq_residual": res_ref, "ratio": res / res_ref,
+                   "criterion": CRITERION, "operator_draws_first": d1 - d0,
+                   "operator_draws_second": d2 - d1}
+            row["ok"] = (bool(np.isfinite(res)) and res <= CRITERION * res_ref
+                         and d1 - d0 <= 1 and d2 == d1)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"sketch check failed: {row}")
+        del A, b, A64, b64
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10,11,12,13",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
+    ap.add_argument("--accuracy-seeds", type=int, default=1,
+                    help="problem seeds of phase 8's factor-quality check "
+                         "(kernel and plain loop, f32; default 1)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")} | {0}
     if not torch.cuda.is_available():
@@ -843,18 +1263,30 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_kernel_profile(args.seed)
     if 8 in phases:
-        counted("precision", lambda: (phase_precision_gemms(args.seed),
-                                      phase_precision_qr(dt, hp, args.seed),
-                                      phase_precision_lstsq(dt, args.seed)))
+        counted("precision", lambda: (
+            phase_precision_gemms(args.seed),
+            phase_precision_qr(dt, hp, args.seed),
+            phase_precision_lstsq(dt, args.seed),
+            phase_factor_quality(dt, hp, args.seed, args.accuracy_seeds)))
     if 9 in phases:
         counted("tsqr", lambda: phase_engines(dt, hp, args.seed))
     if 10 in phases:
         counted("gradients", lambda: phase_gradients(dt, hp, args.seed))
+    if 11 in phases:
+        counted("schedules", lambda: phase_schedules(dt, hp, args.seed))
+    if 12 in phases:
+        counted("reconstruct", lambda: phase_reconstruct(dt, hp, args.seed))
+    if 13 in phases:
+        counted("sketch", lambda: phase_sketch(dt, args.seed))
     emit({"launches_by_path": paths})
+    for key in ("reconstruct", "sketch"):  # paths with no panel kernel on them
+        if key in paths and any(paths[key].values()):
+            raise AssertionError(f"the {key} path launched a panel kernel: "
+                                 f"{paths[key]}")
     kernels = []
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
-        for key in ("main", "tsqr", "gradients"):
+        for key in ("main", "tsqr", "gradients", "schedules"):
             if key in paths and paths[key][name] < 1:
                 raise AssertionError(f"{name} never launched on the {key} "
                                      "path")

@@ -13,6 +13,8 @@ JAX package — is a CUDA C++ kernel written for ``sm_90a``
     >>> x = dhqr_tpu_torch.lstsq(A, b)       # differentiable (autograd)
     >>> x = dhqr_tpu_torch.lstsq(A, b, engine="tsqr")
     >>> x = dhqr_tpu_torch.lstsq(A, b, policy="balanced")
+    >>> x = dhqr_tpu_torch.lstsq(A, b, engine="sketch")  # tall: m >> n
+    >>> fact = dhqr_tpu_torch.qr(A, lookahead=True)      # two CUDA streams
     >>> x = dhqr_tpu_torch.lstsq(A, b, device="cpu")   # plain PyTorch path
 
 This package imports neither ``jax`` nor ``dhqr_tpu``.
@@ -49,7 +51,8 @@ from dhqr_tpu_torch.precision import (
     PrecisionPolicy,
     resolve_policy,
 )
-from dhqr_tpu_torch.utils.config import DHQRConfig, NotPortedError
+from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
+from dhqr_tpu_torch.utils.config import DHQRConfig, NotPortedError, SketchConfig
 
 __version__ = "0.1.0"
 
@@ -65,6 +68,7 @@ __all__ = [
     "PrecisionPolicy",
     "QRFactorization",
     "ResidualGateFailed",
+    "SketchConfig",
     "alphafactor",
     "apply_q",
     "apply_qt",
@@ -80,6 +84,7 @@ __all__ = [
     "resolve_policy",
     "solve",
     "solve_least_squares",
+    "sketched_lstsq",
     "tsqr_lstsq",
     "tsqr_r",
     "__version__",

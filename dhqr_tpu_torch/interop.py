@@ -16,7 +16,7 @@ import torch
 
 from dhqr_tpu_torch.models.qr_model import QRFactorization
 from dhqr_tpu_torch.precision import PrecisionPolicy
-from dhqr_tpu_torch.utils.config import DHQRConfig, check_precision
+from dhqr_tpu_torch.utils.config import DHQRConfig, SketchConfig, check_precision
 from dhqr_tpu_torch.utils.device import as_tensor
 
 
@@ -50,6 +50,12 @@ def config_from_fields(**fields) -> DHQRConfig:
     if isinstance(policy, dict):
         fields = dict(fields, policy=PrecisionPolicy(**policy))
     return DHQRConfig(**fields)
+
+
+def sketch_config_from_fields(**fields) -> SketchConfig:
+    """The port's :class:`SketchConfig` from the JAX ``SketchConfig``'s
+    field values (``dataclasses.asdict`` of it); same fields, same checks."""
+    return SketchConfig(**fields)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

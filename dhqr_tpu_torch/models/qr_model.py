@@ -7,12 +7,11 @@
 * :func:`lstsq` is the one-shot least-squares solve (minimum-norm for
   m < n), routed by ``engine`` to the blocked Householder engine (through
   the differentiable :func:`~dhqr_tpu_torch.ops.differentiable.lstsq_diff`),
-  TSQR or CholeskyQR.
+  TSQR, CholeskyQR or the sketched solver.
 
-Knobs the port does not run yet (mesh, plan, guards, sketch,
-lookahead/aggregation, compressed comms) raise
-:class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the ROADMAP
-item that brings them.
+Knobs the port does not run yet (mesh, plan, guards, compressed comms)
+raise :class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -33,9 +32,11 @@ from dhqr_tpu_torch.precision import (
     resolve_comms,
     resolve_policy,
 )
+from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
 from dhqr_tpu_torch.utils.config import (
     ENGINES,
     DHQRConfig,
+    SketchConfig,
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
@@ -143,6 +144,14 @@ def _reject_nonblocked_knobs(cfg: DHQRConfig) -> None:
         raise ValueError(
             "trailing_precision applies to the blocked engines only "
             f"(got {cfg.trailing_precision!r} with blocked=False)")
+    if cfg.lookahead:
+        raise ValueError(
+            "lookahead applies to the blocked engines only (the unblocked "
+            "panel loop has no panel-level schedule to reorder)")
+    if cfg.agg_panels:
+        raise ValueError(
+            "agg_panels applies to the blocked engines only (the unblocked "
+            "panel loop has no panel-level updates to aggregate)")
 
 
 def _resolve_policy_cfg(cfg: DHQRConfig):
@@ -188,9 +197,13 @@ def _resolved(config, overrides, mesh):
     cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
     cfg, pol = _resolve_policy_cfg(cfg)
     refuse_unported(cfg, mesh)
+    return cfg, pol
+
+
+def _with_block_size(cfg: DHQRConfig) -> DHQRConfig:
     if cfg.block_size is None:
         cfg = dataclasses.replace(cfg, block_size=_blocked.DEFAULT_BLOCK_SIZE)
-    return cfg, pol
+    return cfg
 
 
 def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
@@ -201,6 +214,7 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     >>> fact = qr(A, blocked=False)   # unblocked reference-parity engine
     >>> fact = qr(A, donate=True)     # factors in place in A's storage
     >>> fact = qr(A, policy="balanced")  # bf16x3 trailing GEMMs, refined solves
+    >>> fact = qr(A, lookahead=True)  # panel q+1 beside panel q's GEMM
 
     ``policy=`` names the precision tuple at once: panel and trailing
     precision go to the factor engine, ``apply`` becomes the
@@ -209,11 +223,12 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     ``device=None`` runs on the CUDA card (inputs are moved there).
     """
     cfg, pol = _resolved(config, overrides, mesh)
+    cfg = _with_block_size(cfg)
     if cfg.engine != "householder":
         raise ValueError(
             f"qr() supports only engine='householder' (got {cfg.engine!r}): "
             "the factorization object stores packed reflectors; the "
-            "tsqr/cholqr engines are lstsq-only paths")
+            "tsqr/cholqr/sketch engines are lstsq-only fast paths")
     if cfg.refine:
         raise ValueError(
             "refine applies to lstsq() only — qr() returns the raw "
@@ -232,7 +247,9 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
             A, cfg.block_size, donate=donate, precision=cfg.precision,
             use_pallas=cfg.use_pallas, norm=cfg.norm,
             panel_impl=cfg.panel_impl,
-            trailing_precision=cfg.trailing_precision, device=A.device)
+            trailing_precision=cfg.trailing_precision,
+            lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
+            device=A.device)
     else:
         if donate:
             raise ValueError("donate=True is only supported on the blocked path")
@@ -297,6 +314,54 @@ def _validate_alt_engine_cfg(cfg: DHQRConfig) -> None:
         raise ValueError(
             "apply_precision applies to the householder engines only "
             f"(engine={cfg.engine!r})")
+    if cfg.lookahead:
+        raise ValueError(
+            "lookahead applies to the blocked householder engines only "
+            f"(engine={cfg.engine!r})")
+    if cfg.agg_panels:
+        raise ValueError(
+            "agg_panels applies to the blocked householder engines only "
+            f"(engine={cfg.engine!r})")
+
+
+def _lstsq_sketch(A, b, cfg: DHQRConfig):
+    """Route ``lstsq`` to the sketched engine
+    (:func:`~dhqr_tpu_torch.solvers.sketch.sketched_lstsq`): compress to
+    an s x n core, R from the core, R-preconditioned CGLS against the true
+    A. ``precision`` / ``trailing_precision`` steer the core's Gram
+    product; ``refine`` adds CGLS iterations to the
+    :class:`~dhqr_tpu_torch.utils.config.SketchConfig` baseline."""
+    if cfg.layout != "block":
+        raise ValueError(
+            f"layout applies only to the householder engines "
+            f"(engine='sketch', layout={cfg.layout!r})")
+    if cfg.use_pallas != "auto":
+        raise ValueError(
+            "use_pallas applies to engines with single-problem panel "
+            f"loops (got use_pallas={cfg.use_pallas!r} with "
+            "engine='sketch'; the sketch core has no panel loop)")
+    if cfg.apply_precision is not None:
+        raise ValueError(
+            "apply_precision applies to the householder engines only "
+            "(engine='sketch')")
+    if cfg.panel_impl != "loop":
+        raise ValueError(
+            "panel_impl applies to the blocked householder engines "
+            f"(engine='sketch', panel_impl={cfg.panel_impl!r})")
+    if cfg.lookahead or cfg.agg_panels or cfg.overlap_depth:
+        raise ValueError(
+            "lookahead/agg_panels/overlap_depth apply to the blocked "
+            "householder engines only (engine='sketch')")
+    if not cfg.blocked:
+        raise ValueError(
+            "engine='sketch' factors its core with the blocked engine "
+            "(got blocked=False)")
+    scfg = SketchConfig.from_env()
+    return sketched_lstsq(
+        A, b, scfg, precision=cfg.precision,
+        trailing_precision=cfg.trailing_precision, norm=cfg.norm,
+        refine=scfg.refine + cfg.refine, block_size=cfg.block_size,
+        device=A.device)
 
 
 def _lstsq_impl(A, b, cfg: DHQRConfig):
@@ -306,6 +371,7 @@ def _lstsq_impl(A, b, cfg: DHQRConfig):
         return lstsq_diff(
             A, b, cfg.block_size, cfg.precision, cfg.use_pallas, cfg.norm,
             cfg.panel_impl, cfg.refine, cfg.trailing_precision,
+            lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
             apply_precision=cfg.apply_precision, device=A.device)
     _reject_nonblocked_knobs(cfg)
     H, alpha = _hh.householder_qr(A, precision=cfg.precision, norm=cfg.norm,
@@ -368,8 +434,9 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     :func:`~dhqr_tpu_torch.ops.differentiable.lstsq_diff`, so
     ``torch.autograd`` works through it at every ``refine``;
     ``blocked=False`` runs the unblocked engine. ``engine="tsqr"`` /
-    ``"cholqr2"`` / ``"cholqr3"`` route to the tall-skinny engines. For
-    m < n: the minimum-norm solution.
+    ``"cholqr2"`` / ``"cholqr3"`` route to the tall-skinny engines,
+    ``engine="sketch"`` to :func:`~dhqr_tpu_torch.solvers.sketch.
+    sketched_lstsq` (m > n). For m < n: the minimum-norm solution.
 
     ``policy=`` names the precision tuple at once: panel/trailing go to the
     factor stage, ``apply`` to the Q^H applies, ``refine`` into the
@@ -384,18 +451,22 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     if cfg.refine < 0:
         raise ValueError(f"refine must be >= 0, got {cfg.refine}")
     m, n = A.shape
+    if m < n and cfg.engine != "householder":
+        raise ValueError(
+            f"m < n (got {tuple(A.shape)}) is supported only on the "
+            "single-device householder path (minimum-norm solve)")
+    if cfg.engine == "sketch":  # before the block-size default, as in JAX
+        return _lstsq_sketch(A, b, cfg)
+    cfg = _with_block_size(cfg)
     if m < n:
-        if cfg.engine != "householder":
-            raise ValueError(
-                f"m < n (got {tuple(A.shape)}) is supported only on the "
-                "single-device householder path (minimum-norm solve)")
         if not cfg.blocked or cfg.use_pallas != "auto" \
-                or cfg.trailing_precision is not None \
-                or cfg.apply_precision is not None:
+                or cfg.trailing_precision is not None or cfg.lookahead \
+                or cfg.agg_panels or cfg.apply_precision is not None:
             raise ValueError(
                 "m < n supports only the default blocked path "
                 f"(got blocked={cfg.blocked}, use_pallas={cfg.use_pallas!r}, "
                 f"trailing_precision={cfg.trailing_precision!r}, "
+                f"lookahead={cfg.lookahead}, agg_panels={cfg.agg_panels}, "
                 f"apply_precision={cfg.apply_precision!r})")
         if cfg.refine:
             raise ValueError(

@@ -27,23 +27,27 @@ from dhqr_tpu_torch.ops.blocked import (
     _apply_qt_impl,
     _blocked_qr_impl,
     _resolve_kernel,
+    check_schedule_args,
 )
 from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.solve import _back_substitute, as_matrix_rhs, r_matrix
-from dhqr_tpu_torch.utils.config import NotPortedError, check_precision
+from dhqr_tpu_torch.utils.config import check_precision
 from dhqr_tpu_torch.utils.device import as_tensor
 
 
 def _lstsq_fwd(A, b, block_size, kernel=False, norm="accurate",
                panel_impl="loop", refine=0, precision=DEFAULT_PRECISION,
-               trailing_precision=None, apply_precision=None):
-    """The forward pass: blocked factorization, Q^H b, back-substitution
-    and ``refine`` sweeps ``x += A+ (b - A x)`` with the residual at full
+               trailing_precision=None, apply_precision=None,
+               lookahead=False, agg_panels=None):
+    """The forward pass: blocked factorization (in the schedule that
+    ``lookahead`` / ``agg_panels`` pick), Q^H b, back-substitution and
+    ``refine`` sweeps ``x += A+ (b - A x)`` with the residual at full
     precision. Returns ``(x, H, alpha)``."""
     H, alpha = _blocked_qr_impl(A.clone(), block_size, kernel=kernel,
                                 norm=norm, panel_impl=panel_impl,
                                 precision=precision,
-                                trailing_precision=trailing_precision)
+                                trailing_precision=trailing_precision,
+                                lookahead=lookahead, agg_panels=agg_panels)
     ap = precision if apply_precision is None else apply_precision
 
     def qr_solve(rhs):
@@ -135,11 +139,10 @@ def lstsq_diff(A, b, block_size: int = DEFAULT_BLOCK_SIZE,
     factorization; the derivative is that of the exact minimizer, which
     refinement approaches. ``apply_precision`` (default: ``precision``) is
     the solve stage's precision; the derivative rules run at
-    ``precision``.
+    ``precision``. ``lookahead`` / ``agg_panels`` pick the forward's
+    factorization schedule; the derivative rules do not depend on it.
     """
-    if lookahead or agg_panels:
-        raise NotPortedError("lookahead/agg_panels",
-                             "Queue A item 5 (lookahead/aggregated schedules)")
+    check_schedule_args(lookahead, agg_panels, None)
     for name in (precision, trailing_precision, apply_precision):
         if name is not None:
             check_precision(name)
@@ -153,4 +156,4 @@ def lstsq_diff(A, b, block_size: int = DEFAULT_BLOCK_SIZE,
     kernel = _resolve_kernel(use_pallas, m, A.dtype, A.device)
     return _LstsqDiff.apply(A, b, int(block_size), (
         kernel, norm, panel_impl, int(refine), precision, trailing_precision,
-        apply_precision))[0]
+        apply_precision, bool(lookahead), agg_panels))[0]

@@ -17,12 +17,13 @@ per column. This module holds, per kernel:
   eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch rounds
   every op on its own, so the Veltkamp split holds as written);
 * the **schedule model** :func:`_panel_qr_grid_model` — the CUDA kernel's
-  row partition and one-round merge in eager PyTorch (tests and
-  ``chip_smoke.py`` only);
+  row partition and one-round merge in eager PyTorch (tests, and
+  ``chip_smoke.py`` as a leaf of the blocked engine on the card);
 * the **launch plan** :func:`kernel_grid` / :func:`kernel_resident` /
   :func:`kernel_flat_width` — the kernel's row partition, whether the
   slices fit shared memory, and the leaf width the blocked engine plans
-  with. The launcher only checks the plan it is given;
+  with, each for the card's SMs or a cap on them
+  (:data:`LOOKAHEAD_CTAS`). The launcher only checks the plan it is given;
 * the **launch counts** :data:`LAUNCHES`, one integer per kernel, which
   the wrapper raises by one per launch and nowhere else.
 """
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,6 +57,11 @@ H100_SMEM_PER_BLOCK = 232448
 KERNEL_STATIC_SMEM = 8192
 # The kernel indexes a panel's elements with int32.
 KERNEL_MAX_ELEMENTS = 2**31 - 1
+# CTA cap of a panel launched beside a trailing GEMM (the lookahead
+# schedule's side stream, ops/blocked.py): the cooperative grid must be
+# resident at once, so it takes at most this many SMs and leaves the rest
+# to cuBLAS. Chosen from the cap sweep of chip_smoke.py phase 11.
+LOOKAHEAD_CTAS = 66
 
 KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64"}
 
@@ -66,16 +73,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def device_limits(device=None) -> "tuple[int, int]":
+def device_limits(device=None, ctas: "int | None" = None
+                  ) -> "tuple[int, int]":
     """(SMs, opt-in shared memory bytes per block) of ``device``'s card;
-    the H100's values for a CPU device or where no card is present."""
+    the H100's values for a CPU device or where no card is present.
+    ``ctas`` caps the SM count: the launch plan of a grid that may use at
+    most that many SMs (the lookahead schedule's side-stream panels)."""
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda" or not torch.cuda.is_available():
-        return H100_SMS, H100_SMEM_PER_BLOCK
-    props = torch.cuda.get_device_properties(device)
-    return (props.multi_processor_count,
-            getattr(props, "shared_memory_per_block_optin",
-                    H100_SMEM_PER_BLOCK))
+        sms, smem = H100_SMS, H100_SMEM_PER_BLOCK
+    else:
+        props = torch.cuda.get_device_properties(device)
+        sms = props.multi_processor_count
+        smem = getattr(props, "shared_memory_per_block_optin",
+                       H100_SMEM_PER_BLOCK)
+    return (sms if ctas is None else max(1, min(sms, int(ctas)))), smem
 
 
 def kernel_grid(rows: int, sms: int = H100_SMS) -> "tuple[int, int]":
@@ -234,76 +246,110 @@ _PLAIN = {torch.float32: _panel_qr_plain, torch.complex64: _panel_qr_plain_c64}
 # -- the CUDA kernel's schedule, in plain PyTorch ----------------------------
 
 def _comp_merge(s, err, s2, e2):
-    """(s, err) += (s2, e2): the kernel's TwoSum merge, rounded per op."""
+    """(s, err) += (s2, e2): the kernel's TwoSum merge, rounded per op
+    (numpy float32 scalars or 0-d float32 tensors)."""
     t = s + s2
     z = t - s
     err = (err + ((s - (t - z)) + (s2 - z))) + e2
     return t, err
 
 
+def _column_scalars(ps, pe, pd, a_jj, ycol):
+    """One column's merge and scalars, on the host in float32 (numpy):
+    the slices' (s, err) and partial dots merged in slice order, then
+    alpha, f and W = f (<x, y> - conj(alpha) y_j) as the kernel forms them.
+    Returns (alpha_j, f, W)."""
+    f32 = np.float32
+    s, err = f32(0), f32(0)
+    dots = np.zeros(pd.shape[1], pd.dtype)
+    for i in range(pd.shape[0]):
+        s, err = _comp_merge(s, err, ps[i], pe[i])
+        dots = dots + pd[i]
+    sn = np.sqrt(s + err)
+    if np.iscomplexobj(a_jj):
+        re, im = f32(a_jj.real), f32(a_jj.imag)
+        mag = np.sqrt(re * re + im * im)
+        inv = f32(1) / mag if mag > 0 else f32(0)
+        alpha_j = np.complex64(complex(sn * (-re * inv if mag > 0 else f32(-1)),
+                                       sn * (-im * inv if mag > 0 else f32(0))))
+    else:
+        mag = abs(a_jj)
+        alpha_j = -sn if a_jj >= 0 else sn
+    denom = sn * (sn + mag)
+    f = f32(1) / np.sqrt(denom) if denom > 0 else f32(0)
+    return alpha_j, f, (dots - np.conj(alpha_j) * ycol) * f
+
+
 def _panel_qr_grid_model(at: torch.Tensor, offset: int,
                          n_slices: int) -> torch.Tensor:
-    """The CUDA kernel's schedule on the CPU: factor ``at`` (nb, m) float32
-    or complex64 in place; returns alpha (nb,).
+    """The CUDA kernel's schedule in eager PyTorch: factor ``at`` (nb, m)
+    float32 or complex64 in place, on its own device; returns alpha (nb,).
 
     The active rows [offset, m) are cut into slices of
     ceil((m - offset) / n_slices) rows, as the kernel cuts them over that
     many CTAs (``n_slices`` = :func:`kernel_grid`'s CTAs). Per column,
     each slice forms its compensated sum of squares (s, err) and its
-    partial dots sum conj(x_i) y_i over its rows >= j; the slices are
-    merged in slice order (TwoSum for the norm), and the one-round
+    partial dots sum conj(x_i) y_i over its rows >= j (all slices at once,
+    rows < j masked to zero); the slices are merged in slice order on the
+    host (TwoSum for the norm, :func:`_column_scalars`), and the one-round
     identity W = f (<x, y> - conj(alpha) y_j) replaces the dots with v.
     Within a slice the compensated pair is formed in float64, where every
     float32 square is exact, and split into two float32 words. Tests and
     ``chip_smoke.py`` hold it against the JAX kernel, the plain versions
-    and the CUDA kernel.
+    and the CUDA kernel, and ``chip_smoke.py`` runs it on the card as the
+    blocked engine's leaf (:func:`_panel_qr_grid_leaf`).
     """
     nb, m = at.shape
-    per = -(-(m - offset) // n_slices)
-    bounds = [(lo, min(m, lo + per)) for lo in range(offset, m, per)]
+    rows = m - offset
+    per = -(-rows // n_slices)
+    slices = -(-rows // per)
+    buf = at.new_zeros((nb, slices * per))  # the active rows, zero-padded
+    buf[:, :rows] = at[:, offset:]
+    lane = torch.arange(slices * per, device=at.device) + offset
     f32 = torch.float32
-    zero = torch.zeros((), dtype=f32)
-    alpha = at.new_zeros(nb)
+    alpha = torch.empty(nb, dtype=at.dtype)
     for jl in range(nb):
         j = offset + jl
-        x = at[jl]
-        s, err = zero, zero
-        dots = at.new_zeros(nb - jl - 1)
-        for lo, hi in bounds:
-            lo = max(lo, j)
-            if lo >= hi:
-                ps, pe = zero, zero
-                pd = at.new_zeros(nb - jl - 1)
-            else:
-                xs = x[lo:hi]
-                sq = torch.sum(torch.view_as_real(xs).double() ** 2
-                               if xs.is_complex() else xs.double() ** 2)
-                ps = sq.to(f32)
-                pe = (sq - ps.double()).to(f32)
-                pd = torch.matmul(at[jl + 1:, lo:hi], xs.conj())
-            s, err = _comp_merge(s, err, ps, pe)
-            dots = dots + pd
-        sn = torch.sqrt(s + err)
-        a_jj = x[j]
+        X = torch.where(lane >= j, buf[jl], 0).view(slices, per)
+        sq = torch.view_as_real(X).double() if X.is_complex() else X.double()
+        sq = (sq ** 2).flatten(1).sum(1)
+        ps = sq.to(f32)
+        pe = (sq - ps.double()).to(f32)
+        Y = buf[jl + 1:].view(nb - jl - 1, slices, per)
+        pd = torch.einsum("ksp,sp->sk", Y, X.conj())
+        parts = [pd.flatten(), buf[jl:, jl]]  # dots, then a_jj and y_j
         if at.is_complex():
-            mag = torch.sqrt(a_jj.real * a_jj.real + a_jj.imag * a_jj.imag)
-            live = mag > 0
-            inv = torch.where(live, 1.0 / torch.where(live, mag, 1.0), 0.0)
-            alpha_j = torch.complex(
-                sn * torch.where(live, -a_jj.real * inv, -1.0),
-                sn * torch.where(live, -a_jj.imag * inv, 0.0))
-        else:
-            mag = a_jj.abs()
-            alpha_j = torch.where(a_jj >= 0, -sn, sn)
-        f = _inv_scale(sn, mag)
-        W = (dots - alpha_j.conj() * at[jl + 1:, j]) * f
-        v = x[j:].clone()
-        v[0] = v[0] - alpha_j
-        v = v * f
-        at[jl + 1:, j:] -= W[:, None] * v[None, :]
-        at[jl, j:] = v
-        alpha[jl] = alpha_j
-    return alpha
+            parts = [torch.view_as_real(p).flatten() for p in parts]
+        host = torch.cat([ps, pe, *parts]).cpu().numpy()  # one transfer
+        rest = host[2 * slices:]
+        if at.is_complex():
+            rest = rest.view(np.complex64)
+        k = nb - jl - 1
+        alpha_j, f, W = _column_scalars(
+            host[:slices], host[slices:2 * slices],
+            rest[:slices * k].reshape(slices, k), rest[slices * k],
+            rest[slices * k + 1:])
+        v = buf[jl, jl:].clone()
+        v[0] = v[0] - alpha_j.item()
+        v = v * float(f)
+        buf[jl + 1:, jl:] -= torch.from_numpy(W).to(at.device)[:, None] * v
+        buf[jl, jl:] = v
+        alpha[jl] = alpha_j.item()
+    at[:, offset:] = buf[:, :rows]
+    return alpha.to(at.device)
+
+
+def _panel_qr_grid_leaf(panel: torch.Tensor, offset: int,
+                        sms: "int | None" = None):
+    """The grid model as a leaf of the blocked engine, in place of
+    :func:`_panel_qr_kernel`: the same ``(pf, alpha)`` contract, cut into
+    the CTAs the kernel would launch for this panel on its device (at most
+    ``sms``). ``chip_smoke.py`` runs it on the card to measure the
+    kernel's schedule in PyTorch's arithmetic."""
+    m, nb = panel.shape
+    at = panel.T.contiguous()
+    ctas = _plan(m, nb, offset, panel.dtype, panel.device, sms)[0]
+    return at.T, _panel_qr_grid_model(at, offset, ctas)
 
 
 # -- the kernels ------------------------------------------------------------
@@ -346,23 +392,24 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError {err} ({msg})")
 
 
-def _plan(m: int, nb: int, offset: int, dtype, device) -> "tuple[int, int, bool]":
+def _plan(m: int, nb: int, offset: int, dtype, device,
+          sms: "int | None" = None) -> "tuple[int, int, bool]":
     """(CTAs, rows per CTA, resident) of the launch for an (m, nb) panel at
-    ``offset`` on ``device``'s card."""
-    limits = device_limits(device)
+    ``offset`` on ``device``'s card, on at most ``sms`` SMs."""
+    limits = device_limits(device, sms)
     ctas, rows = kernel_grid(m - offset, limits[0])
     return ctas, rows, kernel_resident(m - offset, nb, dtype, *limits)
 
 
 def kernel_launch_info(m: int, nb: int, offset: int, dtype,
-                       device=None) -> dict:
+                       device=None, sms: "int | None" = None) -> dict:
     """The launch the CUDA kernel makes for an (m, nb) panel at ``offset``
-    on ``device``'s card: CTAs, rows per CTA and residency as planned here,
-    and from the launcher the shared bytes per CTA, registers and spill
-    bytes per thread, resident CTAs per SM and the scratch's floats. Raises
-    what the launch would raise."""
+    on ``device``'s card, on at most ``sms`` SMs: CTAs, rows per CTA and
+    residency as planned here, and from the launcher the shared bytes per
+    CTA, registers and spill bytes per thread, resident CTAs per SM and the
+    scratch's floats. Raises what the launch would raise."""
     device = torch.device("cuda" if device is None else device)
-    ctas, rows, resident = _plan(m, nb, offset, dtype, device)
+    ctas, rows, resident = _plan(m, nb, offset, dtype, device, sms)
     out = (ctypes.c_int * 5)()
     complex64 = int(dtype == torch.complex64)
     with torch.cuda.device(device):
@@ -379,13 +426,15 @@ def kernel_launch_info(m: int, nb: int, offset: int, dtype,
 
 
 def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
-            profile: bool = False) -> None:
+            profile: bool = False, sms: "int | None" = None) -> None:
+    """Launch the kernel on ``at`` on the current stream, on at most
+    ``sms`` SMs; its scratch and barrier are allocated on that stream."""
     name = KERNELS[at.dtype]
     lib = _library(profile)
     nb, m = at.shape
     if not (at.is_contiguous() and alpha.is_contiguous()):
         raise ValueError("the panel kernel takes contiguous buffers")
-    ctas, rows, resident = _plan(m, nb, offset, at.dtype, at.device)
+    ctas, rows, resident = _plan(m, nb, offset, at.dtype, at.device, sms)
     floats = lib.dhqr_panel_qr_scratch_floats(int(at.dtype == torch.complex64),
                                               ctas, nb)
     scratch = torch.empty(floats, dtype=torch.float32, device=at.device)
@@ -420,15 +469,17 @@ def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
             "max": dict(zip(PROFILE_SECTIONS, cycles.max(0).values.tolist()))}
 
 
-def _panel_qr_kernel(panel: torch.Tensor, offset: int):
+def _panel_qr_kernel(panel: torch.Tensor, offset: int,
+                     sms: "int | None" = None):
     """Factor an (m, nb) panel whose reflector for local column jj starts at
     row ``offset + jj``; returns ``(pf, alpha)`` in the packed storage of
     ``householder._panel_qr_masked``. ``panel`` itself is not modified.
 
-    A CUDA tensor launches the Hopper kernel (its slices resident in shared
-    memory where they fit, streamed where they do not); a CPU tensor runs
-    the plain version. Anything the kernel does not take raises, and so
-    does a panel that requires grad.
+    A CUDA tensor launches the Hopper kernel on the current stream, on at
+    most ``sms`` SMs (default: all; its slices resident in shared memory
+    where they fit, streamed where they do not); a CPU tensor runs the
+    plain version. Anything the kernel does not take raises, and so does a
+    panel that requires grad.
     """
     refuse_grad(panel, "the Hopper panel kernel")
     m, nb = panel.shape
@@ -444,7 +495,7 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int):
     at.copy_(panel.T)  # (nb, m): panel column j -> row j
     if panel.device.type == "cuda":
         alpha = torch.empty(nb, dtype=panel.dtype, device=panel.device)
-        _launch(at, alpha, int(offset))
+        _launch(at, alpha, int(offset), sms=sms)
     elif panel.device.type == "cpu":
         alpha = _PLAIN[panel.dtype](at, int(offset))
     else:

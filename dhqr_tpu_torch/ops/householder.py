@@ -14,6 +14,11 @@ rows ``j:`` and columns right of it only. The skipped entries are the ones
 the JAX engine multiplies by structural zeros, so the results agree. The
 column norm keeps the JAX engine's masked full-length compensated tree, so
 its summation order is the reference's.
+
+The reconstruct panel engine (:func:`_panel_qr_reconstruct`, with
+:func:`_lu_nopivot` and :func:`_explicit_qr_tree`) is the one place the
+port calls a library QR, as the JAX engine calls ``jnp.linalg.qr`` there;
+only ``panel_impl="reconstruct[:<chunk>]"`` reaches it.
 """
 
 from __future__ import annotations
@@ -96,6 +101,96 @@ def _panel_qr_masked(panel: torch.Tensor, offset: int,
     for jj in range(P.shape[1]):
         _panel_step(jj, P, alpha, offset, norm, precision)
     return P, alpha
+
+
+def _lu_nopivot(M: torch.Tensor, base: int = 32) -> torch.Tensor:
+    """Unpivoted LU of a square matrix, packed: tril(P,-1)+I = L, triu(P) = U.
+
+    Recursion (left LU, two triangular solves, Schur update at full
+    precision, right LU) keeps the work in GEMMs; the base case is the
+    elimination sweep. No pivoting by design: the only caller factors
+    ``Q1_top - S`` with ``S = -sign(diag Q1)``, whose diagonal is bounded
+    away from zero (Ballard et al., "Reconstructing Householder Vectors
+    from TSQR"; LAPACK dorhr_col)."""
+    b = M.shape[0]
+    if b <= base:
+        P = M.clone()
+        for j in range(b - 1):
+            lcol = P[j + 1:, j] / P[j, j]
+            P[j + 1:, j + 1:] -= torch.outer(lcol, P[j, j + 1:])
+            P[j + 1:, j] = lcol
+        return P
+    h = b // 2
+    P11 = _lu_nopivot(M[:h, :h], base)
+    L11 = torch.tril(P11, -1) + torch.eye(h, dtype=M.dtype, device=M.device)
+    U11 = torch.triu(P11)
+    U12 = torch.linalg.solve_triangular(L11, M[:h, h:], upper=False,
+                                        unitriangular=True)
+    L21 = torch.linalg.solve_triangular(U11, M[h:, :h], upper=True,
+                                        left=False)
+    S22 = M[h:, h:] - gemm.matmul(L21, U12, DEFAULT_PRECISION)
+    P22 = _lu_nopivot(S22, base)
+    return torch.cat([torch.cat([P11, U12], dim=1),
+                      torch.cat([L21, P22], dim=1)])
+
+
+def _explicit_qr_tree(active: torch.Tensor, chunk: int):
+    """Reduced QR of ``active`` (m x b, zero rows allowed) through a
+    two-level TSQR tree: a batched ``torch.linalg.qr`` over the row chunks,
+    one combine QR of the stacked R factors and one batched GEMM that
+    assembles Q. Rows are zero-padded to a chunk multiple; Householder chunk
+    QRs keep zero rows zero, so the slice back to m rows stays orthonormal."""
+    m, b = active.shape
+    chunk = max(chunk, b)
+    pad = (-m) % chunk
+    Ap = torch.cat([active, active.new_zeros((pad, b))]) if pad else active
+    C = Ap.shape[0] // chunk
+    Qs, Rs = torch.linalg.qr(Ap.reshape(C, chunk, b), mode="reduced")
+    Q2, R = torch.linalg.qr(Rs.reshape(C * b, b), mode="reduced")
+    Q1 = gemm.matmul(Qs, Q2.reshape(C, b, b), DEFAULT_PRECISION)
+    return Q1.reshape(C * chunk, b)[:m], R
+
+
+def _panel_qr_reconstruct(panel: torch.Tensor, offset: int,
+                          tree_chunk: int = 0):
+    """Panel QR by an explicit-Q factorization and Householder
+    reconstruction (real dtypes): returns ``(pf, alpha)`` in the packed
+    storage of :func:`_panel_qr_masked`.
+
+    The panel's explicit reduced QR (``torch.linalg.qr``, the library QR
+    that the JAX engine calls through ``jnp.linalg.qr``; or
+    :func:`_explicit_qr_tree` with ``tree_chunk`` rows per chunk) gives Q1,
+    R1. With ``S = -sign(diag Q1_top)``, the unpivoted LU ``Q1_top - S =
+    L (-W)`` yields unit-triangular directions ``Y = [L; -Q1_bot W^{-1}]``
+    and scales ``tau_i = W_ii / s_i``; ``v_i = Y[:, i] sqrt(tau_i)`` has
+    ``||v||^2 = 2``, R is ``S R1`` and alpha its diagonal (LAPACK
+    dorhr_col). The triangular solves and the LU's Schur GEMM run at full
+    precision; there is no ``precision`` knob, as in the JAX engine.
+
+    ``offset`` rolls the panel so its active rows (``offset:``) sit on top,
+    zeroes the stale bottom rows and restores the rows above ``offset``
+    after rolling back. A panel that requires grad raises."""
+    refuse_grad(panel, "the reconstruct panel engine")
+    m, b = panel.shape
+    live = (torch.arange(m, device=panel.device) < m - offset)[:, None]
+    rolled = torch.roll(panel, -offset, 0)
+    active = torch.where(live, rolled, 0)
+    if tree_chunk:
+        Q1, R1 = _explicit_qr_tree(active, tree_chunk)
+    else:
+        Q1, R1 = torch.linalg.qr(active, mode="reduced")
+    s = torch.where(torch.diagonal(Q1[:b]) >= 0, -1.0, 1.0).to(panel.dtype)
+    P = _lu_nopivot(Q1[:b] - torch.diag(s))
+    L1 = torch.tril(P, -1) + torch.eye(b, dtype=P.dtype, device=P.device)
+    W = -torch.triu(P)
+    tau = torch.diagonal(W) / s
+    Y2 = torch.linalg.solve_triangular(W, -Q1[b:], upper=True, left=False)
+    V = torch.cat([L1, Y2]) * torch.sqrt(torch.clamp_min(tau, 0))[None, :]
+    Rh = s[:, None] * R1
+    top = torch.where(torch.ones(b, b, dtype=torch.bool,
+                                 device=panel.device).triu(1), Rh, V[:b])
+    merged = torch.where(live, torch.cat([top, V[b:]]), rolled)
+    return torch.roll(merged, offset, 0), torch.diagonal(Rh).clone()
 
 
 def _panel_qr_recursive(panel: torch.Tensor, offset: int,

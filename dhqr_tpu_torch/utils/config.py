@@ -60,11 +60,14 @@ class DHQRConfig:
     "auto"/"always"/"never"), ``precision``, ``trailing_precision`` and
     ``apply_precision`` (every name of ``precision.MXU_PASSES``; see
     ``ops/gemm.py``), ``policy``, ``norm``, ``engine`` in ("householder",
-    "tsqr", "cholqr2", "cholqr3"), ``panel_impl`` in ("loop", "recursive")
-    and ``refine`` (lstsq). ``mesh_axis`` and ``layout`` only steer the
-    mesh tier and are ignored on a single device, as in the JAX package.
-    ``comms`` parses ("f32"/"none" mean None). Every other field must stay
-    at its default: the entry points refuse it (:func:`refuse_unported`).
+    "tsqr", "cholqr2", "cholqr3", "sketch"), ``panel_impl`` in ("loop",
+    "recursive", "reconstruct", "reconstruct:<chunk>"), ``refine``
+    (lstsq), ``lookahead`` and ``agg_panels``. ``mesh_axis`` and ``layout``
+    only steer the mesh tier and are ignored on a single device, as in the
+    JAX package. ``comms`` parses ("f32"/"none" mean None);
+    ``overlap_depth`` is mesh-only, a ``ValueError`` on a single device as
+    in the JAX package. Every other field must stay at its default: the
+    entry points refuse it (:func:`refuse_unported`).
     """
 
     block_size: "int | None" = None
@@ -125,14 +128,52 @@ def check_precision(precision: str) -> None:
 _UNPORTED_FIELDS = (
     ("plan", "Queue A item 14 (tune/)"),
     ("guards", "Queue A item 10 (numeric/ladder.py)"),
-    ("lookahead", "Queue A item 5 (lookahead/aggregated schedules)"),
-    ("agg_panels", "Queue A item 5 (lookahead/aggregated schedules)"),
-    ("overlap_depth", "Queue A item 11 (parallel/)"),
     ("comms", "Queue A item 11 (parallel/)"),
 )
 
 ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
-_ENGINE_ITEMS = {"sketch": "Queue A item 12 (solvers/)"}
+
+
+def check_sched_knobs(cfg: DHQRConfig, mesh=None) -> None:
+    """The JAX package's ``_check_sched_knobs`` (``models/qr_model.py``),
+    with its messages: the schedule knobs' values and combinations."""
+    if cfg.agg_panels is not None and cfg.agg_panels < 2:
+        raise ValueError(
+            f"agg_panels must be >= 2 (got {cfg.agg_panels}); "
+            "None means per-panel updates"
+        )
+    if cfg.agg_panels and cfg.lookahead and mesh is None:
+        raise ValueError(
+            "agg_panels and lookahead are mutually exclusive on the "
+            "single-device tier (both only add flops there); on a mesh "
+            "the pair is the grouped-lookahead composition — pass mesh= "
+            "(see parallel/sharded_qr._blocked_shard_agg)"
+        )
+    if cfg.overlap_depth is not None:
+        if cfg.overlap_depth < 1:
+            raise ValueError(
+                f"overlap_depth must be >= 1 (got {cfg.overlap_depth}); "
+                "None means the default schedule"
+            )
+        if not cfg.lookahead:
+            raise ValueError(
+                "overlap_depth generalizes the lookahead order and "
+                "requires lookahead=True (depth 1 IS the one-panel "
+                "lookahead)"
+            )
+        if cfg.agg_panels:
+            raise ValueError(
+                "overlap_depth and agg_panels are mutually exclusive "
+                "(the grouped-lookahead composition already overlaps "
+                "one full group per collective)"
+            )
+        if mesh is None:
+            raise ValueError(
+                "overlap_depth is mesh-only: a deeper pipeline exists "
+                "to keep panel-broadcast collectives in flight, and a "
+                "single device has no collective to hide — pass mesh= "
+                "(see parallel/sharded_qr._blocked_shard_pipeline)"
+            )
 
 
 def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
@@ -147,16 +188,14 @@ def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
     if cfg.engine not in ENGINES:
         raise ValueError(
             f"unknown engine {cfg.engine!r}: expected one of {ENGINES}")
-    if cfg.engine in _ENGINE_ITEMS:
-        raise NotPortedError(f"engine={cfg.engine!r}",
-                             _ENGINE_ITEMS[cfg.engine])
     for name in (cfg.precision, cfg.trailing_precision, cfg.apply_precision):
         if name is not None:
             check_precision(name)
     if cfg.panel_impl.startswith("reconstruct"):
-        raise NotPortedError(f"panel_impl={cfg.panel_impl!r}",
-                             "Queue A item 3 (the reconstruct trio)")
-    if cfg.panel_impl not in ("loop", "recursive"):
+        from dhqr_tpu_torch.ops.blocked import _reconstruct_chunk
+
+        _reconstruct_chunk(cfg.panel_impl)  # raises on a malformed spelling
+    elif cfg.panel_impl not in ("loop", "recursive"):
         raise ValueError(
             f"panel_impl must be 'loop', 'recursive', 'reconstruct' or "
             f"'reconstruct:<chunk>', got {cfg.panel_impl!r}")
@@ -169,3 +208,61 @@ def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
     if cfg.use_pallas not in ("auto", "always", "never"):
         raise ValueError("use_pallas must be 'auto', 'always' or 'never', "
                          f"got {cfg.use_pallas!r}")
+    check_sched_knobs(cfg, mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchConfig:
+    """Knobs for the sketched least-squares engine
+    (``dhqr_tpu_torch.solvers.sketch``): fields, defaults, checks and
+    ``DHQR_SKETCH_*`` variables as the JAX package's ``SketchConfig``.
+
+    ``seed`` (``DHQR_SKETCH_SEED``): the operator is drawn from numpy's
+    PCG64 seeded with ``(seed, m, s)``, so a seed gives the bit-identical
+    operator in every process and in both packages. ``operator``
+    (``DHQR_SKETCH_OPERATOR``): "countsketch", "srht" or "auto" (srht when
+    m is a power of two). ``factor`` (``DHQR_SKETCH_FACTOR``): multiplier
+    on the ``O(n log n)`` sketch-size rule. ``refine``
+    (``DHQR_SKETCH_REFINE``): baseline R-preconditioned CGLS iterations
+    against the true A; a caller's ``refine`` adds to it. ``min_aspect``
+    (``DHQR_SKETCH_MIN_ASPECT``): the m/n gate of the JAX package's tuner,
+    carried for parity (the port has no tuner yet).
+    """
+
+    seed: int = 0
+    operator: str = "auto"
+    factor: float = 2.0
+    refine: int = 12
+    min_aspect: float = 64.0
+
+    def __post_init__(self):
+        if self.operator not in ("auto", "countsketch", "srht"):
+            raise ValueError(
+                f"operator must be 'auto', 'countsketch' or 'srht', "
+                f"got {self.operator!r}")
+        if not self.factor > 0:
+            raise ValueError(f"factor must be > 0, got {self.factor}")
+        if self.refine < 0:
+            raise ValueError(f"refine must be >= 0, got {self.refine}")
+        if not self.min_aspect >= 1:
+            raise ValueError(
+                f"min_aspect must be >= 1, got {self.min_aspect}")
+
+    @staticmethod
+    def from_env(**overrides) -> "SketchConfig":
+        """Build a sketch config from ``DHQR_SKETCH_*`` variables +
+        overrides."""
+        env = {}
+        if "DHQR_SKETCH_SEED" in os.environ:
+            env["seed"] = int(os.environ["DHQR_SKETCH_SEED"])
+        if "DHQR_SKETCH_OPERATOR" in os.environ:
+            env["operator"] = os.environ["DHQR_SKETCH_OPERATOR"].strip() \
+                .lower()
+        if "DHQR_SKETCH_FACTOR" in os.environ:
+            env["factor"] = float(os.environ["DHQR_SKETCH_FACTOR"])
+        if "DHQR_SKETCH_REFINE" in os.environ:
+            env["refine"] = int(os.environ["DHQR_SKETCH_REFINE"])
+        if "DHQR_SKETCH_MIN_ASPECT" in os.environ:
+            env["min_aspect"] = float(os.environ["DHQR_SKETCH_MIN_ASPECT"])
+        env.update(overrides)
+        return SketchConfig(**env)

@@ -140,8 +140,12 @@ def test_forward_pass_is_the_blocked_solve():
             call()
     with torch.no_grad():
         dt.lstsq(At, bt, blocked=False, device="cpu")
-    with pytest.raises(dt.NotPortedError):
-        dt.lstsq_diff(A, b, 8, lookahead=True, device="cpu")
+    for sched in ({"lookahead": True}, {"agg_panels": 2}):  # now ported
+        torch.testing.assert_close(
+            dt.lstsq_diff(A, b, 8, device="cpu", **sched),
+            dt.lstsq_diff(A, b, 8, device="cpu"), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="agg_panels must be >= 2"):
+        dt.lstsq_diff(A, b, 8, agg_panels=1, device="cpu")
     with pytest.raises(ValueError):
         dt.lstsq_diff(A[:8], b[:8], device="cpu")
 

@@ -56,19 +56,68 @@ def test_port_sources_import_no_jax(path):
         assert top not in ("jax", "jaxlib", "dhqr_tpu"), (path, mod)
 
 
+# The one library QR the port calls: the reconstruct panel engine's
+# explicit QR, as the JAX engine calls jnp.linalg.qr there (only
+# panel_impl="reconstruct[:<chunk>]" reaches it).
+_LIBRARY_QR_CALLERS = {("householder.py", "_explicit_qr_tree"),
+                       ("householder.py", "_panel_qr_reconstruct")}
+
+
+def _torch_attributes(path):
+    """(enclosing function name, attribute node) of every ``torch.*``
+    attribute in ``path``."""
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Attribute) and \
+                    ast.unparse(child.value).startswith("torch"):
+                yield name, child
+            yield from walk(child, name)
+
+    yield from walk(ast.parse(open(path, encoding="utf-8").read()), None)
+
+
 def test_main_path_calls_no_library_factorization():
     """No torch.geqrf / torch.linalg.qr / torch.linalg.lstsq /
     torch.compile in the package (chip_smoke.py times some of them as
-    yardsticks; the package never calls them)."""
+    yardsticks; the package never calls them), except ``torch.linalg.qr``
+    in the reconstruct panel engine's two functions."""
     banned = {"geqrf", "qr", "lstsq", "compile", "householder_product",
               "orgqr", "ormqr"}
+    allowed = []
     for path in _port_sources():
         if path.endswith("chip_smoke.py"):
             continue
-        for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
-            if isinstance(node, ast.Attribute) and node.attr in banned:
-                base = ast.unparse(node.value)
-                assert not base.startswith("torch"), (path, ast.unparse(node))
+        for func, node in _torch_attributes(path):
+            if node.attr not in banned:
+                continue
+            where = (os.path.basename(path), func)
+            if node.attr == "qr" and where in _LIBRARY_QR_CALLERS:
+                allowed.append(where)
+                continue
+            raise AssertionError((path, func, ast.unparse(node)))
+    assert set(allowed) == _LIBRARY_QR_CALLERS
+
+
+def test_default_paths_reach_no_library_factorization(monkeypatch):
+    """With every library factorization made to raise, the default ``qr``
+    (both panel routes) and ``lstsq`` (and its schedules) still run."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library factorization was called")
+
+    for mod, name in ((torch.linalg, "qr"), (torch.linalg, "lstsq"),
+                      (torch, "geqrf"), (torch.linalg, "householder_product"),
+                      (torch, "ormqr"), (torch, "orgqr")):
+        monkeypatch.setattr(mod, name, refuse)
+    A = np.random.default_rng(1).random((90, 70)).astype(np.float32)
+    b = A[:, 0] + 1
+    for kw in ({}, {"use_pallas": "always"}, {"lookahead": True},
+               {"agg_panels": 2}):
+        dt.qr(A, block_size=16, device="cpu", **kw).solve(b)
+        dt.lstsq(A, b, block_size=16, device="cpu", **kw)
+    with pytest.raises(AssertionError, match="library factorization"):
+        dt.qr(A, panel_impl="reconstruct", device="cpu")
 
 
 def test_no_cuda_means_asking_for_the_cpu(monkeypatch):
@@ -103,7 +152,8 @@ def test_facade_exports():
               "cholesky_qr2", "cholesky_qr_lstsq", "NumericalError",
               "NonFiniteInput", "Breakdown", "IllConditioned",
               "ResidualGateFailed", "PrecisionPolicy", "PRECISION_POLICIES",
-              "POLICY_LADDER", "resolve_policy"}
+              "POLICY_LADDER", "resolve_policy", "sketched_lstsq",
+              "SketchConfig"}
     assert wanted <= set(dt.__all__)
     assert (wanted - {"DHQRConfig"}) <= set(dhqr_tpu.__all__) | {"__version__"}
 

@@ -155,18 +155,18 @@ def test_solve_refine_needs_the_matrix():
 
 
 UNPORTED = [
-    {"plan": "auto"}, {"guards": "screen"}, {"engine": "sketch"},
-    {"lookahead": True}, {"agg_panels": 2}, {"overlap_depth": 2},
-    {"comms": "bf16"}, {"panel_impl": "reconstruct"},
-    {"panel_impl": "reconstruct:64"},
+    {"plan": "auto"}, {"guards": "screen"}, {"comms": "bf16"},
 ]
 
-# Knobs that raised NotPortedError until the precision policies and the
-# tall-skinny engines were ported; each now runs.
+# Knobs that raised NotPortedError until the precision policies, the
+# tall-skinny engines, the schedules, the reconstruct panel engine and the
+# sketched solver were ported; each now runs.
 PORTED = [
     {"policy": "accurate"}, {"engine": "tsqr"}, {"engine": "cholqr2"},
     {"precision": "default"}, {"precision": "high"},
     {"trailing_precision": "high"}, {"apply_precision": "high"},
+    {"engine": "sketch"}, {"lookahead": True}, {"agg_panels": 2},
+    {"panel_impl": "reconstruct"}, {"panel_impl": "reconstruct:64"},
 ]
 
 
@@ -193,7 +193,10 @@ def test_ported_knobs_run_and_match_jax(entry, knob):
         x = to_numpy(dt.lstsq(A, b, block_size=16, device="cpu", **knob))
         xj = np.asarray(dhqr_tpu.lstsq(Aj, bj, block_size=16, **knob))
     assert _rel(x, xj) <= 1e-10
-    _criterion(A, x, b, np.float64)
+    if knob.get("engine") != "sketch":  # 12 CGLS sweeps from a 96-row
+        # sketch stop short of f64 LAPACK on both sides; its 8x bar is
+        # held in float32 (tests/test_torch_sketch.py)
+        _criterion(A, x, b, np.float64)
 
 
 @pytest.mark.parametrize("entry", ["qr", "lstsq"])
@@ -224,6 +227,13 @@ def test_mesh_and_bad_values():
         dt.qr(A, blocked=False, use_pallas="always", device="cpu")
     with pytest.raises(ValueError):
         dt.qr(A, blocked=False, donate=True, device="cpu")
+    # overlap_depth is mesh-only: a ValueError on one device, as in JAX;
+    # with mesh= the mesh tier is what is not ported yet
+    with pytest.raises(ValueError, match="mesh-only"):
+        dt.qr(A, device="cpu", overlap_depth=2, lookahead=True)
+    with pytest.raises(dt.NotPortedError, match="item 11"):
+        dt.qr(A, device="cpu", overlap_depth=2, lookahead=True,
+              mesh=object())
 
 
 def test_config_mirrors_the_jax_config(monkeypatch):

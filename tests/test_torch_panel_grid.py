@@ -242,3 +242,63 @@ def test_tall_lstsq_plans_streamed_leaves():
     assert plan == [(0, 128, 16)]
     assert not hp.kernel_resident(524288, 16, torch.float32)
     assert tbl.kernel_leaves(128, 16) == 8
+
+
+# -- the lookahead schedule's capped grid -------------------------------------
+
+@pytest.mark.parametrize("cap,dtype,ctas,per,leaf", [
+    (66, torch.float32, 66, 249, 128),    # 249 x 512 B = 125 KB: resident
+    (33, torch.float32, 33, 497, 64),     # 497 x 512 B > 227 KB: 64 wide
+    (16, torch.float32, 16, 1024, 32),    # 1024 x 256 B > 227 KB: 32 wide
+    (66, torch.complex64, 66, 125, 128),  # 8192 rows c64
+    (16, torch.complex64, 16, 512, 32),
+])
+def test_capped_plan_at_h100_values(cap, dtype, ctas, per, leaf):
+    """The side-stream panel of the lookahead schedule is planned on at
+    most ``cap`` SMs: more rows per CTA, so the leaf narrows where the
+    wider slice no longer fits shared memory."""
+    rows = 16384 if dtype == torch.float32 else 8192
+    sms, smem = hp.device_limits("cpu", cap)
+    assert (sms, smem) == (cap, hp.H100_SMEM_PER_BLOCK)
+    assert hp.kernel_grid(rows, sms) == (ctas, per)
+    assert hp._plan(rows, leaf, 0, dtype, "cpu", cap) == (ctas, per, True)
+    assert hp.kernel_flat_width(rows, dtype, sms, smem) == leaf
+    wider = [w for w in hp.KERNEL_LEAF_WIDTHS if w > leaf]
+    assert not any(hp.kernel_resident(rows, w, dtype, sms) for w in wider)
+    assert hp.device_limits("cpu", 1000) == hp.device_limits("cpu")
+
+
+@pytest.mark.parametrize("m,n,dtype,cap,launches", [
+    (16384, 16384, torch.float32, 66, 128),
+    # capped at 16: 32-wide leaves above 14016 rows (18 panels of 4), 64
+    # above 7008 (55 of 2), 128 below (53 of 1), and two uncapped panels
+    (16384, 16384, torch.float32, 16, 18 * 4 + 55 * 2 + 53 + 2),
+    (8192, 4096, torch.complex64, 66, 32),
+])
+def test_lookahead_plan_launches(m, n, dtype, cap, launches):
+    """The lookahead path's plan: the first panel and the last (nothing
+    right of it) on the whole card, every other panel capped; its kernel
+    launches follow from it as the default path's do."""
+    plan = tbl.panel_plan(m, n, 128, True, dtype, "cpu", cap)
+    default = tbl.panel_plan(m, n, 128, True, dtype, "cpu")
+    assert [p[:2] for p in plan] == [p[:2] for p in default]
+    assert plan[0] == default[0] and plan[-1] == default[-1]
+    assert sum(tbl.kernel_leaves(w, leaf) for _, w, leaf in plan) == launches
+    assert [tbl._beside_gemm(i, k, w, n) for i, (k, w, _) in
+            enumerate(plan)] == [False] + [True] * (len(plan) - 2) + [False]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+def test_grid_model_at_a_capped_grid_matches_plain_version(dtype):
+    """The grid model cut as the capped launch cuts the panel (16 CTAs of
+    1024 rows at 16384 rows; here 16 slices of a 1000-row panel) agrees
+    with the plain version as the uncapped grid does."""
+    P = _panel(1000, 16, dtype, seed=27)
+    ctas = hp._plan(1000, 16, 0, torch.float32, "cpu", 16)[0]
+    assert ctas == 16
+    pf, alpha = _model(P, 0, ctas)
+    pf1, alpha1 = _plain(P, 0)
+    _close(pf, pf1.numpy(), TOL[dtype])
+    _close(alpha, alpha1.numpy(), TOL[dtype])
+    pf2, alpha2 = hp._panel_qr_grid_leaf(torch.from_numpy(P), 0, sms=16)
+    assert torch.equal(pf2, pf) and torch.equal(alpha2, alpha)
