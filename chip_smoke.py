@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed N] [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13]
+    python3 chip_smoke.py [--seed N]
+                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-13 run by default, 7 on request):
+on any error (0-6 and 8-14 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
 1. every kernel against its plain PyTorch version on the card, at the
-   leading panel shapes of the main, TSQR and gradient paths and at the
+   leading panel shapes of the main, TSQR and gradient paths, at the
+   sharded ``lstsq``'s 125-wide panels (its first and last), and at the
    shapes that stress the kernel's grid (an
    offset inside a CTA's slice, a ragged last CTA, a panel on a few CTAs,
    the tall 64-wide leaf, 12-decade data over every SM, and panels too
@@ -79,13 +81,38 @@ on any error (0-6 and 8-13 run by default, 7 on request):
 13. sketch: ``lstsq(engine="sketch")`` at 65536 x 256 and 131072 x 256 f32
    and 32768 x 256 c64 (SRHT by "auto"), and the count sketch at 65536 x
    256, against ``torch.linalg.lstsq`` (8x) beside it and ``cholqr2``,
-   with the operator draws per call.
+   with the operator draws per call;
+14. sharded: the distributed tier, its ranks spawned processes that share
+   card 0 (``dhqr_tpu_torch/parallel/_ranks.py``; the compute mode must
+   be Default and MPS off): (a) NCCL with one rank, ``qr`` + ``solve`` at
+   16384^2 f32 on ``column_mesh``, default and ``lookahead``, beside the
+   single-device ``lookahead`` factors, and one mesh ``solve`` traced with
+   ``torch.profiler`` beside the single-device one (the card's busy time
+   and the ops that take the most device and host time); (b) gloo with 4
+   ranks, the same per
+   layout (block, cyclic) and schedule (default, ``lookahead``,
+   ``agg_panels=2``); (c) gloo with 2 ranks, c64 ``qr`` + ``solve`` at
+   8192 x 4096; (d) gloo with 4 ranks, ``lstsq(mesh=)`` at the reference's
+   4400 x 4000 f32 and c64 and at 4400 x 3998 f32 (padded) under 8x; (e)
+   gloo with 4 ranks, TSQR and CholeskyQR2 on the row mesh at 65536 x 256
+   f32 against ``torch.linalg.lstsq`` (8x). Each factorization's backward
+   error, its distance from the single-device factors (H for the one-rank
+   default, else R up to row signs, with the pivots that took the other
+   sign and the first one's size), its solve's normal-equations residual
+   against the single-device solve's (8x), and the launches summed over
+   the ranks against the single-device plan (P times it for
+   ``agg_panels``, every rank factoring each group; TSQR: P times a leaf
+   and a combine). Gloo carries the
+   collectives through the host and the ranks time-share one H100, so a
+   time here is never a scaling number.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
-path (9), the gradient path (10), the schedules path (11), and the
-reconstruct (12) and sketch (13) paths, which must launch no panel kernel;
-the ``kernels`` line sums them.
+path (9), the gradient path (10), the schedules path (11), the
+reconstruct (12) and sketch (13) paths, which must launch no panel kernel,
+and the sharded path (14), whose ranks' counts of their mesh calls alone
+(zeroed after the single-device references each rank computes) are added
+to the parent's; the ``kernels`` line sums them.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -261,6 +288,10 @@ def phase_kernels(seed):
         ("panel_qr_f32", 2048, 128, 0, False, False, True),
         ("panel_qr_f32", 1920, 128, 0, False, False, True),
         ("panel_qr_f32", 4096, 128, 0, False, False, True),
+        # the sharded lstsq's panels (phase 14: 4400 x 4000 on 4 ranks,
+        # nb = 125, one leaf each): the first and the last
+        ("panel_qr_f32", 4400, 125, 0, False, False, True),
+        ("panel_qr_f32", 525, 125, 0, False, False, True),
         ("panel_qr_c64", 8192, 128, 0, False, True, True),
         ("panel_qr_c64", 4096, 32, 5, False, False, True),
         ("panel_qr_c64", 131, 128, 3, False, False, True),
@@ -272,6 +303,8 @@ def phase_kernels(seed):
         ("panel_qr_c64", 3968, 128, 0, False, False, True),
         ("panel_qr_c64", 2048, 128, 0, False, False, True),
         ("panel_qr_c64", 1920, 128, 0, False, False, True),
+        ("panel_qr_c64", 4400, 125, 0, False, False, True),
+        ("panel_qr_c64", 525, 125, 0, False, False, True),
     ]
     # the last field: the CTA cap; the lookahead schedule's capped launches
     # at the main path's panels (phase 11)
@@ -1214,10 +1247,471 @@ def phase_sketch(dt, seed, cases=((65536, 256, torch.float32),
         torch.cuda.empty_cache()
 
 
+# -- phase 14: the sharded tier ------------------------------------------------
+#
+# Each case runs in P spawned processes (dhqr_tpu_torch/parallel/_ranks.py)
+# that share card 0: NCCL with one rank runs the NCCL code path end to end;
+# gloo with 2 and 4 ranks runs real multi-rank collectives, carried through
+# the host. Times are P processes time-sharing one H100, never a scaling
+# number. The rank worker below runs in those processes.
+
+SHARDED_SCHEDULES = (("block", "default", {}),
+                     ("cyclic", "default", {}),
+                     ("block", "lookahead", {"lookahead": True}),
+                     ("cyclic", "lookahead", {"lookahead": True}),
+                     ("block", "agg2", {"agg_panels": 2}),
+                     ("cyclic", "agg2", {"agg_panels": 2}))
+TOL_SHARDED_H = 1e-5   # max|H - H_single| / max|H_single| (one rank, the
+# default), and max||R| - |R_single|| / max|R_single|, R up to row signs
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _solve_profile(fn, device):
+    """One call of ``fn`` under ``torch.profiler`` (host and card): wall
+    seconds, the card's busy seconds and idle share, kernels launched,
+    and the ops that took the most device and host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = _timed(fn, device)
+    events = prof.key_averages()
+    # kernels only: an op on the host also carries its kernels' time
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    ops = [e for e in events if e.device_type.name == "CPU"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+
+    def top(events, key):
+        rows = sorted(events, key=lambda e: -getattr(e, key))[:6]
+        return [[e.key[:60], getattr(e, key) / 1e6, e.count] for e in rows]
+
+    return {"wall_s": t, "device_busy_s": busy if busy else None,
+            "device_idle_share": 1 - busy / t if busy else None,
+            "kernels": sum(e.count for e in kernels),
+            "top_device_s": top(kernels, "self_device_time_total"),
+            "top_host_s": top(ops, "self_cpu_time_total")}
+
+
+def _rank_qr_case(dt, parallel, hp, device, seed, m, n, dtype, runs,
+                  steady=True, probe=False, profile=False):
+    """``qr`` + ``solve`` on this rank's column mesh, per (layout, schedule):
+    seconds, launches, this rank's part of the backward error and of the
+    distance from the single-device factors. ``probe`` also sets the
+    single-device ``lookahead=True`` factors beside the default's (pivot
+    sign flips, H distance) as the first row; ``profile`` traces the
+    single-device solve and the first run's mesh solve. The kernel counts
+    are zeroed after the single-device references: what the worker reads
+    after the case is the mesh path's alone."""
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.parallel import sharded_qr
+
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_complex:
+        real = torch.float32
+        A = torch.complex(torch.rand((m, n), generator=g, device=device,
+                                     dtype=real),
+                          torch.rand((m, n), generator=g, device=device,
+                                     dtype=real))
+        b = torch.complex(torch.rand((m,), generator=g, device=device,
+                                     dtype=real),
+                          torch.rand((m,), generator=g, device=device,
+                                     dtype=real))
+    else:
+        A = torch.rand((m, n), generator=g, device=device, dtype=dtype)
+        b = torch.rand((m,), generator=g, device=device, dtype=dtype)
+    mesh = parallel.column_mesh(device=device)
+    single = dt.qr(A, device=device)
+    H_single, alpha_single = single.H, single.alpha
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    A64, b64 = A.to(wide), b.to(wide)
+
+    def ne(x):  # the normal-equations residual, in double
+        return float(torch.linalg.vector_norm(
+            A64.mH @ (A64 @ x.to(wide) - b64)))
+
+    ne_single = ne(single.solve(b))
+    single_profile = _solve_profile(lambda: single.solve(b), device) \
+        if profile else None
+    del single
+    unit = lambda a: a / a.abs().clamp_min(1e-30)  # noqa: E731
+    rows = []
+    if probe:
+        la = dt.qr(A, device=device, lookahead=True)
+        rows.append({"single_lookahead_flips": int(
+            ((unit(la.alpha) - unit(alpha_single)).abs() > 1e-3).sum()),
+            "single_lookahead_h_diff": float(
+                (la.H - H_single).abs().max() / H_single.abs().max())})
+        del la
+    hp.reset_launches()  # the mesh path starts here
+    for i, (layout, sched, kw) in enumerate(runs):
+        l0 = dict(hp.LAUNCHES)
+        fact, t_first = _timed(lambda: dt.qr(A, mesh=mesh, layout=layout,
+                                             **kw), device)
+        launches = {k: hp.LAUNCHES[k] - l0[k] for k in l0}
+        t = None
+        if steady:
+            del fact
+            fact, t = _timed(lambda: dt.qr(A, mesh=mesh, layout=layout,
+                                           **kw), device)
+        x, t_solve = _timed(lambda: fact.solve(b), device)
+        profiles = {"single_solve_profile": single_profile,
+                    "mesh_solve_profile": _solve_profile(
+                        lambda: fact.solve(b), device)} \
+            if profile and i == 0 else {}
+        nb = fact.block_size
+        mine = sharded_qr._local_block(H_single, mesh, n, nb, layout)
+        Hn = fact.natural_H()
+        gidx = torch.as_tensor(sharded_qr._local_gidx(
+            mesh.rank, n, n // mesh.size, nb, layout), device=device)
+        upper = torch.arange(m, device=device)[:, None] < gidx
+        R_mine = torch.where(upper, mine, 0).abs()
+        Rp = torch.where(torch.arange(n, device=device)[:, None] < gidx,
+                         Hn[:n].index_select(1, gidx), 0)
+        Rp[gidx, torch.arange(gidx.numel(), device=device)] = \
+            fact.alpha[gidx]
+        QRp = blocked._apply_q_impl(Hn, torch.cat([Rp, Rp.new_zeros(
+            (m - n, Rp.shape[1]))]), nb, fact.precision)
+        Ap = A.index_select(1, gidx)
+        # The first column whose pivot took the other sign, and on its
+        # owner |a_jj| / ||x_j|| = |v_jj|^2 - 1 of both factorizations
+        # (v the stored reflector, ||v||^2 = 2): near zero for a near-tie.
+        flipped = ((unit(fact.alpha) - unit(alpha_single)).abs() > 1e-3)
+        first = int(flipped.nonzero()[0]) if bool(flipped.any()) else None
+        pivot = None
+        if first is not None and first in gidx.tolist():
+            jl = gidx.tolist().index(first)
+            pivot = [float(fact.H[first, jl].abs() ** 2 - 1),
+                     float(mine[first, jl].abs() ** 2 - 1)]
+        rows.append({
+            "layout": layout, "schedule": sched, "nb": nb,
+            "first_s": t_first, "s": t, "solve_s": t_solve,
+            "launches": launches,
+            "backward_sq": float(torch.linalg.vector_norm(
+                (QRp - Ap).to(wide)) ** 2),
+            "a_sq": float(torch.linalg.vector_norm(Ap.to(wide)) ** 2),
+            "h_diff": float((fact.H - mine).abs().max()),
+            "h_max": float(mine.abs().max()),
+            "r_diff": max(float((torch.where(upper, fact.H, 0).abs()
+                                 - R_mine).abs().max()),
+                          float((fact.alpha.abs() - alpha_single.abs())
+                                .abs().max())),
+            "r_max": max(float(R_mine.max()),
+                         float(alpha_single.abs().max())),
+            "sign_flips": int(flipped.sum()), "first_flip": first,
+            "first_flip_pivot": pivot,
+            "solve_residual": ne(x), "single_residual": ne_single,
+            "finite": bool(torch.isfinite(torch.view_as_real(x)).all()
+                           if x.is_complex() else torch.isfinite(x).all()),
+            **profiles})
+        del fact, x, Hn, Rp, QRp, Ap, mine, R_mine, upper
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _rank_lstsq_case(dt, parallel, hp, device, seed, m, n, dtype, cols):
+    """``lstsq(mesh=)`` of the reference's problem (numpy, from the seed),
+    on its first ``cols`` columns; x comes back for the parent's LAPACK
+    oracle."""
+    A, b = random_problem(m, n, np.dtype(dtype), seed)
+    A = np.ascontiguousarray(A[:, :cols])
+    mesh = parallel.column_mesh(device=device)
+    l0 = dict(hp.LAUNCHES)
+    x, t = _timed(lambda: dt.lstsq(A, b, mesh=mesh), device)
+    return [{"s": t, "x": x.cpu().numpy(),
+             "launches": {k: hp.LAUNCHES[k] - l0[k] for k in l0}}]
+
+
+def _rank_rows_case(dt, parallel, hp, device, seed, m, n, dtype, engines):
+    """``lstsq(engine=..., mesh=row mesh)``; rank 0 also times
+    ``torch.linalg.lstsq`` (yardstick) and both normal-equations
+    residuals, in double."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = torch.rand((m, n), generator=g, device=device, dtype=dtype)
+    b = torch.rand((m,), generator=g, device=device, dtype=dtype)
+    mesh = parallel.row_mesh(device=device)
+    A64, b64 = A.double(), b.double()
+
+    def ne(x):
+        return float(torch.linalg.vector_norm(
+            A64.T @ (A64 @ x.double() - b64)))
+
+    rows = []
+    for engine in engines:
+        l0 = dict(hp.LAUNCHES)
+        x, t_first = _timed(lambda: dt.lstsq(A, b, mesh=mesh, engine=engine),
+                            device)
+        launches = {k: hp.LAUNCHES[k] - l0[k] for k in l0}
+        x, t = _timed(lambda: dt.lstsq(A, b, mesh=mesh, engine=engine),
+                      device)
+        rows.append({"engine": engine, "first_s": t_first, "s": t,
+                     "launches": launches, "residual": ne(x)})
+    if mesh.rank == 0:
+        x_ref, t_ref = _timed(
+            lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0], device)
+        for row in rows:
+            row["torch_lstsq_residual"] = ne(x_ref)
+            row["torch_lstsq_s"] = t_ref
+    return rows
+
+
+_RANK_CASES = {"qr": _rank_qr_case, "lstsq": _rank_lstsq_case,
+               "rows": _rank_rows_case}
+
+
+def sharded_worker(device, cases):
+    """One rank of phase 14 (run by ``run_ranks``): each case on this
+    rank's mesh; returns {"cases": per-case rows, "launches": this rank's
+    kernel launches on the mesh path}. The counts are zeroed before each
+    case (and by a case after its single-device references) and summed
+    after it."""
+    import dhqr_tpu_torch as dt
+    from dhqr_tpu_torch import parallel
+    from dhqr_tpu_torch.ops import hopper_panel as hp
+
+    out = []
+    launches = dict.fromkeys(hp.KERNELS.values(), 0)
+    for case in cases:
+        case = dict(case)
+        hp.reset_launches()
+        out.append(_RANK_CASES[case.pop("kind")](dt, parallel, hp, device,
+                                                 **case))
+        for name, count in hp.LAUNCHES.items():
+            launches[name] += count
+    return {"cases": out, "launches": launches}
+
+
+def sharded_plan(m, n, dtype, P, nb=None):
+    """Kernel launches of one single-device factorization of the (padded)
+    (m, n) matrix by the mesh engine's panel width (``plan_padding``)."""
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.parallel.layout import plan_padding
+
+    nb, n_pad = plan_padding(n, P, nb or blocked.DEFAULT_BLOCK_SIZE)
+    cuda = torch.device("cuda")
+    m_pad = m + n_pad - n
+    plan = blocked.panel_plan(m_pad, n_pad, nb, True, dtype, cuda)
+    return sum(blocked.kernel_leaves(w, leaf) for _, w, leaf in plan if leaf)
+
+
+def _mps_running() -> bool:
+    import glob
+
+    for path in glob.glob("/proc/[0-9]*/comm"):
+        try:
+            with open(path) as f:
+                if f.read().startswith("nvidia-cuda-mps"):
+                    return True
+        except OSError:
+            continue
+    return False
+
+
+def phase_sharded(hp, seed):
+    """The sharded tier on one card: (a) NCCL with one rank, ``qr`` +
+    ``solve`` at 16384^2 f32; (b) gloo, 4 ranks on card 0, ``qr`` +
+    ``solve`` at 16384^2 f32 per layout and schedule, (d) ``lstsq`` at the
+    reference's 4400 x 4000 (and 4400 x 3998, padded) f32 and c64 under
+    8x, (e) TSQR and CholeskyQR2 on the row mesh at 65536 x 256 f32; (c)
+    gloo, 2 ranks, c64 ``qr`` + ``solve`` at 8192 x 4096. Launches of every
+    rank are added into the parent's counts."""
+    from dhqr_tpu_torch.parallel._ranks import run_ranks
+    from dhqr_tpu_torch.utils.testing import lapack_lstsq, \
+        normal_equations_residual
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    mps = _mps_running()
+    emit({"phase": 14, "name": "sharded_setup", "compute_mode": mode,
+          "mps_running": mps, "card": torch.cuda.get_device_name(0)})
+    if mps or mode != "Default":
+        raise AssertionError(f"phase 14 shares card 0 between processes "
+                             f"and needs compute mode Default without MPS: "
+                             f"{mode}, MPS running: {mps}")
+    torch.cuda.empty_cache()
+    device = "cuda:0"
+    f32, c64 = "float32", "complex64"
+    square = {"kind": "qr", "m": 16384, "n": 16384, "dtype": f32,
+              "seed": seed + 14}
+    reference = {"kind": "lstsq", "m": 4400, "n": 4000, "seed": seed + 3}
+    runs = [
+        ("a", "nccl", 1, [dict(square, probe=True, profile=True,
+                               runs=[("block", "default", {}),
+                                     ("block", "lookahead",
+                                      {"lookahead": True})])]),
+        ("c", "gloo", 2, [{"kind": "qr", "m": 8192, "n": 4096, "dtype": c64,
+                           "seed": seed + 15,
+                           "runs": [("cyclic", "default", {})]}]),
+        ("bde", "gloo", 4, [
+            dict(square, runs=list(SHARDED_SCHEDULES)),
+            dict(reference, dtype=f32, cols=4000),
+            dict(reference, dtype=f32, cols=3998),
+            dict(reference, dtype=c64, cols=4000),
+            {"kind": "rows", "m": 65536, "n": 256, "dtype": f32,
+             "seed": seed + 16, "engines": ["tsqr", "cholqr2"]}]),
+    ]
+    for label, backend, P, cases in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(sharded_worker, P, backend=backend, device=device,
+                          timeout_s=420, cases=cases)
+        wall_s = time.perf_counter() - t0
+        for r in ranks:
+            for name, count in r["launches"].items():
+                hp.LAUNCHES[name] += count
+        where = {"backend": backend, "ranks": P, "ranks_per_card": P,
+                 "rank_device": device}
+        for i, case in enumerate(cases):
+            per_rank = [r["cases"][i] for r in ranks]
+            if case["kind"] == "qr":
+                _check_sharded_qr(case, per_rank, P, where)
+            elif case["kind"] == "lstsq":
+                dtype = np.dtype(case["dtype"])
+                A, b, _ = lapack_problem(case["m"], case["n"], dtype,
+                                         case["seed"])
+                A = A[:, :case["cols"]]
+                oracle = normal_equations_residual(
+                    A, lapack_lstsq(A, b), b) if case["cols"] != case["n"] \
+                    else oracle_of(case["m"], case["n"], dtype,
+                                   case["seed"])[2]
+                row0 = per_rank[0][0]
+                res = normal_equations_residual(A, row0["x"], b)
+                launches = sum(sum(r[0]["launches"].values())
+                               for r in per_rank)
+                expect = sharded_plan(case["m"], case["cols"],
+                                      getattr(torch, case["dtype"]), P)
+                row = {"phase": 14, "name": "sharded_lstsq", **where,
+                       "dtype": dtype.name, "shape": [case["m"], case["cols"]],
+                       "s": max(r[0]["s"] for r in per_rank),
+                       "normal_eq_residual": res, "lapack_residual": oracle,
+                       "ratio": res / oracle, "criterion": CRITERION,
+                       "launches": launches, "expected": expect}
+                row["ok"] = bool(np.isfinite(res)) and \
+                    res < CRITERION * oracle and launches == expect
+                emit(row)
+                if not row["ok"]:
+                    raise AssertionError(f"sharded lstsq failed: {row}")
+            else:
+                _check_sharded_rows(case, per_rank, P, where)
+        emit({"phase": 14, "name": "sharded_run", "case": label, **where,
+              "wall_s": wall_s})
+
+
+def _check_sharded_qr(case, per_rank, P, where):
+    from dhqr_tpu_torch.ops import hopper_panel as hp_
+
+    m, n = case["m"], case["n"]
+    dtype = getattr(torch, case["dtype"])
+    tol = TOL_BACKWARD_F32 if dtype == torch.float32 else TOL_BACKWARD_C64
+    plan = sharded_plan(m, n, dtype, P)
+    if case.get("probe"):  # the single-device lookahead beside the default
+        emit({"phase": 14, "name": "single_device_lookahead_probe",
+              "shape": [m, n], **per_rank[0][0]})
+        per_rank = [r[1:] for r in per_rank]
+    for j, (layout, sched, kw) in enumerate(case["runs"]):
+        rows = [r[j] for r in per_rank]
+        backward = (sum(r["backward_sq"] for r in rows)
+                    / sum(r["a_sq"] for r in rows)) ** 0.5
+        launches = sum(r["launches"][hp_.KERNELS[dtype]] for r in rows)
+        expect = plan * (P if "agg_panels" in kw else 1)
+        row = {"phase": 14, "name": "sharded_qr", **where,
+               "dtype": case["dtype"], "shape": [m, n], "layout": layout,
+               "schedule": sched, "nb": rows[0]["nb"],
+               "factor_first_s": max(r["first_s"] for r in rows),
+               "factor_s": max(r["s"] for r in rows)
+               if rows[0]["s"] is not None else None,
+               "solve_s": max(r["solve_s"] for r in rows),
+               "backward_error": backward, "tol_backward": tol,
+               "rel_diff_H_single": max(r["h_diff"] for r in rows)
+               / max(r["h_max"] for r in rows),
+               "rel_diff_R_up_to_signs": max(r["r_diff"] for r in rows)
+               / max(r["r_max"] for r in rows),
+               "alpha_sign_flips": rows[0]["sign_flips"],
+               "first_flip_column": rows[0]["first_flip"],
+               "first_flip_pivot_over_norm": next(
+                   (r["first_flip_pivot"] for r in rows
+                    if r["first_flip_pivot"] is not None), None),
+               "tol_diff": TOL_SHARDED_H,
+               "solve_normal_eq_residual": rows[0]["solve_residual"],
+               "single_device_residual": rows[0]["single_residual"],
+               "solve_ratio": rows[0]["solve_residual"]
+               / rows[0]["single_residual"], "criterion": CRITERION,
+               "launches": launches, "expected": expect}
+        # The default schedule on one rank runs the single-device engine's
+        # panels and GEMMs in order: its H must match. Other schedules and
+        # several ranks split the GEMMs otherwise, and at 16384^2 a pivot
+        # within roundoff of zero can take the other sign (then that
+        # reflector and everything after it differ, H by percents): those
+        # are held to R, unique up to row signs, and to the backward error.
+        dist = row["rel_diff_H_single"] if (P, sched) == (1, "default") \
+            else row["rel_diff_R_up_to_signs"]
+        row["ok"] = (backward < tol and all(r["finite"] for r in rows)
+                     and dist < TOL_SHARDED_H
+                     and row["solve_ratio"] <= CRITERION
+                     and expect >= 1 and launches == expect)
+        emit(row)
+        if "mesh_solve_profile" in rows[0]:
+            emit({"phase": 14, "name": "sharded_solve_profile", **where,
+                  "shape": [m, n], "layout": layout, "schedule": sched,
+                  **{k: rows[0][k] for k in ("single_solve_profile",
+                                             "mesh_solve_profile")}})
+        if not row["ok"]:
+            raise AssertionError(f"sharded qr failed: {row}")
+
+
+def _check_sharded_rows(case, per_rank, P, where):
+    from dhqr_tpu_torch.ops import blocked, hopper_panel as hp_
+
+    m, n = case["m"], case["n"]
+    dtype = getattr(torch, case["dtype"])
+    cuda = torch.device("cuda")
+    nb = min(blocked.DEFAULT_BLOCK_SIZE, n)
+    leaf = blocked.panel_plan(m // P, n, nb, True, dtype, cuda)
+    combine = blocked.panel_plan(P * n, n, nb, True, dtype, cuda)
+    per_rank_plan = sum(blocked.kernel_leaves(w, lw)
+                        for _, w, lw in leaf + combine if lw)
+    for j, engine in enumerate(case["engines"]):
+        rows = [r[j] for r in per_rank]
+        launches = sum(r["launches"][hp_.KERNELS[dtype]] for r in rows)
+        expect = P * per_rank_plan if engine == "tsqr" else 0
+        ref = rows[0]["torch_lstsq_residual"]
+        row = {"phase": 14, "name": "sharded_rows", **where,
+               "engine": engine, "dtype": case["dtype"], "shape": [m, n],
+               "first_s": max(r["first_s"] for r in rows),
+               "s": max(r["s"] for r in rows),
+               "torch_lstsq_s": rows[0]["torch_lstsq_s"],
+               "normal_eq_residual": rows[0]["residual"],
+               "torch_lstsq_residual": ref,
+               "ratio": rows[0]["residual"] / ref, "criterion": CRITERION,
+               "launches": launches, "expected": expect}
+        row["ok"] = (bool(np.isfinite(rows[0]["residual"]))
+                     and rows[0]["residual"] <= CRITERION * ref
+                     and launches == expect)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"sharded row engine failed: {row}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -1278,6 +1772,8 @@ def main(argv=None) -> int:
         counted("reconstruct", lambda: phase_reconstruct(dt, hp, args.seed))
     if 13 in phases:
         counted("sketch", lambda: phase_sketch(dt, args.seed))
+    if 14 in phases:
+        counted("sharded", lambda: phase_sharded(hp, args.seed))
     emit({"launches_by_path": paths})
     for key in ("reconstruct", "sketch"):  # paths with no panel kernel on them
         if key in paths and any(paths[key].values()):
@@ -1286,7 +1782,7 @@ def main(argv=None) -> int:
     kernels = []
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
-        for key in ("main", "tsqr", "gradients", "schedules"):
+        for key in ("main", "tsqr", "gradients", "schedules", "sharded"):
             if key in paths and paths[key][name] < 1:
                 raise AssertionError(f"{name} never launched on the {key} "
                                      "path")

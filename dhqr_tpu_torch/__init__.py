@@ -16,8 +16,11 @@ JAX package — is a CUDA C++ kernel written for ``sm_90a``
     >>> x = dhqr_tpu_torch.lstsq(A, b, engine="sketch")  # tall: m >> n
     >>> fact = dhqr_tpu_torch.qr(A, lookahead=True)      # two CUDA streams
     >>> x = dhqr_tpu_torch.lstsq(A, b, device="cpu")   # plain PyTorch path
+    >>> fact = dhqr_tpu_torch.qr(A, mesh=parallel.column_mesh())  # per rank
 
-This package imports neither ``jax`` nor ``dhqr_tpu``.
+The distributed tier is :mod:`dhqr_tpu_torch.parallel` (one process per
+rank over a ``torch.distributed`` process group). This package imports
+neither ``jax`` nor ``dhqr_tpu``.
 """
 
 from dhqr_tpu_torch.models.qr_model import (
@@ -34,6 +37,7 @@ from dhqr_tpu_torch.numeric.errors import (
     NumericalError,
     ResidualGateFailed,
 )
+from dhqr_tpu_torch import parallel
 from dhqr_tpu_torch.ops.blocked import blocked_householder_qr
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr2, cholesky_qr_lstsq
 from dhqr_tpu_torch.ops.differentiable import lstsq_diff

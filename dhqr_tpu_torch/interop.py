@@ -61,3 +61,11 @@ def sketch_config_from_fields(**fields) -> SketchConfig:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor (any device) as a numpy array."""
     return t.detach().resolve_conj().cpu().numpy()
+
+
+def factorization_to_numpy(fact: QRFactorization):
+    """``(H, alpha)`` of a factorization as numpy arrays, H in natural
+    column order — the JAX factorization's fields. A mesh factorization's
+    blocks are all-gathered (``fact.natural_H()``), so every rank of its
+    mesh must call this."""
+    return to_numpy(fact.natural_H()), to_numpy(fact.alpha)

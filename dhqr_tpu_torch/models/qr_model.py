@@ -9,9 +9,12 @@
   the differentiable :func:`~dhqr_tpu_torch.ops.differentiable.lstsq_diff`),
   TSQR, CholeskyQR or the sketched solver.
 
-Knobs the port does not run yet (mesh, plan, guards, compressed comms)
-raise :class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the
-ROADMAP item that brings them.
+``mesh=`` (a :class:`~dhqr_tpu_torch.parallel.ColumnMesh`) runs the
+distributed tier (:mod:`dhqr_tpu_torch.parallel`): every rank of the mesh
+calls the entry point with the same inputs. Knobs the port does not run
+yet (plan, guards, compressed comms) raise
+:class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from dhqr_tpu_torch.ops import solve as _solve
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr_lstsq
 from dhqr_tpu_torch.ops.differentiable import lstsq_diff
 from dhqr_tpu_torch.ops.tsqr import tsqr_lstsq
+from dhqr_tpu_torch.parallel import sharded_qr as _sharded
+from dhqr_tpu_torch.parallel.mesh import DEFAULT_AXIS, check_mesh
+from dhqr_tpu_torch.parallel.sharded_cholqr import sharded_cholqr_lstsq
+from dhqr_tpu_torch.parallel.sharded_solve import sharded_lstsq, sharded_solve
+from dhqr_tpu_torch.parallel.sharded_tsqr import sharded_tsqr_lstsq
+from dhqr_tpu_torch.parallel.topology import axis_size, resolve_axis
 from dhqr_tpu_torch.precision import (
     apply_policy_to_factor_args,
     resolve_comms,
@@ -58,6 +67,15 @@ class QRFactorization:
       refine: iterative-refinement sweeps :meth:`solve` runs by default.
       matrix: the original A, kept only when refinement was requested at
         factor time (the residual must be measured against the true A).
+      mesh: the :class:`~dhqr_tpu_torch.parallel.ColumnMesh` of a
+        distributed factorization (``qr(A, mesh=...)``), else None. Then
+        ``H`` is this rank's (m + k, (n + k) / P) block, in store order, of
+        the factorization of A padded by k orthogonal columns to the
+        engines' divisibility (k = 0 when n divides into ``block_size``-wide
+        panels over the ranks); ``alpha`` is R's diagonal (n,) on every
+        rank; solves run the distributed engines, and :meth:`natural_H`
+        all-gathers H in natural column order (every rank must call them).
+      layout: the mesh's column layout, "block" or "cyclic".
     """
 
     H: torch.Tensor
@@ -66,10 +84,28 @@ class QRFactorization:
     precision: str = _hh.DEFAULT_PRECISION
     refine: int = 0
     matrix: Optional[torch.Tensor] = None
+    mesh: object = None
+    layout: str = "block"
+
+    def _pad(self) -> int:
+        """Columns (and rows) a mesh factorization was padded by."""
+        return self.H.shape[1] * self.mesh.size - self.alpha.shape[0]
 
     @property
     def shape(self):
-        return tuple(self.H.shape)
+        if self.mesh is None:
+            return tuple(self.H.shape)
+        return (self.H.shape[0] - self._pad(), self.alpha.shape[0])
+
+    def natural_H(self) -> torch.Tensor:
+        """H (m, n) in natural column order: ``H`` itself on one device;
+        on a mesh, every rank's block all-gathered (a collective)."""
+        if self.mesh is None:
+            return self.H
+        m, n = self.shape
+        H = _sharded._gather_natural(self.H, self.mesh, n + self._pad(),
+                                     self.block_size, self.layout)
+        return H[:m, :n]
 
     @property
     def dtype(self):
@@ -80,11 +116,11 @@ class QRFactorization:
 
     def r_matrix(self) -> torch.Tensor:
         """Dense n x n upper-triangular R."""
-        return _solve.r_matrix(self.H, self.alpha)
+        return _solve.r_matrix(self.natural_H(), self.alpha)
 
     def q_columns(self, k: Optional[int] = None) -> torch.Tensor:
         """The first k columns of Q (default n) — a test/debug aid."""
-        m, n = self.H.shape
+        m, n = self.shape
         eye = torch.eye(m, n if k is None else k, dtype=self.H.dtype,
                         device=self.H.device)
         return self.matmul_q(eye)
@@ -103,6 +139,17 @@ class QRFactorization:
         return torch.sum(d > rtol * d.max())
 
     def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            # H is the padded problem's block (``_pad_problem``): b gets its
+            # zero rows, alpha the padded columns' unit diagonal (x[:n]
+            # does not depend on it: R has no coupling into them)
+            k = self._pad()
+            alpha = torch.cat([self.alpha, self.alpha.new_ones(k)])
+            return sharded_solve(
+                self.H, alpha, _sharded._pad_rows(b, k), self.mesh,
+                block_size=self.block_size,
+                precision=self.precision, layout=self.layout,
+                _H_in_store_layout=True)[:self.alpha.shape[0]]
         c = _blocked._apply_qt_impl(self.H, b, self.block_size, self.precision)
         return _solve._back_substitute(self.H, self.alpha, c)
 
@@ -125,14 +172,15 @@ class QRFactorization:
         return x
 
     def matmul_q(self, b) -> torch.Tensor:
-        """Q @ b (b of length m, or (m, k))."""
-        return _blocked._apply_q_impl(self.H, self._rhs(b), self.block_size,
-                                      self.precision)
+        """Q @ b (b of length m, or (m, k)); on a mesh, on every rank
+        through the gathered H."""
+        return _blocked._apply_q_impl(self.natural_H(), self._rhs(b),
+                                      self.block_size, self.precision)
 
     def matmul_qt(self, b) -> torch.Tensor:
         """Q^H @ b."""
-        return _blocked._apply_qt_impl(self.H, self._rhs(b), self.block_size,
-                                       self.precision)
+        return _blocked._apply_qt_impl(self.natural_H(), self._rhs(b),
+                                       self.block_size, self.precision)
 
 
 def _reject_nonblocked_knobs(cfg: DHQRConfig) -> None:
@@ -152,6 +200,10 @@ def _reject_nonblocked_knobs(cfg: DHQRConfig) -> None:
         raise ValueError(
             "agg_panels applies to the blocked engines only (the unblocked "
             "panel loop has no panel-level updates to aggregate)")
+    if cfg.overlap_depth:
+        raise ValueError(
+            "overlap_depth applies to the blocked engines only (the "
+            "unblocked panel loop has no panel-level schedule to pipeline)")
 
 
 def _resolve_policy_cfg(cfg: DHQRConfig):
@@ -193,11 +245,48 @@ def _resolve_policy_cfg(cfg: DHQRConfig):
     return cfg, pol
 
 
-def _resolved(config, overrides, mesh):
+def _resolved(config, overrides, mesh, device):
+    if mesh is not None:
+        check_mesh(mesh)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(
+                f"device={device!r} differs from the mesh's device "
+                f"{mesh.device}: a mesh call runs on mesh.device")
     cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
     cfg, pol = _resolve_policy_cfg(cfg)
     refuse_unported(cfg, mesh)
     return cfg, pol
+
+
+def _col_axis_size(cfg: DHQRConfig, mesh) -> "tuple[str, int]":
+    """The column axis the householder mesh path shards over, and its rank
+    count."""
+    axis = resolve_axis(mesh, cfg.mesh_axis or DEFAULT_AXIS)
+    return axis, axis_size(mesh, axis)
+
+
+def _qr_mesh(A, cfg: DHQRConfig, mesh):
+    """``(H, alpha, nb)`` of the mesh path: A padded once to the panel
+    width's divisibility (``_pad_problem``), factored by the sharded
+    engine, left in store order on each rank; alpha cut back to n."""
+    axis, nproc = _col_axis_size(cfg, mesh)
+    n = A.shape[1]
+    Ap, _, nb, _ = _sharded._pad_problem(A, nproc, cfg.block_size)
+    if cfg.blocked:
+        H, alpha = _sharded.sharded_blocked_qr(
+            Ap, mesh, block_size=nb, axis_name=axis, precision=cfg.precision,
+            layout=cfg.layout, _store_layout_output=True, norm=cfg.norm,
+            use_pallas=cfg.use_pallas, panel_impl=cfg.panel_impl,
+            trailing_precision=cfg.trailing_precision,
+            lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
+            overlap_depth=cfg.overlap_depth)
+    else:
+        _reject_nonblocked_knobs(cfg)
+        H, alpha = _sharded.sharded_householder_qr(
+            Ap, mesh, axis_name=axis, precision=cfg.precision,
+            layout=cfg.layout, store_nb=nb, _store_layout_output=True,
+            norm=cfg.norm)
+    return H, alpha[:n], nb
 
 
 def _with_block_size(cfg: DHQRConfig) -> DHQRConfig:
@@ -215,14 +304,16 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     >>> fact = qr(A, donate=True)     # factors in place in A's storage
     >>> fact = qr(A, policy="balanced")  # bf16x3 trailing GEMMs, refined solves
     >>> fact = qr(A, lookahead=True)  # panel q+1 beside panel q's GEMM
+    >>> fact = qr(A, mesh=column_mesh())  # every rank: its column block
 
     ``policy=`` names the precision tuple at once: panel and trailing
     precision go to the factor engine, ``apply`` becomes the
     factorization's solve precision, and ``refine > 0`` arms refinement in
     every later ``.solve(b)`` (the factorization then keeps A).
-    ``device=None`` runs on the CUDA card (inputs are moved there).
+    ``device=None`` runs on the CUDA card (inputs are moved there); with
+    ``mesh=`` every rank calls ``qr`` with the same A, on ``mesh.device``.
     """
-    cfg, pol = _resolved(config, overrides, mesh)
+    cfg, pol = _resolved(config, overrides, mesh, device)
     cfg = _with_block_size(cfg)
     if cfg.engine != "householder":
         raise ValueError(
@@ -240,8 +331,20 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
             "donate=True cannot be combined with a refining policy: "
             "refinement must keep the original A, which donation "
             "invalidates")
-    A = as_tensor(A, device)
+    A = as_tensor(A, device if mesh is None else mesh.device)
     check_fp32_matmul(A.device)
+    if mesh is not None:
+        if donate:
+            raise ValueError(
+                "donate=True is not supported on the mesh path (the input is "
+                "re-placed onto the mesh, so donation cannot honor its contract)"
+            )
+        H, alpha, nb = _qr_mesh(A, cfg, mesh)
+        return QRFactorization(
+            H, alpha, block_size=nb,
+            precision=cfg.apply_precision or cfg.precision,
+            refine=solve_refine, matrix=A if solve_refine else None,
+            mesh=mesh, layout=cfg.layout)
     if cfg.blocked:
         H, alpha = _blocked.blocked_householder_qr(
             A, cfg.block_size, donate=donate, precision=cfg.precision,
@@ -324,13 +427,19 @@ def _validate_alt_engine_cfg(cfg: DHQRConfig) -> None:
             f"(engine={cfg.engine!r})")
 
 
-def _lstsq_sketch(A, b, cfg: DHQRConfig):
+def _lstsq_sketch(A, b, cfg: DHQRConfig, mesh=None):
     """Route ``lstsq`` to the sketched engine
     (:func:`~dhqr_tpu_torch.solvers.sketch.sketched_lstsq`): compress to
     an s x n core, R from the core, R-preconditioned CGLS against the true
     A. ``precision`` / ``trailing_precision`` steer the core's Gram
     product; ``refine`` adds CGLS iterations to the
-    :class:`~dhqr_tpu_torch.utils.config.SketchConfig` baseline."""
+    :class:`~dhqr_tpu_torch.utils.config.SketchConfig` baseline.
+    Single-device only."""
+    if mesh is not None:
+        raise ValueError(
+            "engine='sketch' is single-device: the sketch core is "
+            "already small — shard the stream, not the sketch"
+        )
     if cfg.layout != "block":
         raise ValueError(
             f"layout applies only to the householder engines "
@@ -389,28 +498,49 @@ def _lstsq_impl(A, b, cfg: DHQRConfig):
     return x
 
 
-def _lstsq_refined(A, b, cfg: DHQRConfig):
+def _lstsq_refined(A, b, cfg: DHQRConfig, mesh=None):
     """``refine`` sweeps of iterative refinement around one factorization:
     the householder engine refines inside ``lstsq_diff``'s forward
-    (gradients intact), the cholqr engines reuse their explicit (Q, R);
-    tsqr refuses (its tree keeps no reusable factorization, so each sweep
-    would repeat the whole factorization)."""
+    (gradients intact), or on a mesh factors once with :func:`qr` and
+    loops the sharded solve; the cholqr engines reuse their explicit
+    (Q, R); tsqr refuses (its tree keeps no reusable factorization, so
+    each sweep would repeat the whole factorization)."""
     if cfg.engine == "tsqr":
         raise ValueError(
             "refine is not supported with engine='tsqr' (no reusable "
             "factorization in the tree); use householder or cholqr")
     if cfg.engine in ("cholqr2", "cholqr3"):
         _validate_alt_engine_cfg(cfg)
+        if mesh is not None:
+            raise ValueError(
+                "refine with the cholqr engines is single-device only")
         return cholesky_qr_lstsq(A, b, precision=cfg.precision,
                                  shift=cfg.engine == "cholqr3",
                                  refine=cfg.refine, device=A.device)
-    return _lstsq_impl(A, b, cfg)
+    if mesh is None:
+        return _lstsq_impl(A, b, cfg)
+    return _lstsq_mesh(A, b, cfg, mesh)
 
 
-def _lstsq_alt_engine(A, b, cfg: DHQRConfig):
+def _lstsq_alt_engine(A, b, cfg: DHQRConfig, mesh=None):
     """Route ``lstsq`` to TSQR ("tsqr", row blocks looped, leaves on the
-    panel kernel) or CholeskyQR ("cholqr2"/"cholqr3", all GEMMs)."""
+    panel kernel) or CholeskyQR ("cholqr2"/"cholqr3", all GEMMs). On a
+    mesh both shard ROWS, over ``mesh_axis`` when it is given, else over
+    the mesh's one axis (the port's meshes are 1-D)."""
     _validate_alt_engine_cfg(cfg)
+    if mesh is not None:
+        if cfg.mesh_axis is not None and cfg.mesh_axis not in mesh.shape:
+            raise ValueError(
+                f"mesh axes {tuple(mesh.shape)} do not include "
+                f"mesh_axis={cfg.mesh_axis!r}")
+        axis = cfg.mesh_axis or mesh.axis_name
+        if cfg.engine == "tsqr":
+            return sharded_tsqr_lstsq(
+                A, b, mesh, block_size=cfg.block_size, axis_name=axis,
+                precision=cfg.precision, use_pallas=cfg.use_pallas)
+        return sharded_cholqr_lstsq(A, b, mesh, axis_name=axis,
+                                    precision=cfg.precision,
+                                    shift=cfg.engine == "cholqr3")
     if cfg.engine == "tsqr":
         m, n = A.shape
         n_blocks = max(1, min(8, m // max(n, 1)))
@@ -441,22 +571,29 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     ``policy=`` names the precision tuple at once: panel/trailing go to the
     factor stage, ``apply`` to the Q^H applies, ``refine`` into the
     refinement loop.
+
+    With ``mesh=`` (every rank calls it with the same A and b, and gets
+    the same x) the householder engine runs column-sharded
+    (:func:`~dhqr_tpu_torch.parallel.sharded_lstsq`, or the unblocked
+    engine chained into :func:`~dhqr_tpu_torch.parallel.sharded_solve`)
+    and tsqr / cholqr2 / cholqr3 row-sharded; ``refine`` factors once
+    and loops the sharded solve. The mesh path is not differentiable.
     """
-    cfg, pol = _resolved(config, overrides, mesh)
+    cfg, pol = _resolved(config, overrides, mesh, device)
     if pol is not None and pol.refine:
         cfg = dataclasses.replace(cfg, refine=pol.refine)
-    A = as_tensor(A, device)
+    A = as_tensor(A, device if mesh is None else mesh.device)
     b = as_tensor(b, A.device, A.dtype)
     check_fp32_matmul(A.device)
     if cfg.refine < 0:
         raise ValueError(f"refine must be >= 0, got {cfg.refine}")
     m, n = A.shape
-    if m < n and cfg.engine != "householder":
+    if m < n and (cfg.engine != "householder" or mesh is not None):
         raise ValueError(
             f"m < n (got {tuple(A.shape)}) is supported only on the "
             "single-device householder path (minimum-norm solve)")
     if cfg.engine == "sketch":  # before the block-size default, as in JAX
-        return _lstsq_sketch(A, b, cfg)
+        return _lstsq_sketch(A, b, cfg, mesh)
     cfg = _with_block_size(cfg)
     if m < n:
         if not cfg.blocked or cfg.use_pallas != "auto" \
@@ -475,7 +612,31 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
         return _minimum_norm_impl(A, b, cfg.block_size, cfg.precision,
                                   norm=cfg.norm)
     if cfg.refine:
-        return _lstsq_refined(A, b, cfg)
+        return _lstsq_refined(A, b, cfg, mesh)
     if cfg.engine != "householder":
-        return _lstsq_alt_engine(A, b, cfg)
+        return _lstsq_alt_engine(A, b, cfg, mesh)
+    if mesh is not None:
+        return _lstsq_mesh(A, b, cfg, mesh)
     return _lstsq_impl(A, b, cfg)
+
+
+def _lstsq_mesh(A, b, cfg: DHQRConfig, mesh):
+    """The householder engine on a mesh: blocked in one pass through
+    :func:`~dhqr_tpu_torch.parallel.sharded_lstsq`; unblocked, or with
+    ``refine`` sweeps, one :func:`qr` and its sharded solves (factor and
+    solve share one store order)."""
+    if cfg.blocked and not cfg.refine:
+        return sharded_lstsq(
+            A, b, mesh, block_size=cfg.block_size,
+            axis_name=_col_axis_size(cfg, mesh)[0], precision=cfg.precision,
+            layout=cfg.layout, norm=cfg.norm,
+            use_pallas=cfg.use_pallas, panel_impl=cfg.panel_impl,
+            trailing_precision=cfg.trailing_precision,
+            lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
+            overlap_depth=cfg.overlap_depth,
+            apply_precision=cfg.apply_precision)
+    fact = qr(A, config=dataclasses.replace(cfg, refine=0), mesh=mesh)
+    x = fact.solve(b)
+    for _ in range(cfg.refine):
+        x = x + fact.solve(b - torch.matmul(A, x))
+    return x

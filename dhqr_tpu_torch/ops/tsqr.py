@@ -55,11 +55,21 @@ def _tsqr_factor(A, B, n_blocks, nb, precision, kernel=False,
                           None if B is None else B[i * rows:(i + 1) * rows],
                           nb, precision, kernel, trailing_precision)
              for i in range(n_blocks)]
-    H2, alpha2 = _blocked_qr_impl(torch.cat([R for R, _ in heads]), nb,
-                                  kernel=kernel, precision=precision,
+    return _combine_factor(torch.cat([R for R, _ in heads]),
+                           None if B is None else torch.cat(
+                               [c for _, c in heads]),
+                           nb, precision, kernel, trailing_precision)
+
+
+def _combine_factor(Rstack, cstack, nb, precision, kernel=False,
+                    trailing_precision=None):
+    """The combine stage: QR of the stacked R heads (in place in
+    ``Rstack``) and Q^H of the stacked c heads (None without them).
+    Returns ``(H2, alpha2, c2)``; the row-sharded TSQR shares it."""
+    H2, alpha2 = _blocked_qr_impl(Rstack, nb, kernel=kernel,
+                                  precision=precision,
                                   trailing_precision=trailing_precision)
-    c2 = None if B is None else _apply_qt_impl(
-        H2, torch.cat([c for _, c in heads]), nb, precision)
+    c2 = None if cstack is None else _apply_qt_impl(H2, cstack, nb, precision)
     return H2, alpha2, c2
 
 

@@ -63,11 +63,13 @@ class DHQRConfig:
     "tsqr", "cholqr2", "cholqr3", "sketch"), ``panel_impl`` in ("loop",
     "recursive", "reconstruct", "reconstruct:<chunk>"), ``refine``
     (lstsq), ``lookahead`` and ``agg_panels``. ``mesh_axis`` and ``layout``
-    only steer the mesh tier and are ignored on a single device, as in the
-    JAX package. ``comms`` parses ("f32"/"none" mean None);
+    steer the mesh tier (``mesh=``, :mod:`dhqr_tpu_torch.parallel`) and
+    are ignored on a single device, as in the JAX package. ``comms``
+    parses ("f32"/"none" mean None, the one wire format ported);
     ``overlap_depth`` is mesh-only, a ``ValueError`` on a single device as
-    in the JAX package. Every other field must stay at its default: the
-    entry points refuse it (:func:`refuse_unported`).
+    in the JAX package, and on a mesh only depth 1 (the lookahead order)
+    runs. Every other field must stay at its default: the entry points
+    refuse it (:func:`refuse_unported`).
     """
 
     block_size: "int | None" = None
@@ -128,7 +130,8 @@ def check_precision(precision: str) -> None:
 _UNPORTED_FIELDS = (
     ("plan", "Queue A item 14 (tune/)"),
     ("guards", "Queue A item 10 (numeric/ladder.py)"),
-    ("comms", "Queue A item 11 (parallel/)"),
+    ("comms", "Queue A item 11 (the compressed wire, with the two-tier "
+              "pod mesh)"),
 )
 
 ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
@@ -179,8 +182,6 @@ def check_sched_knobs(cfg: DHQRConfig, mesh=None) -> None:
 def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
     """Raise :class:`NotPortedError` for every knob this port does not run,
     and ``ValueError`` for values the JAX package itself rejects."""
-    if mesh is not None:
-        raise NotPortedError("mesh=", "Queue A item 11 (parallel/)")
     defaults = DHQRConfig()
     for field, item in _UNPORTED_FIELDS:
         if getattr(cfg, field) != getattr(defaults, field):

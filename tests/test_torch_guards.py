@@ -156,4 +156,47 @@ def test_facade_exports():
               "SketchConfig"}
     assert wanted <= set(dt.__all__)
     assert (wanted - {"DHQRConfig"}) <= set(dhqr_tpu.__all__) | {"__version__"}
+    # the distributed tier: the names of dhqr_tpu.parallel that the port
+    # runs, plus its mesh type (JAX's NamedSharding helpers have no twin)
+    import dhqr_tpu.parallel as jpar
+
+    for name in dt.parallel.__all__:
+        assert hasattr(dt.parallel, name), name
+    parallel = {"ColumnBlock", "area_balanced_splits", "column_block_ranges",
+                "local_column_block", "column_mesh", "row_mesh",
+                "sharded_householder_qr", "sharded_blocked_qr",
+                "sharded_solve", "sharded_lstsq", "sharded_tsqr_lstsq",
+                "sharded_cholqr_lstsq", "initialize", "global_column_mesh",
+                "global_row_mesh", "process_info"}
+    assert set(dt.parallel.__all__) == parallel | {"ColumnMesh"}
+    assert parallel <= set(jpar.__all__)
+
+
+# The collectives of torch.distributed; in the port's parallel/ package
+# only wire.py calls them (the JAX package's DHQR009 rule for its wire).
+_COLLECTIVES = {"broadcast", "all_reduce", "all_gather", "reduce_scatter",
+                "all_to_all", "reduce", "gather", "scatter", "barrier",
+                "send", "recv", "isend", "irecv", "all_gather_into_tensor",
+                "reduce_scatter_tensor", "all_to_all_single",
+                "broadcast_object_list", "all_gather_object",
+                "batch_isend_irecv"}
+
+
+def test_only_the_wire_calls_collectives():
+    parallel = os.path.join(PORT, "parallel")
+    seen = []
+    for name in sorted(os.listdir(parallel)):
+        if not name.endswith(".py"):
+            continue
+        tree = ast.parse(open(os.path.join(parallel, name),
+                              encoding="utf-8").read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr in _COLLECTIVES \
+                    and ast.unparse(node.value) in ("dist",
+                                                    "torch.distributed"):
+                seen.append((name, ast.unparse(node)))
+            if isinstance(node, ast.ImportFrom) and node.module and \
+                    node.module.startswith("torch.distributed"):
+                assert not {a.name for a in node.names} & _COLLECTIVES, name
+    assert seen and {name for name, _ in seen} == {"wire.py"}, seen
 

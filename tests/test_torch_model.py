@@ -213,10 +213,12 @@ def test_unported_knobs_raise_not_implemented(entry, knob):
 
 
 def test_mesh_and_bad_values():
+    # mesh= takes the port's ColumnMesh (the mesh tier itself runs in
+    # tests/test_torch_sharded*.py, on gloo process groups)
     A, b = random_problem(40, 30, np.float32, seed=29)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ColumnMesh"):
         dt.qr(A, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ColumnMesh"):
         dt.lstsq(A, b, mesh=object(), device="cpu")
     for bad in ({"engine": "magic"}, {"norm": "sloppy"},
                 {"use_pallas": "maybe"}, {"panel_impl": "nope"},
@@ -228,10 +230,11 @@ def test_mesh_and_bad_values():
     with pytest.raises(ValueError):
         dt.qr(A, blocked=False, donate=True, device="cpu")
     # overlap_depth is mesh-only: a ValueError on one device, as in JAX;
-    # with mesh= the mesh tier is what is not ported yet
+    # on a mesh a pipeline deeper than one panel is not ported
+    # (tests/test_torch_sharded_engines.py)
     with pytest.raises(ValueError, match="mesh-only"):
         dt.qr(A, device="cpu", overlap_depth=2, lookahead=True)
-    with pytest.raises(dt.NotPortedError, match="item 11"):
+    with pytest.raises(TypeError, match="ColumnMesh"):
         dt.qr(A, device="cpu", overlap_depth=2, lookahead=True,
               mesh=object())
 

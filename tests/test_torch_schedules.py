@@ -27,7 +27,6 @@ from dhqr_tpu.ops import blocked as jbl  # noqa: E402
 from dhqr_tpu.utils.testing import oracle_residual, random_problem  # noqa: E402
 from dhqr_tpu_torch.ops import blocked as tbl  # noqa: E402
 from dhqr_tpu_torch.ops import hopper_panel as hp  # noqa: E402
-from dhqr_tpu_torch.utils.config import NotPortedError  # noqa: E402
 from dhqr_tpu_torch.utils.testing import normal_equations_residual  # noqa: E402
 
 TOL = {np.float32: 2e-5, np.complex64: 2e-5, np.float64: 1e-12}
@@ -184,7 +183,9 @@ def test_ops_level_messages_match_jax(kw):
 
 def test_schedule_knob_refusals():
     A, b = random_problem(40, 20, np.float32, seed=19)
-    with pytest.raises(NotPortedError, match="item 11"):
+    # mesh= takes the port's ColumnMesh; on a mesh, a pipeline deeper than
+    # one panel raises NotPortedError (tests/test_torch_sharded_engines.py)
+    with pytest.raises(TypeError, match="ColumnMesh"):
         dt.qr(A, device="cpu", lookahead=True, overlap_depth=2,
               mesh=object())
     for kw in ({"lookahead": True}, {"agg_panels": 2}):
