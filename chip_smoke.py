@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14]
+                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14,15]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-14 run by default, 7 on request):
+on any error (0-6 and 8-15 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -104,15 +104,35 @@ on any error (0-6 and 8-14 run by default, 7 on request):
    ``agg_panels``, every rank factoring each group; TSQR: P times a leaf
    and a combine). Gloo carries the
    collectives through the host and the ranks time-share one H100, so a
-   time here is never a scaling number.
+   time here is never a scaling number;
+15. guarded: ``guarded_lstsq`` at 16384^2 f32 in the default "fallback"
+   mode against the unguarded ``lstsq`` (x bit-identical, the same
+   launches, the guard's cost in percent), the same under an injected
+   ``numeric.breakdown`` (the policy rung answers within 8x of
+   ``torch.linalg.lstsq``), ``engine="cholqr2"`` with ``guards="full"`` at
+   65536 x 256 f32 of condition 1e5 (rung 0 breaks down, the answer meets
+   the residual gate) and a schedule that lands on the tsqr rung (its
+   launches the TSQR plan), ``guarded_qr`` at 8192 x 4096 c64 (launches,
+   backward error; a zero column refused before any launch) and
+   ``guards="full"`` at 4400 x 4000 f32; then ``UpdatableQR`` on a stream
+   of 64 rank-1 steps at 65536 x 256 f32 (refactor reasons, 4 launches
+   for the initial factorization and each refactor and none for any other
+   step, the sweeps' R against the live A's Gram beside what a sweep that
+   did nothing would read, solves within 8x of ``torch.linalg.lstsq``, an
+   update/downdate round trip, ms per update and per solve, kernels per
+   update from ``torch.profiler``, beside a fresh ``qr`` and ``lstsq``).
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
 path (9), the gradient path (10), the schedules path (11), the
 reconstruct (12) and sketch (13) paths, which must launch no panel kernel,
-and the sharded path (14), whose ranks' counts of their mesh calls alone
+the sharded path (14), whose ranks' counts of their mesh calls alone
 (zeroed after the single-device references each rank computes) are added
-to the parent's; the ``kernels`` line sums them.
+to the parent's, the guarded path (15 (a)-(e), its guarded calls) and the
+update path (15 (f), the stream's calls), each of which must equal what
+the phase's own calls counted; the yardsticks inside them (the unguarded
+``lstsq`` of (a), the fresh ``qr`` / ``lstsq`` of (f)) are taken back out
+of the counts. The ``kernels`` line sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -143,7 +163,7 @@ TOL_BACKWARD_C64 = 5e-5   # the same, complex64
 TOL_SOLVE_AGREE = 1e-5    # ||x - x2|| / ||x2||, qr().solve vs lstsq
 CRITERION = 8.0           # normal-equations residual factor (reference)
 TOL_BF16 = 1e-5      # bf16 pass vs plain: max|diff| / max(|C| + |A||B|)
-TOL_GRAM = 2e-5      # ||R^H R - A^H A|| / ||A^H A||, f32 TSQR R
+TOL_GRAM = 2e-5      # ||R^H R - A^H A|| / ||A^H A||, f32 R (TSQR, sweeps)
 TOL_GRAD = 1e-4      # f32 gradient vs the f64 normal-equations gradient
 TOL_ADJOINT = 1e-4   # |<w, J u> - <J^T w, u>| / |<w, J u>|, f32
 
@@ -1708,10 +1728,348 @@ def _check_sharded_rows(case, per_rank, P, where):
             raise AssertionError(f"sharded row engine failed: {row}")
 
 
+# -- phase 15: the guarded path and the updatable QR -------------------------
+
+TOL_ROUND_TRIP = 1e-3   # ||R' - R|| / ||R||, rows to a positive diagonal,
+# after an update and a downdate with the same vectors (f32)
+
+
+def _ne_in(A, x, b) -> float:
+    """||A^H (A x - b)|| evaluated on the card in the input's precision."""
+    return float(torch.linalg.vector_norm(A.mH @ (A @ x - b)))
+
+
+def _torch_lstsq(A, b):
+    return torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+
+
+def _path_of(res):
+    return [[a.engine, a.outcome, a.policy, a.detail] for a in res.attempts]
+
+
+def _launches_of(hp, fn):
+    """(fn(), {kernel: launches during it}, seconds)."""
+    l0 = dict(hp.LAUNCHES)
+    out, t = wall(fn)
+    return out, {k: hp.LAUNCHES[k] - l0[k] for k in l0}, t
+
+
+def _counted(hp, fn, tally):
+    """:func:`_launches_of`, adding the launches to ``tally``, the phase's
+    own account of what its path launched."""
+    out, launched, t = _launches_of(hp, fn)
+    for k, n in launched.items():
+        tally[k] = tally.get(k, 0) + n
+    return out, launched, t
+
+
+def _uncounted(hp, fn):
+    """:func:`_launches_of` for a yardstick run inside a counted path (the
+    unguarded call a guarded one is held to, a fresh factorization an
+    update is timed against): its launches are taken back out of the
+    counts, so that the path's count holds the path's own calls only."""
+    out, launched, t = _launches_of(hp, fn)
+    for k, n in launched.items():
+        hp.LAUNCHES[k] -= n
+    return out, launched, t
+
+
+def _ill_conditioned(m, n, cond, seed):
+    """A Gaussian (m, n) f32 matrix with singular values scaled by a
+    geometric ladder from 1 to 1/cond (cond(A) within a small factor of
+    ``cond``), and b, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn((m, n), generator=g, device="cuda", dtype=torch.float32)
+    V, _ = torch.linalg.qr(torch.randn((n, n), generator=g, device="cuda",
+                                       dtype=torch.float64))
+    s = torch.logspace(0, -np.log10(cond), n, device="cuda",
+                       dtype=torch.float64)
+    A = (G.double() @ (s[:, None] * V.T)).float()
+    b = torch.randn((m,), generator=g, device="cuda", dtype=torch.float32)
+    return A, b
+
+
+def phase_guarded(dt, hp, seed, card):
+    """(a) ``guarded_lstsq`` at 16384^2 f32 in the default "fallback"
+    mode against the unguarded ``lstsq``: the same x bit for bit, one "ok"
+    attempt, the same launches, and the guard's cost; (b) the same under an
+    injected ``numeric.breakdown:1.0:1``, which escalates to the policy
+    rung (the fault fires before rung 0 runs, so one factorization
+    launches), within 8x of ``torch.linalg.lstsq`` in the input's
+    precision; (c) ``engine="cholqr2"``, ``guards="full"`` at 65536 x 256
+    f32 with cond 1e5 (past CholeskyQR2's window, inside the shifted
+    form's): rung 0 breaks down, the answer meets the residual gate; then a
+    ``numeric.breakdown:1.0:2`` schedule that lands on the tsqr rung, its
+    launches the TSQR plan; (d) ``guarded_qr`` at 8192 x 4096 c64 (32
+    launches, backward error), and the same with a zero column, refused
+    before any launch; (e) ``guards="full"`` at the reference's 4400 x 4000
+    f32. Returns the launches of its guarded calls; the unguarded calls of
+    (a) are yardsticks and stay out of the path's count."""
+    from dhqr_tpu_torch import faults
+    from dhqr_tpu_torch.numeric import guards, ladder
+    from dhqr_tpu_torch.utils.config import FaultConfig
+
+    f32 = "panel_qr_f32"
+    n = 16384
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    A = torch.rand((n, n), generator=g, device="cuda", dtype=torch.float32)
+    b = torch.rand((n,), generator=g, device="cuda", dtype=torch.float32)
+    expect = expected_launches(n, n, torch.float32)
+    tally = {}  # the launches of this phase's guarded calls
+    _uncounted(hp, lambda: dt.lstsq(A, b))  # warm-up of both paths
+    _counted(hp, lambda: ladder.guarded_lstsq(A, b), tally)
+    times = {"unguarded": [], "guarded": []}
+    for _ in range(2):
+        x0, l_u, t = _uncounted(hp, lambda: dt.lstsq(A, b))
+        times["unguarded"].append(t)
+        res, l_g, t = _counted(hp, lambda: ladder.guarded_lstsq(A, b), tally)
+        times["guarded"].append(t)
+    l_u, l_g = l_u[f32], l_g[f32]
+    t_u, t_g = min(times["unguarded"]), min(times["guarded"])
+    row = {"phase": 15, "name": "guarded_lstsq_square", "shape": [n, n],
+           "card": card, "mode": "fallback", "unguarded_s": times["unguarded"],
+           "guarded_s": times["guarded"],
+           "overhead_pct": 100.0 * (t_g - t_u) / t_u,
+           "bit_equal": bool(torch.equal(x0, res.x)),
+           "attempts": _path_of(res), "launches_unguarded": l_u,
+           "launches_guarded": l_g, "expected": expect}
+    row["ok"] = (row["bit_equal"] and [a.outcome for a in res.attempts]
+                 == ["ok"] and l_u == l_g == expect)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded square check failed: {row}")
+    del x0
+    with faults.injected(FaultConfig(sites=(("numeric.breakdown", 1.0, 1),))):
+        res, launches, t = _counted(
+            hp, lambda: ladder.guarded_lstsq(A, b), tally)
+    launches = launches[f32]
+    x_ref, t_ref = wall(lambda: _torch_lstsq(A, b))
+    ratio = _ne_in(A, res.x, b) / _ne_in(A, x_ref, b)
+    row = {"phase": 15, "name": "guarded_lstsq_injected", "shape": [n, n],
+           "s": t, "attempts": _path_of(res), "launches": launches,
+           "expected": expect, "ratio_to_torch_lstsq": ratio,
+           "torch_lstsq_s": t_ref, "criterion": CRITERION}
+    row["ok"] = ([(a.outcome, a.detail) for a in res.attempts]
+                 == [("breakdown", "injected numeric.breakdown"),
+                     ("ok", None)]
+                 and res.escalations == 1 and launches == expect
+                 and ratio <= CRITERION)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded injected check failed: {row}")
+    del A, b, res, x_ref
+    torch.cuda.empty_cache()
+
+    m, k = 65536, 256
+    A, b = _ill_conditioned(m, k, 1e5, seed + 16)
+    tsqr_plan = tsqr_expected_launches(m, k, 8, torch.float32)
+    x_ref, t_ref = wall(lambda: _torch_lstsq(A, b))
+    res, launches, t = _counted(hp, lambda: ladder.guarded_lstsq(
+        A, b, engine="cholqr2", guards="full"), tally)
+    launches = launches[f32]
+    _, t_probe = wall(lambda: guards.residual_ratio(A, b, res.x))
+    row = {"phase": 15, "name": "guarded_cholqr2_ill_conditioned",
+           "shape": [m, k], "cond": 1e5, "s": t, "probe_s": t_probe,
+           "attempts": _path_of(res),
+           "residual_ratio": res.residual_ratio, "launches": launches,
+           "ratio_to_torch_lstsq": _ne_in(A, res.x, b) / _ne_in(A, x_ref, b),
+           "torch_lstsq_s": t_ref, "criterion": CRITERION}
+    row["ok"] = (res.attempts[0].outcome == "breakdown"
+                 and res.residual_ratio is not None
+                 and res.residual_ratio <= CRITERION)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded cholqr2 check failed: {row}")
+    with faults.injected(FaultConfig(sites=(("numeric.breakdown", 1.0, 2),))):
+        res, launches, t = _counted(hp, lambda: ladder.guarded_lstsq(
+            A, b, engine="cholqr2"), tally)
+    launches = launches[f32]
+    row = {"phase": 15, "name": "guarded_to_tsqr_rung", "shape": [m, k],
+           "s": t, "attempts": _path_of(res), "launches": launches,
+           "expected": tsqr_plan,
+           "ratio_to_torch_lstsq": _ne_in(A, res.x, b) / _ne_in(A, x_ref, b)}
+    row["ok"] = res.engine == "tsqr" and launches == tsqr_plan == 18
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded tsqr rung check failed: {row}")
+    del A, b, res, x_ref
+    torch.cuda.empty_cache()
+
+    m, k = 8192, 4096
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    A = torch.rand((m, k), generator=g, device="cuda", dtype=torch.complex64)
+    expect = expected_launches(m, k, torch.complex64)
+    res, launches, t = _counted(
+        hp, lambda: ladder.guarded_qr(A, guards="full"), tally)
+    launches = launches["panel_qr_c64"]
+    back = backward_error(res.factorization, A)
+    A[:, 7] = 0
+    refused = []
+
+    def refuse():
+        try:
+            ladder.guarded_qr(A, guards="full")
+        except dt.IllConditioned as exc:
+            refused.append(str(exc)[:80])
+
+    _, l_zero, _ = _counted(hp, refuse, tally)
+    refused = refused[0] if refused else None
+    l_zero = sum(l_zero.values())
+    row = {"phase": 15, "name": "guarded_qr_c64", "shape": [m, k], "s": t,
+           "attempts": _path_of(res), "cond_estimate": res.cond_estimate,
+           "launches": launches, "expected": expect,
+           "backward_error": back, "tol_backward": TOL_BACKWARD_C64,
+           "zero_column_refused": refused, "zero_column_launches": l_zero}
+    row["ok"] = (launches == expect == 32 and back < TOL_BACKWARD_C64
+                 and refused is not None and l_zero == 0)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded qr c64 check failed: {row}")
+    del A, res
+    torch.cuda.empty_cache()
+
+    A, b = random_problem(4400, 4000, np.float32, seed + 3)
+    res, launches, t = _counted(hp, lambda: ladder.guarded_lstsq(
+        A, b, guards="full"), tally)
+    launches = launches[f32]
+    row = {"phase": 15, "name": "guarded_lstsq_reference", "shape":
+           [4400, 4000], "s": t, "attempts": _path_of(res),
+           "residual_ratio": res.residual_ratio, "launches": launches,
+           "criterion": CRITERION}
+    row["ok"] = (res.residual_ratio is not None
+                 and res.residual_ratio <= CRITERION and launches >= 1)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"guarded reference check failed: {row}")
+    return tally
+
+
+def _positive_rows(R):
+    """R with each row scaled to a positive diagonal (R is unique up to
+    those signs)."""
+    d = torch.diagonal(R)
+    return R * (d.abs() / d)[:, None].conj()
+
+
+def _gram_gap(R, A) -> float:
+    """||R^H R - A^H A||_F / ||A^H A||_F in double: how far R is from a
+    QR factor of A, whatever the signs of its rows."""
+    R64, A64 = R.double(), A.double()
+    G = A64.mH @ A64
+    return float(torch.linalg.matrix_norm(R64.mH @ R64 - G)
+                 / torch.linalg.matrix_norm(G))
+
+
+GRAM_STEPS = (7, 15, 23, 30, 47, 63)  # steps of phase 15 (f) that sweep
+# (no refactor), 30 the last before the threshold refactor at 31
+
+
+def phase_update(dt, hp, seed, card, m=65536, n=256, steps=64):
+    """``UpdatableQR`` at ``BASELINE.json``'s tall-skinny shape: a seeded
+    stream of 64 rank-1 steps (update and downdate in turn) with the
+    default refactor policy (after 32) and one injected
+    ``numeric.breakdown`` refactor (step 40). Holds the initial
+    factorization and each refactor to the blocked plan's launches and
+    every other step to none; at :data:`GRAM_STEPS` the sweeps' R against
+    the live A (``_gram_gap`` within ``TOL_GRAM``), beside the gap that R
+    from before the step would read (a sweep that left R as it was), which
+    must lie past the limit; every 8 steps ``solve`` on the live A within
+    8x of ``torch.linalg.lstsq`` of that A (in the input's precision); an
+    update and a downdate with the same vectors bring R back within 1e-3.
+    Times per update and per solve, the kernels one update launches
+    (``torch.profiler``), and, as yardsticks outside the path's count, a
+    fresh ``qr`` and a fresh ``lstsq`` at the shape. Returns the launches
+    of the stream's calls."""
+    from dhqr_tpu_torch import faults
+    from dhqr_tpu_torch.utils.config import FaultConfig
+
+    f32 = "panel_qr_f32"
+    tally = {}
+    expect = expected_launches(m, n, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    A = torch.rand((m, n), generator=g, device="cuda", dtype=torch.float32)
+    b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
+    live, l_init, t_init = _counted(hp, lambda: dt.UpdatableQR(A), tally)
+    reasons = [[-1, live.last_refactor["reason"]]]
+    refactor_launches = [l_init[f32]]
+    stray = 0  # launches of the steps that did not refactor, and of solves
+    t_steps, solves, worst, grams = [], [], 0.0, []
+    for step in range(steps):
+        u = 0.01 * torch.randn((m,), generator=g, device="cuda")
+        v = torch.randn((n,), generator=g, device="cuda")
+        op = live.update if step % 2 == 0 else live.downdate
+        R_before = live.r_matrix().clone() if step in GRAM_STEPS else None
+        if step == 40:
+            with faults.injected(FaultConfig(
+                    sites=(("numeric.breakdown", 1.0, 1),))):
+                info, launched, t = _counted(hp, lambda: op(u, v), tally)
+        else:
+            info, launched, t = _counted(hp, lambda: op(u, v), tally)
+        if info["refactored"]:
+            reasons.append([step, info["reason"]])
+            refactor_launches.append(launched[f32])
+        else:
+            t_steps.append(t)
+            stray += sum(launched.values())
+        if R_before is not None:
+            grams.append([step, _gram_gap(live.r_matrix(), live.matrix),
+                          _gram_gap(R_before, live.matrix)])
+            del R_before
+        if step % 8 == 7:
+            x, launched, t_solve = _counted(hp, lambda: live.solve(b), tally)
+            stray += sum(launched.values())
+            solves.append(t_solve)
+            Al = live.matrix
+            ratio = _ne_in(Al, x, b) / _ne_in(Al, _torch_lstsq(Al, b), b)
+            worst = max(worst, ratio)
+    R0 = _positive_rows(live.r_matrix())
+    u = 0.01 * torch.randn((m,), generator=g, device="cuda")
+    v = torch.randn((n,), generator=g, device="cuda")
+    _, launched, _ = _counted(
+        hp, lambda: (live.update(u, v), live.downdate(u, v)), tally)
+    stray += sum(launched.values())
+    drift = float(torch.linalg.matrix_norm(_positive_rows(live.r_matrix())
+                                           - R0)
+                  / torch.linalg.matrix_norm(R0))
+    prof, launched, _ = _counted(
+        hp, lambda: _solve_profile(lambda: live.update(u, v), "cuda"), tally)
+    stray += sum(launched.values())
+    _uncounted(hp, lambda: dt.qr(A))  # warm-up
+    _, _, t_qr = _uncounted(hp, lambda: dt.qr(A))
+    _, _, t_lstsq = _uncounted(hp, lambda: dt.lstsq(A, b))
+    row = {"phase": 15, "name": "updatable_qr_stream", "shape": [m, n],
+           "card": card, "steps": steps, "init_s": t_init,
+           "refactors": reasons, "refactor_launches": refactor_launches,
+           "expected": expect, "stray_launches": stray,
+           "update_ms_median": 1e3 * float(np.median(t_steps)),
+           "update_ms_min": 1e3 * min(t_steps),
+           "solve_ms": [1e3 * t for t in solves],
+           "worst_solve_ratio_to_torch_lstsq": worst,
+           "criterion": CRITERION,
+           "gram_step_sweep_noop": grams, "tol_gram": TOL_GRAM,
+           "round_trip_r_drift": drift, "tol_round_trip": TOL_ROUND_TRIP,
+           "update_kernels_profiled": prof["kernels"],
+           "update_profiled_wall_s": prof["wall_s"],
+           "update_device_busy_s": prof["device_busy_s"],
+           "fresh_qr_s": t_qr, "fresh_lstsq_s": t_lstsq}
+    row["ok"] = (reasons == [[-1, "initial"], [31, "threshold"],
+                             [40, "injected_breakdown"]]
+                 and refactor_launches == [expect] * 3 and expect == 4
+                 and stray == 0
+                 and len(grams) == len(GRAM_STEPS)
+                 and all(sweep <= TOL_GRAM < noop for _, sweep, noop in grams)
+                 and worst <= CRITERION and drift <= TOL_ROUND_TRIP)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"updatable QR check failed: {row}")
+    return tally
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -1774,15 +2132,27 @@ def main(argv=None) -> int:
         counted("sketch", lambda: phase_sketch(dt, args.seed))
     if 14 in phases:
         counted("sharded", lambda: phase_sharded(hp, args.seed))
+    if 15 in phases:
+        tallies = {}  # each path's launches as its own calls counted them
+        counted("guarded", lambda: tallies.update(
+            guarded=phase_guarded(dt, hp, args.seed, smi)))
+        counted("update", lambda: tallies.update(
+            update=phase_update(dt, hp, args.seed, smi)))
+        for key, tally in tallies.items():
+            if any(paths[key][k] != tally.get(k, 0) for k in paths[key]):
+                raise AssertionError(f"the {key} path's count {paths[key]} "
+                                     f"is not its calls' {tally}")
     emit({"launches_by_path": paths})
     for key in ("reconstruct", "sketch"):  # paths with no panel kernel on them
         if key in paths and any(paths[key].values()):
             raise AssertionError(f"the {key} path launched a panel kernel: "
                                  f"{paths[key]}")
     kernels = []
+    on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
+                "guarded")
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
-        for key in ("main", "tsqr", "gradients", "schedules", "sharded"):
+        for key in on_paths + (("update",) if name == "panel_qr_f32" else ()):
             if key in paths and paths[key][name] < 1:
                 raise AssertionError(f"{name} never launched on the {key} "
                                      "path")

@@ -17,6 +17,9 @@ JAX package — is a CUDA C++ kernel written for ``sm_90a``
     >>> fact = dhqr_tpu_torch.qr(A, lookahead=True)      # two CUDA streams
     >>> x = dhqr_tpu_torch.lstsq(A, b, device="cpu")   # plain PyTorch path
     >>> fact = dhqr_tpu_torch.qr(A, mesh=parallel.column_mesh())  # per rank
+    >>> x = dhqr_tpu_torch.lstsq(A, b, guards="full")  # screen, ladder, gate
+    >>> res = dhqr_tpu_torch.guarded_lstsq(A, b, engine="cholqr2")
+    >>> live = dhqr_tpu_torch.UpdatableQR(A); live.update(u, v)
 
 The distributed tier is :mod:`dhqr_tpu_torch.parallel` (one process per
 rank over a ``torch.distributed`` process group). This package imports
@@ -37,6 +40,8 @@ from dhqr_tpu_torch.numeric.errors import (
     NumericalError,
     ResidualGateFailed,
 )
+from dhqr_tpu_torch.numeric.ladder import guarded_lstsq, guarded_qr
+from dhqr_tpu_torch.armor.errors import CorruptionDetected, ShardFailure
 from dhqr_tpu_torch import parallel
 from dhqr_tpu_torch.ops.blocked import blocked_householder_qr
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr2, cholesky_qr_lstsq
@@ -56,23 +61,35 @@ from dhqr_tpu_torch.precision import (
     resolve_policy,
 )
 from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
-from dhqr_tpu_torch.utils.config import DHQRConfig, NotPortedError, SketchConfig
+from dhqr_tpu_torch.solvers.update import UpdatableQR
+from dhqr_tpu_torch.utils.config import (
+    DHQRConfig,
+    FaultConfig,
+    NotPortedError,
+    ObsConfig,
+    SketchConfig,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Breakdown",
+    "CorruptionDetected",
     "DHQRConfig",
+    "FaultConfig",
     "IllConditioned",
     "NonFiniteInput",
     "NotPortedError",
     "NumericalError",
+    "ObsConfig",
     "POLICY_LADDER",
     "PRECISION_POLICIES",
     "PrecisionPolicy",
     "QRFactorization",
     "ResidualGateFailed",
+    "ShardFailure",
     "SketchConfig",
+    "UpdatableQR",
     "alphafactor",
     "apply_q",
     "apply_qt",
@@ -80,6 +97,8 @@ __all__ = [
     "blocked_householder_qr",
     "cholesky_qr2",
     "cholesky_qr_lstsq",
+    "guarded_lstsq",
+    "guarded_qr",
     "householder_qr",
     "lstsq",
     "lstsq_diff",

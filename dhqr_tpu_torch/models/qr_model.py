@@ -11,8 +11,9 @@
 
 ``mesh=`` (a :class:`~dhqr_tpu_torch.parallel.ColumnMesh`) runs the
 distributed tier (:mod:`dhqr_tpu_torch.parallel`): every rank of the mesh
-calls the entry point with the same inputs. Knobs the port does not run
-yet (plan, guards, compressed comms) raise
+calls the entry point with the same inputs. ``guards=`` routes through
+the numeric ladder (:mod:`dhqr_tpu_torch.numeric.ladder`). Knobs the port
+does not run yet (plan, compressed comms) raise
 :class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the ROADMAP
 item that brings them.
 """
@@ -43,8 +44,10 @@ from dhqr_tpu_torch.precision import (
 )
 from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
 from dhqr_tpu_torch.utils.config import (
+    _COMMS_ITEM,
     ENGINES,
     DHQRConfig,
+    NotPortedError,
     SketchConfig,
     refuse_unported,
 )
@@ -76,16 +79,26 @@ class QRFactorization:
         rank; solves run the distributed engines, and :meth:`natural_H`
         all-gathers H in natural column order (every rank must call them).
       layout: the mesh's column layout, "block" or "cyclic".
+      comms: the collective wire format of a mesh factorization's solves;
+        only None (the f32 wire) runs until the compressed wire is ported.
+
+    The fields are the JAX package's, in its order.
     """
 
     H: torch.Tensor
     alpha: torch.Tensor
     block_size: int = _blocked.DEFAULT_BLOCK_SIZE
+    mesh: object = None
     precision: str = _hh.DEFAULT_PRECISION
+    layout: str = "block"
     refine: int = 0
     matrix: Optional[torch.Tensor] = None
-    mesh: object = None
-    layout: str = "block"
+    comms: "str | None" = None
+
+    def __post_init__(self):
+        if self.comms is not None:
+            raise NotPortedError(f"QRFactorization(comms={self.comms!r})",
+                                 _COMMS_ITEM)
 
     def _pad(self) -> int:
         """Columns (and rows) a mesh factorization was padded by."""
@@ -245,14 +258,13 @@ def _resolve_policy_cfg(cfg: DHQRConfig):
     return cfg, pol
 
 
-def _resolved(config, overrides, mesh, device):
+def _resolved(cfg: DHQRConfig, mesh, device):
     if mesh is not None:
         check_mesh(mesh)
         if device is not None and torch.device(device) != mesh.device:
             raise ValueError(
                 f"device={device!r} differs from the mesh's device "
                 f"{mesh.device}: a mesh call runs on mesh.device")
-    cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
     cfg, pol = _resolve_policy_cfg(cfg)
     refuse_unported(cfg, mesh)
     return cfg, pol
@@ -312,8 +324,24 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     every later ``.solve(b)`` (the factorization then keeps A).
     ``device=None`` runs on the CUDA card (inputs are moved there); with
     ``mesh=`` every rank calls ``qr`` with the same A, on ``mesh.device``.
+    ``guards=`` ("screen", "fallback", "full") routes through
+    :func:`~dhqr_tpu_torch.numeric.ladder.guarded_qr` and returns its
+    factorization.
     """
-    cfg, pol = _resolved(config, overrides, mesh, device)
+    cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
+    if cfg.guards is not None:
+        # Numeric guardrails: screening, breakdown detection, policy
+        # escalation, typed refusal; guarded_qr has the provenance.
+        if donate:
+            raise ValueError(
+                "donate=True cannot be combined with guards=: escalation "
+                "must be able to re-read A, which donation invalidates"
+            )
+        from dhqr_tpu_torch.numeric.ladder import guarded_qr
+
+        return guarded_qr(A, config=cfg, mesh=mesh,
+                          device=device).factorization
+    cfg, pol = _resolved(cfg, mesh, device)
     cfg = _with_block_size(cfg)
     if cfg.engine != "householder":
         raise ValueError(
@@ -478,10 +506,12 @@ def _lstsq_impl(A, b, cfg: DHQRConfig):
     (gradients at every ``refine``), or the unblocked engine."""
     if cfg.blocked:
         return lstsq_diff(
-            A, b, cfg.block_size, cfg.precision, cfg.use_pallas, cfg.norm,
-            cfg.panel_impl, cfg.refine, cfg.trailing_precision,
+            A, b, cfg.block_size, cfg.precision, norm=cfg.norm,
+            panel_impl=cfg.panel_impl, refine=cfg.refine,
+            trailing_precision=cfg.trailing_precision,
             lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
-            apply_precision=cfg.apply_precision, device=A.device)
+            apply_precision=cfg.apply_precision, device=A.device,
+            use_pallas=cfg.use_pallas)
     _reject_nonblocked_knobs(cfg)
     H, alpha = _hh.householder_qr(A, precision=cfg.precision, norm=cfg.norm,
                                   device=A.device)
@@ -578,8 +608,18 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     engine chained into :func:`~dhqr_tpu_torch.parallel.sharded_solve`)
     and tsqr / cholqr2 / cholqr3 row-sharded; ``refine`` factors once
     and loops the sharded solve. The mesh path is not differentiable.
+
+    ``guards=`` ("screen", "fallback", "full") routes through
+    :func:`~dhqr_tpu_torch.numeric.ladder.guarded_lstsq` (screen, run,
+    health check, the engine and policy ladder, typed refusal) and
+    returns its ``x``.
     """
-    cfg, pol = _resolved(config, overrides, mesh, device)
+    cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
+    if cfg.guards is not None:
+        from dhqr_tpu_torch.numeric.ladder import guarded_lstsq
+
+        return guarded_lstsq(A, b, config=cfg, mesh=mesh, device=device).x
+    cfg, pol = _resolved(cfg, mesh, device)
     if pol is not None and pol.refine:
         cfg = dataclasses.replace(cfg, refine=pol.refine)
     A = as_tensor(A, device if mesh is None else mesh.device)

@@ -32,6 +32,7 @@ from dhqr_tpu_torch.ops.hopper_panel import (
     KERNEL_MAX_WIDTH,
     KERNELS,
     LOOKAHEAD_CTAS,
+    KernelRefusal,
     _panel_qr_kernel,
     device_limits,
     kernel_flat_width,
@@ -180,7 +181,7 @@ def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
             dtype not in KERNELS or torch.device(device).type != "cuda")):
         return False
     if dtype not in KERNELS:
-        raise ValueError(f"use_pallas='always' but the panel kernel takes "
+        raise KernelRefusal(f"use_pallas='always' but the panel kernel takes "
                          f"float32/complex64 only, got {dtype}")
     if kernel_flat_width(m, dtype, *device_limits(device)) == 0:
         raise NotPortedError(f"a panel kernel leaf of {m} rows",
@@ -196,7 +197,7 @@ def _beside_gemm(index: int, k: int, width: int, n: int) -> bool:
 
 
 def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None,
-               lookahead_ctas: "int | None" = None):
+               lookahead_ctas: "int | None" = None, flat: "int | None" = None):
     """The blocked engine's panels: ``[(k, width, leaf), ...]``.
 
     ``leaf`` is the routing decision for that panel: the kernel's leaf
@@ -206,7 +207,8 @@ def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None,
     schedule's CTA cap), a panel factored beside a trailing GEMM
     (:func:`_beside_gemm`) is planned on that many SMs: more rows per CTA,
     so a narrower leaf where the wider one's slices no longer fit shared
-    memory. The engine follows this list, so the kernel launches of a
+    memory. ``flat`` caps the leaf width (``lstsq_diff``'s ``pallas_flat``).
+    The engine follows this list, so the kernel launches of a
     factorization are
     ``sum(kernel_leaves(w, leaf) for k, w, leaf in panel_plan(...) if leaf)``.
     """
@@ -215,8 +217,9 @@ def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None,
     for i, k in enumerate(range(0, n, nb)):
         width = min(nb, n - k)
         cap = lookahead_ctas if _beside_gemm(i, k, width, n) else None
-        plan.append((k, width, kernel_flat_width(
-            m - k, dtype, *device_limits(device, cap)) if kernel else 0))
+        leaf = kernel_flat_width(m - k, dtype,
+                                 *device_limits(device, cap)) if kernel else 0
+        plan.append((k, width, min(leaf, flat) if flat and leaf else leaf))
     return plan
 
 
@@ -226,7 +229,8 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
                      trailing_precision: "str | None" = None,
                      lookahead: bool = False,
                      agg_panels: "int | None" = None, leaf=None,
-                     lookahead_ctas: int = LOOKAHEAD_CTAS):
+                     lookahead_ctas: int = LOOKAHEAD_CTAS,
+                     flat: "int | None" = None):
     """Factor H (m x n, m >= n) in place; returns ``(H, alpha)``.
 
     The panels and T factors run at ``precision``, the trailing-update
@@ -234,7 +238,8 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     ``agg_panels`` pick the schedule (:func:`_lookahead_schedule`,
     :func:`_grouped_schedule`); ``leaf`` stands in for the kernel's
     wrapper and ``lookahead_ctas`` is the lookahead schedule's CTA cap
-    (both for measurements)."""
+    (both for measurements); ``flat`` caps the kernel's leaf width
+    (:func:`panel_plan`)."""
     m, n = H.shape
     alpha = H.new_zeros(n)
     leaf = _panel_qr_kernel if leaf is None else leaf
@@ -257,11 +262,11 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
 
     if lookahead:
         plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device,
-                          lookahead_ctas)
+                          lookahead_ctas, flat)
         _lookahead_schedule(H, plan, factor, precision, trailing_precision,
                             lookahead_ctas)
         return H, alpha
-    plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device)
+    plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device, flat=flat)
     if agg_panels:
         _grouped_schedule(H, plan, agg_panels, factor, precision,
                           trailing_precision)

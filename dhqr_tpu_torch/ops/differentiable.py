@@ -29,6 +29,7 @@ from dhqr_tpu_torch.ops.blocked import (
     _resolve_kernel,
     check_schedule_args,
 )
+from dhqr_tpu_torch.ops.hopper_panel import _panel_qr_plain_leaf
 from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.solve import _back_substitute, as_matrix_rhs, r_matrix
 from dhqr_tpu_torch.utils.config import check_precision
@@ -38,16 +39,18 @@ from dhqr_tpu_torch.utils.device import as_tensor
 def _lstsq_fwd(A, b, block_size, kernel=False, norm="accurate",
                panel_impl="loop", refine=0, precision=DEFAULT_PRECISION,
                trailing_precision=None, apply_precision=None,
-               lookahead=False, agg_panels=None):
+               lookahead=False, agg_panels=None, leaf=None, flat=None):
     """The forward pass: blocked factorization (in the schedule that
-    ``lookahead`` / ``agg_panels`` pick), Q^H b, back-substitution and
-    ``refine`` sweeps ``x += A+ (b - A x)`` with the residual at full
-    precision. Returns ``(x, H, alpha)``."""
+    ``lookahead`` / ``agg_panels`` pick; ``leaf`` and ``flat`` as in
+    ``_blocked_qr_impl``), Q^H b, back-substitution and ``refine`` sweeps
+    ``x += A+ (b - A x)`` with the residual at full precision. Returns
+    ``(x, H, alpha)``."""
     H, alpha = _blocked_qr_impl(A.clone(), block_size, kernel=kernel,
                                 norm=norm, panel_impl=panel_impl,
                                 precision=precision,
                                 trailing_precision=trailing_precision,
-                                lookahead=lookahead, agg_panels=agg_panels)
+                                lookahead=lookahead, agg_panels=agg_panels,
+                                leaf=leaf, flat=flat)
     ap = precision if apply_precision is None else apply_precision
 
     def qr_solve(rhs):
@@ -123,37 +126,71 @@ class _LstsqDiff(torch.autograd.Function):
         return restore(dx1 + dx2), None, None
 
 
+_PALLAS_MODES = {True: "always", False: "never", "auto": "auto"}
+
+
+def _kernel_mode(pallas, use_pallas) -> str:
+    """The ``use_pallas`` spelling of ``pallas`` (True: the Hopper kernel,
+    False: the plain panel engine, "auto": the kernel for float32/complex64
+    on the card), checked against the keyword-only alias ``use_pallas``."""
+    if not (isinstance(pallas, bool) or pallas == "auto"):
+        raise ValueError(
+            f"pallas must be True, False or 'auto', got {pallas!r}")
+    if use_pallas is None:
+        return _PALLAS_MODES[pallas]
+    if pallas != "auto" and _PALLAS_MODES[pallas] != use_pallas:
+        raise ValueError(
+            f"pallas={pallas!r} and use_pallas={use_pallas!r} disagree: "
+            "pass one of them")
+    return use_pallas
+
+
 def lstsq_diff(A, b, block_size: int = DEFAULT_BLOCK_SIZE,
-               precision: str = DEFAULT_PRECISION, use_pallas: str = "auto",
-               norm: str = "accurate", panel_impl: str = "loop",
-               refine: int = 0, trailing_precision: "str | None" = None,
+               precision: str = DEFAULT_PRECISION, pallas="auto",
+               pallas_interpret: bool = False, norm: str = "accurate",
+               panel_impl: str = "loop", refine: int = 0,
+               pallas_flat: "int | None" = None,
+               trailing_precision: "str | None" = None,
                lookahead: bool = False, agg_panels: "int | None" = None,
-               apply_precision: "str | None" = None, device=None):
+               apply_precision: "str | None" = None, *, device=None,
+               use_pallas: "str | None" = None):
     """``x = argmin ||A x - b||`` (m >= n) with closed-form O(1)-memory
     derivatives, in both forward (``torch.func.jvp``, forward AD) and
-    reverse mode (``backward``).
+    reverse mode (``backward``). The parameters are the JAX package's, in
+    its order.
 
-    The forward pass is the blocked engine (panels on the Hopper kernel as
-    ``use_pallas`` resolves), Q^H b and back-substitution; ``b`` may be
-    (m,) or (m, k). ``refine`` adds iterative-refinement sweeps reusing the
-    factorization; the derivative is that of the exact minimizer, which
-    refinement approaches. ``apply_precision`` (default: ``precision``) is
-    the solve stage's precision; the derivative rules run at
-    ``precision``. ``lookahead`` / ``agg_panels`` pick the forward's
-    factorization schedule; the derivative rules do not depend on it.
+    The forward pass is the blocked engine, Q^H b and back-substitution;
+    ``b`` may be (m,) or (m, k). ``pallas=True`` puts the panels on the
+    Hopper kernel, ``False`` on the plain panel engine, and ``"auto"`` (the
+    port's default) on the kernel for float32/complex64 on the card;
+    ``use_pallas`` ("auto"/"always"/"never") is a keyword-only alias.
+    ``pallas_interpret=True`` runs the kernel's plain version in its place
+    (the Pallas interpreter's counterpart), and ``pallas_flat`` caps the
+    kernel's leaf width (default: the widest that fits the card). ``refine``
+    adds iterative-refinement sweeps reusing the factorization; the
+    derivative is that of the exact minimizer, which refinement
+    approaches. ``apply_precision`` (default: ``precision``) is the solve
+    stage's precision; the derivative rules run at ``precision``.
+    ``lookahead`` / ``agg_panels`` pick the forward's factorization
+    schedule; the derivative rules do not depend on it.
     """
+    mode = _kernel_mode(pallas, use_pallas)
     check_schedule_args(lookahead, agg_panels, None)
     for name in (precision, trailing_precision, apply_precision):
         if name is not None:
             check_precision(name)
     if int(refine) < 0:
         raise ValueError(f"refine must be >= 0, got {refine}")
+    if pallas_flat is not None and int(pallas_flat) < 1:
+        raise ValueError(f"pallas_flat must be >= 1, got {pallas_flat}")
     A = as_tensor(A, device)
     b = as_tensor(b, A.device, A.dtype)
     m, n = A.shape
     if m < n:
         raise ValueError(f"lstsq_diff requires m >= n, got {tuple(A.shape)}")
-    kernel = _resolve_kernel(use_pallas, m, A.dtype, A.device)
+    kernel = _resolve_kernel(mode, m, A.dtype, A.device)
+    leaf = _panel_qr_plain_leaf if kernel and pallas_interpret else None
     return _LstsqDiff.apply(A, b, int(block_size), (
         kernel, norm, panel_impl, int(refine), precision, trailing_precision,
-        apply_precision, bool(lookahead), agg_panels))[0]
+        apply_precision, bool(lookahead), agg_panels, leaf,
+        None if pallas_flat is None else int(pallas_flat)))[0]

@@ -68,6 +68,13 @@ KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64"}
 LAUNCHES = {name: 0 for name in KERNELS.values()}
 
 
+class KernelRefusal(ValueError):
+    """A panel the kernel route does not take (dtype, shape, offset,
+    layout, device). A ``ValueError`` for the callers that test for one,
+    but its own type so that the guarded ladder never reads it as an
+    inapplicable rung: a fault of the kernel route propagates."""
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -352,6 +359,17 @@ def _panel_qr_grid_leaf(panel: torch.Tensor, offset: int,
     return at.T, _panel_qr_grid_model(at, offset, ctas)
 
 
+def _panel_qr_plain_leaf(panel: torch.Tensor, offset: int,
+                         sms: "int | None" = None):
+    """The kernel's plain version as a leaf of the blocked engine, in place
+    of :func:`_panel_qr_kernel`, on any device: the counterpart of the
+    Pallas interpreter (``lstsq_diff(..., pallas_interpret=True)``). It
+    launches nothing and counts nothing."""
+    del sms
+    at = panel.T.contiguous()
+    return at.T, _PLAIN[panel.dtype](at, int(offset))
+
+
 # -- the kernels ------------------------------------------------------------
 
 _LIBS: "dict[bool, ctypes.CDLL]" = {}
@@ -433,7 +451,7 @@ def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
     lib = _library(profile)
     nb, m = at.shape
     if not (at.is_contiguous() and alpha.is_contiguous()):
-        raise ValueError("the panel kernel takes contiguous buffers")
+        raise KernelRefusal("the panel kernel takes contiguous buffers")
     ctas, rows, resident = _plan(m, nb, offset, at.dtype, at.device, sms)
     floats = lib.dhqr_panel_qr_scratch_floats(int(at.dtype == torch.complex64),
                                               ctas, nb)
@@ -484,12 +502,12 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     refuse_grad(panel, "the Hopper panel kernel")
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
-        raise ValueError(
+        raise KernelRefusal(
             f"the panel kernel takes float32/complex64 panels with m >= nb, "
             f"nb <= {KERNEL_MAX_WIDTH} and at most 2^31 - 1 elements, got "
             f"{tuple(panel.shape)} {panel.dtype}")
     if not 0 <= offset <= m - nb:
-        raise ValueError(f"panel offset {offset} out of range for "
+        raise KernelRefusal(f"panel offset {offset} out of range for "
                          f"{tuple(panel.shape)}")
     at = torch.empty((nb, m), dtype=panel.dtype, device=panel.device)
     at.copy_(panel.T)  # (nb, m): panel column j -> row j
@@ -499,7 +517,7 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     elif panel.device.type == "cpu":
         alpha = _PLAIN[panel.dtype](at, int(offset))
     else:
-        raise ValueError(f"no panel kernel for device {panel.device}")
+        raise KernelRefusal(f"no panel kernel for device {panel.device}")
     return at.T, alpha
 
 
@@ -508,8 +526,8 @@ def panel_qr_kernel(panel: torch.Tensor):
     (plain version for a CPU tensor); returns ``(pf, alpha)``."""
     m, nb = panel.shape
     if m < nb:
-        raise ValueError(f"panel_qr_kernel requires m >= nb, got {tuple(panel.shape)}")
+        raise KernelRefusal(f"panel_qr_kernel requires m >= nb, got {tuple(panel.shape)}")
     if panel.dtype not in KERNELS:
-        raise ValueError(
+        raise KernelRefusal(
             f"panel_qr_kernel supports float32/complex64, got {panel.dtype}")
     return _panel_qr_kernel(panel, 0)

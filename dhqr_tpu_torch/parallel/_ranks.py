@@ -34,6 +34,8 @@ import traceback
 import numpy as np
 import torch
 
+from dhqr_tpu_torch.utils.device import resolve_device
+
 
 def _rank_main(fn, rank, size, backend, device, tmp, timeout_s, results):
     import torch.distributed as dist
@@ -59,12 +61,14 @@ def _rank_main(fn, rank, size, backend, device, tmp, timeout_s, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, size: int, backend: str = "gloo", device="cpu",
+def run_ranks(fn, size: int, backend: str = "gloo", device=None,
               timeout_s: float = 120.0, **kwargs) -> list:
     """``[fn(device=device, **kwargs) on rank r for r in range(size)]``,
     each rank a spawned process in a ``backend`` group of ``size`` ranks,
-    all on ``device`` (a CPU group, or ranks sharing one card); raises on
+    all on ``device`` (a CPU group, or ranks sharing one card; None means
+    the card, as everywhere in the port, and raises without one); raises on
     the first rank that raises, and after ``timeout_s`` seconds."""
+    device = resolve_device(device)
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="dhqr_ranks_")
     # The arguments go through a file: a large argument of Process would

@@ -62,7 +62,9 @@ class DHQRConfig:
     ``ops/gemm.py``), ``policy``, ``norm``, ``engine`` in ("householder",
     "tsqr", "cholqr2", "cholqr3", "sketch"), ``panel_impl`` in ("loop",
     "recursive", "reconstruct", "reconstruct:<chunk>"), ``refine``
-    (lstsq), ``lookahead`` and ``agg_panels``. ``mesh_axis`` and ``layout``
+    (lstsq), ``lookahead``, ``agg_panels`` and ``guards`` (None, or
+    "screen" / "fallback" / "full": the entry points route through
+    :mod:`dhqr_tpu_torch.numeric.ladder`). ``mesh_axis`` and ``layout``
     steer the mesh tier (``mesh=``, :mod:`dhqr_tpu_torch.parallel`) and
     are ignored on a single device, as in the JAX package. ``comms``
     parses ("f32"/"none" mean None, the one wire format ported);
@@ -115,6 +117,10 @@ class DHQRConfig:
             env["refine"] = int(os.environ["DHQR_REFINE"])
         if "DHQR_POLICY" in os.environ:
             env["policy"] = os.environ["DHQR_POLICY"].strip() or None
+        if "DHQR_GUARDS" in os.environ:
+            raw = os.environ["DHQR_GUARDS"].strip().lower()
+            env["guards"] = None if raw in (
+                "", "0", "off", "none", "false", "no") else raw
         env.update(overrides)
         return DHQRConfig(**env)
 
@@ -126,12 +132,12 @@ def check_precision(precision: str) -> None:
                          f"got {precision!r}")
 
 
+_COMMS_ITEM = ("Queue A item 11 (the compressed wire, with the two-tier "
+               "pod mesh)")
 # (field, ROADMAP item that brings it). Each must stay at its default.
 _UNPORTED_FIELDS = (
     ("plan", "Queue A item 14 (tune/)"),
-    ("guards", "Queue A item 10 (numeric/ladder.py)"),
-    ("comms", "Queue A item 11 (the compressed wire, with the two-tier "
-              "pod mesh)"),
+    ("comms", _COMMS_ITEM),
 )
 
 ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
@@ -267,3 +273,197 @@ class SketchConfig:
             env["min_aspect"] = float(os.environ["DHQR_SKETCH_MIN_ASPECT"])
         env.update(overrides)
         return SketchConfig(**env)
+
+
+_FALSY = ("0", "false", "no", "off", "n", "")
+
+
+def _parse_fault_sites(raw: str):
+    """Parse ``DHQR_FAULTS``: comma-separated ``site:prob[:count[:k]]``
+    entries, e.g. ``"serve.compile:0.5,numeric.breakdown:1.0:2"`` — fire at
+    ``site`` with probability ``prob`` per visit, at most ``count`` times in
+    all (unbounded when omitted), and with the fourth segment ``k`` only
+    from the site's k-th visit on (``"numeric.breakdown:1.0:1:3"`` fires on
+    exactly the third visit). The JAX package's parser, spelling for
+    spelling."""
+    out = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(":")
+        if len(fields) not in (2, 3, 4) or not fields[0].strip():
+            raise ValueError(
+                f"fault entry must be 'site:prob[:count[:k]]', got {part!r}"
+            )
+        site = fields[0].strip()
+        prob = float(fields[1])
+        count = int(fields[2]) if len(fields) >= 3 else None
+        if len(fields) == 4:
+            out.append((site, prob, count, int(fields[3])))
+        else:
+            out.append((site, prob, count))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Knobs for the deterministic fault-injection harness
+    (:mod:`dhqr_tpu_torch.faults`): fields, defaults, checks and
+    ``DHQR_FAULTS*`` variables as the JAX package's ``FaultConfig``. With
+    no sites the harness is inert and every injection point is one
+    module-global ``None`` check.
+
+    Attributes:
+      sites: ``(site, probability, max_triggers)`` triples, or
+        ``(site, probability, max_triggers, from_visit)`` quadruples
+        (``DHQR_FAULTS`` as ``"site:prob[:count[:k]]"``, comma-separated).
+        ``site`` names an injection point of ``faults.SITES`` (an unknown
+        name is refused when the harness is built); ``probability`` in
+        [0, 1] is the per-visit chance; ``max_triggers`` (None: unbounded)
+        caps the firings; ``from_visit`` (None: the first) holds the site
+        silent for its first ``k - 1`` visits. ``prob=1.0`` with a count is
+        the exact schedule the tests use.
+      seed: base seed (``DHQR_FAULTS_SEED``); each site draws from its own
+        stream derived from (seed, site name).
+      latency_ms: the sleep of a ``sleep``-kind site
+        (``DHQR_FAULTS_LATENCY_MS``).
+    """
+
+    sites: "tuple[tuple[str, float, int | None], ...]" = ()
+    seed: int = 0
+    latency_ms: float = 10.0
+
+    def __post_init__(self):
+        if isinstance(self.sites, dict):
+            object.__setattr__(
+                self, "sites",
+                tuple((k,) + tuple([float(v[0])] + list(v[1:]))
+                      if isinstance(v, tuple)
+                      else (k, float(v), None)
+                      for k, v in sorted(self.sites.items())))
+        for entry in self.sites:
+            if len(entry) not in (3, 4):
+                raise ValueError(
+                    "fault site entry must be (site, prob, count) or "
+                    f"(site, prob, count, from_visit), got {entry!r}")
+            site, prob, count = entry[0], entry[1], entry[2]
+            if not 0.0 <= prob <= 1.0:
+                raise ValueError(
+                    f"fault probability must be in [0, 1], got "
+                    f"{site!r}: {prob}")
+            if count is not None and count < 1:
+                raise ValueError(
+                    f"fault max_triggers must be >= 1 or None, got "
+                    f"{site!r}: {count}")
+            if len(entry) == 4 and entry[3] is not None and entry[3] < 1:
+                raise ValueError(
+                    f"fault from_visit (the :k segment) must be >= 1 or "
+                    f"None, got {site!r}: {entry[3]}")
+        if not self.latency_ms >= 0:
+            raise ValueError(
+                f"latency_ms must be >= 0, got {self.latency_ms}")
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.sites)
+
+    @staticmethod
+    def from_env(**overrides) -> "FaultConfig":
+        """Build a fault config from ``DHQR_FAULTS*`` variables +
+        overrides."""
+        env = {}
+        if "DHQR_FAULTS" in os.environ:
+            env["sites"] = _parse_fault_sites(os.environ["DHQR_FAULTS"])
+        if "DHQR_FAULTS_SEED" in os.environ:
+            env["seed"] = int(os.environ["DHQR_FAULTS_SEED"])
+        if "DHQR_FAULTS_LATENCY_MS" in os.environ:
+            env["latency_ms"] = float(os.environ["DHQR_FAULTS_LATENCY_MS"])
+        env.update(overrides)
+        return FaultConfig(**env)
+
+
+_OBS_ITEM = "Queue A item 16 (obs/: xray and pulse)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Knobs for the observability seam (:mod:`dhqr_tpu_torch.obs`):
+    fields, defaults, checks and ``DHQR_OBS*`` variables as the JAX
+    package's ``ObsConfig``. The variables configure; only
+    :func:`dhqr_tpu_torch.obs.arm` (or the ``observed`` scope) arms.
+
+    Attributes:
+      enabled: whether ``obs.arm`` installs a trace recorder (``DHQR_OBS``).
+      buffer_spans: the recorder's ring capacity in spans
+        (``DHQR_OBS_BUFFER``, >= 16); the oldest spans fall off.
+      auto_dump: the flight recorder's ``on_error`` destination
+        (``DHQR_OBS_DUMP``): None (off), ``"stderr"``, or a directory that
+        receives ``flight_<pid>.jsonl``.
+      xray, xray_reports, pulse, pulse_reports, profile_dir: the device
+        introspection knobs (``DHQR_OBS_XRAY``, ``DHQR_OBS_XRAY_REPORTS``,
+        ``DHQR_OBS_PULSE``, ``DHQR_OBS_PULSE_REPORTS``,
+        ``DHQR_OBS_PROFILE``). They construct and parse as in the JAX
+        package; ``obs.arm`` with ``xray`` or ``pulse`` set raises
+        :class:`NotPortedError` until ROADMAP Queue A item 16.
+    """
+
+    enabled: bool = False
+    buffer_spans: int = 4096
+    auto_dump: "str | None" = None
+    xray: bool = False
+    xray_reports: int = 512
+    pulse: bool = False
+    pulse_reports: int = 256
+    profile_dir: "str | None" = None
+
+    def __post_init__(self):
+        if self.buffer_spans < 16:
+            raise ValueError(
+                f"buffer_spans must be >= 16, got {self.buffer_spans}")
+        if self.xray_reports < 1:
+            raise ValueError(
+                f"xray_reports must be >= 1, got {self.xray_reports}")
+        if self.pulse_reports < 1:
+            raise ValueError(
+                f"pulse_reports must be >= 1, got {self.pulse_reports}")
+        if self.auto_dump is not None and not str(self.auto_dump).strip():
+            object.__setattr__(self, "auto_dump", None)
+        if self.profile_dir is not None \
+                and not str(self.profile_dir).strip():
+            object.__setattr__(self, "profile_dir", None)
+
+    def refuse_unported(self) -> None:
+        """Raise :class:`NotPortedError` when this config would arm what
+        the port does not run yet (xray, pulse)."""
+        for field in ("xray", "pulse"):
+            if getattr(self, field):
+                raise NotPortedError(f"ObsConfig({field}=True)", _OBS_ITEM)
+
+    @staticmethod
+    def from_env(**overrides) -> "ObsConfig":
+        """Build an obs config from ``DHQR_OBS*`` variables + overrides."""
+        env = {}
+        if "DHQR_OBS" in os.environ:
+            env["enabled"] = os.environ["DHQR_OBS"].strip().lower() \
+                not in _FALSY
+        if "DHQR_OBS_BUFFER" in os.environ:
+            env["buffer_spans"] = int(os.environ["DHQR_OBS_BUFFER"])
+        if "DHQR_OBS_DUMP" in os.environ:
+            env["auto_dump"] = os.environ["DHQR_OBS_DUMP"].strip() or None
+        if "DHQR_OBS_XRAY" in os.environ:
+            env["xray"] = os.environ["DHQR_OBS_XRAY"].strip().lower() \
+                not in _FALSY
+        if "DHQR_OBS_XRAY_REPORTS" in os.environ:
+            env["xray_reports"] = int(os.environ["DHQR_OBS_XRAY_REPORTS"])
+        if "DHQR_OBS_PULSE" in os.environ:
+            env["pulse"] = os.environ["DHQR_OBS_PULSE"].strip().lower() \
+                not in _FALSY
+        if "DHQR_OBS_PULSE_REPORTS" in os.environ:
+            env["pulse_reports"] = int(
+                os.environ["DHQR_OBS_PULSE_REPORTS"])
+        if "DHQR_OBS_PROFILE" in os.environ:
+            env["profile_dir"] = os.environ["DHQR_OBS_PROFILE"].strip() \
+                or None
+        env.update(overrides)
+        return ObsConfig(**env)

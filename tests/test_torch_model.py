@@ -155,18 +155,19 @@ def test_solve_refine_needs_the_matrix():
 
 
 UNPORTED = [
-    {"plan": "auto"}, {"guards": "screen"}, {"comms": "bf16"},
+    {"plan": "auto"}, {"comms": "bf16"},
 ]
 
 # Knobs that raised NotPortedError until the precision policies, the
-# tall-skinny engines, the schedules, the reconstruct panel engine and the
-# sketched solver were ported; each now runs.
+# tall-skinny engines, the schedules, the reconstruct panel engine, the
+# sketched solver and the guarded ladder were ported; each now runs.
 PORTED = [
     {"policy": "accurate"}, {"engine": "tsqr"}, {"engine": "cholqr2"},
     {"precision": "default"}, {"precision": "high"},
     {"trailing_precision": "high"}, {"apply_precision": "high"},
     {"engine": "sketch"}, {"lookahead": True}, {"agg_panels": 2},
     {"panel_impl": "reconstruct"}, {"panel_impl": "reconstruct:64"},
+    {"guards": "screen"}, {"guards": "fallback"}, {"guards": "full"},
 ]
 
 

@@ -158,7 +158,7 @@ def ranks():
     def get(P):
         if P not in runs:
             cases = _cases()
-            per_rank = run_ranks(run_calls, P, timeout_s=240,
+            per_rank = run_ranks(run_calls, P, device="cpu", timeout_s=240,
                                  cases=list(cases.values()))
             assert results_equal_across_ranks(per_rank)
             runs[P] = dict(zip(cases, per_rank[0]))

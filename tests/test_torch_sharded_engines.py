@@ -193,7 +193,8 @@ def ranks():
         if P not in runs:
             names = list(CASES) + list(REFUSALS)
             steps = list(CASES.values()) + [s for s, _ in REFUSALS.values()]
-            per_rank = run_ranks(run_calls, P, timeout_s=240, cases=steps)
+            per_rank = run_ranks(run_calls, P, device="cpu", timeout_s=240,
+                                 cases=steps)
             assert results_equal_across_ranks(per_rank)
             runs[P] = dict(zip(names, per_rank[0]))
         return runs[P]
@@ -332,7 +333,8 @@ def test_a_rank_that_raises_fails_the_run():
     """The launcher raises in the parent with the rank's traceback (here
     every rank builds a mesh on a group that does not exist)."""
     with pytest.raises(RuntimeError, match=r"rank \d of 2 raised"):
-        run_ranks(torch_column_mesh, 2, timeout_s=120, group="no-group")
+        run_ranks(torch_column_mesh, 2, device="cpu", timeout_s=120,
+                  group="no-group")
 
 
 def test_initialize_alone_is_a_noop(monkeypatch):
