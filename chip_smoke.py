@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14,15]
+                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-15 run by default, 7 on request):
+on any error (0-6 and 8-16 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -120,7 +120,30 @@ on any error (0-6 and 8-15 run by default, 7 on request):
    step, the sweeps' R against the live A's Gram beside what a sweep that
    did nothing would read, solves within 8x of ``torch.linalg.lstsq``, an
    update/downdate round trip, ms per update and per solve, kernels per
-   update from ``torch.profiler``, beside a fresh ``qr`` and ``lstsq``).
+   update from ``torch.profiler``, beside a fresh ``qr`` and ``lstsq``);
+16. wire: the compressed wire, the two-tier pod mesh, the depth-k
+   pipeline and pulse, ranks sharing card 0 as in 14: (a) NCCL with one
+   rank, ``qr(mesh=)`` + ``solve`` at 16384^2 f32 at ``comms`` None,
+   ``"bf16"`` and ``"int8"``; (b) gloo with 4 ranks at 16384^2 f32: None,
+   flat bf16 and int8, a 2x2 ``pod_mesh`` hierarchical and flat at None
+   and ``"dcn:bf16"``, ``overlap_depth`` 2 and 3 at None and bf16; each
+   with its seconds, backward error (a compressed one above the
+   uncompressed one's, and below 0.05 on the bf16 wire), launches summed over the ranks (the plan, 128,
+   pipelines included) and the wire census by family and leg, every
+   entry's bytes equal to ``wire_bytes_formula`` and their ratio to the
+   uncompressed bytes printed; (c) ``lstsq(mesh=)`` at the reference's
+   4400 x 4000 f32 at bf16 and int8 on the column mesh and dcn:bf16 and
+   dcn:int8 on the 2x2 pod mesh, with the model tier's floor of sweeps (its
+   ratio to numpy's LAPACK QR printed: the floor does not reach 8x at this
+   condition, nor int8 at all) and bf16 / dcn:bf16 with ``refine=6``
+   sweeps, under 8x; (d) TSQR
+   and CholeskyQR2 on a 4-rank row mesh at 65536 x 256 f32 uncompressed
+   and at bf16 and int8, under 8x of numpy's LAPACK QR (with
+   ``torch.linalg.lstsq``'s ratio beside it); (e) gloo with 2 ranks, 8192 x
+   4096 c64 at bf16: no complex payload compressed, H, alpha and x
+   bit-identical to None's; (f) pulse armed around one ``qr`` + ``solve``
+   of (a) and of (b): the measured collective families, the census, and
+   DHQR306, which must read skip with its reason.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -128,11 +151,12 @@ path (9), the gradient path (10), the schedules path (11), the
 reconstruct (12) and sketch (13) paths, which must launch no panel kernel,
 the sharded path (14), whose ranks' counts of their mesh calls alone
 (zeroed after the single-device references each rank computes) are added
-to the parent's, the guarded path (15 (a)-(e), its guarded calls) and the
+to the parent's, the guarded path (15 (a)-(e), its guarded calls), the
 update path (15 (f), the stream's calls), each of which must equal what
 the phase's own calls counted; the yardsticks inside them (the unguarded
 ``lstsq`` of (a), the fresh ``qr`` / ``lstsq`` of (f)) are taken back out
-of the counts. The ``kernels`` line sums the paths.
+of the counts, and the wire path (16), whose ranks' counts are added to
+the parent's. The ``kernels`` line sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -142,6 +166,7 @@ JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2065,11 +2090,533 @@ def phase_update(dt, hp, seed, card, m=65536, n=256, steps=64):
     return tally
 
 
+# -- phase 16: the wire --------------------------------------------------------
+#
+# The compressed wire, the two-tier pod mesh, the depth-k pipeline and pulse,
+# in spawned processes that share card 0 as phase 14's: one NCCL rank, then
+# gloo with 4 and with 2 ranks. Each collective is read from the wire seam's
+# census, whose bytes are held to ``wire_bytes_formula``; times are processes
+# time-sharing one H100, never a scaling number.
+
+WIRE_BACKWARD = 0.05   # a bf16-wire factor's backward error stays below
+# this, and above the uncompressed one's (the compression is real): the
+# JAX package's bound (tests/test_wire.py, bf16 comms backward error). An
+# int8-wire factor's is printed and held above the uncompressed one's
+# (0.041 at 1024^2 and 0.095 at 4096^2 on the CPU: no bound is claimed)
+# Corrected semi-normal sweeps a caller adds to a bf16 column-mesh lstsq at
+# the reference's 4400 x 4000 (condition ~2e3): the model tier's floor of 2
+# (the JAX package's CSNE_MODEL_SWEEPS) leaves it ~100x off the 8x bar, as
+# it leaves the JAX package's own solve; int8's sweeps diverge there. The
+# floor runs are printed, the runs with these sweeps held to 8x.
+WIRE_SWEEPS = 6
+WIRE_RUNS_4 = (("none", "cols", {}),
+               ("bf16", "cols", {"comms": "bf16"}),
+               ("int8", "cols", {"comms": "int8"}),
+               ("pod2x2", "pod:2x2", {}),
+               ("pod2x2_dcn_bf16", "pod:2x2", {"comms": "dcn:bf16"}),
+               ("pod2x2f", "pod:2x2", {"flat": True}),
+               ("pod2x2f_dcn_bf16", "pod:2x2", {"flat": True,
+                                                 "comms": "dcn:bf16"}),
+               ("depth2", "cols", {"lookahead": True, "overlap_depth": 2}),
+               ("depth3", "cols", {"lookahead": True, "overlap_depth": 3}),
+               ("depth2_bf16", "cols", {"lookahead": True, "overlap_depth": 2,
+                                        "comms": "bf16"}),
+               ("depth3_bf16", "cols", {"lookahead": True, "overlap_depth": 3,
+                                        "comms": "bf16"}))
+
+
+def wire_bytes_formula(entry) -> int:
+    """The bytes a census entry's collective must carry, from its parts'
+    shapes alone: a word at its own size uncompressed and for complex
+    payloads; 2 bytes under bf16 (and an int8 dense sum, which carries
+    bf16); under int8 1 byte plus one word of the payload's dtype per
+    (32-row block, column) of a matrix, per vector otherwise. A gather
+    carries every rank's share."""
+    itemsize = {"float32": 4, "float64": 8, "complex64": 8,
+                "complex128": 16}[entry["dtype"]]
+    comms = entry["comms"]
+    mode = None if comms is None or entry["dtype"].startswith("complex") \
+        else "int8" if comms == "int8" and entry["onehot"] else "bf16"
+    total = 0
+    for shape in entry["shapes"]:
+        n = int(np.prod(shape))
+        if mode is None:
+            total += n * itemsize
+        elif mode == "bf16":
+            total += 2 * n
+        else:
+            if len(shape) == 2:
+                r, c = shape
+                scales = -(-r // min(32, max(r, 1))) * c
+            else:
+                scales = shape[-1] if len(shape) > 2 else 1
+            total += n + scales * itemsize
+    return total * (entry["ranks"] if entry["family"] == "all_gather" else 1)
+
+
+def _census_summary(entries) -> dict:
+    """Per family and per leg bytes of a census, its ratio to the same
+    payloads uncompressed, and whether every entry carried exactly what
+    :func:`wire_bytes_formula` says."""
+    fams, legs = {}, {}
+    for e in entries:
+        row = fams.setdefault(e["family"], {"collectives": 0, "launches": 0,
+                                            "bytes": 0, "raw_bytes": 0})
+        row["collectives"] += 1
+        row["launches"] += e["launches"]
+        row["bytes"] += e["bytes"]
+        row["raw_bytes"] += e["raw_bytes"]
+        legs[e["leg"]] = legs.get(e["leg"], 0) + e["bytes"]
+    total = sum(e["bytes"] for e in entries)
+    raw = sum(e["raw_bytes"] for e in entries)
+    return {"families": fams, "legs": legs, "bytes": total,
+            "raw_bytes": raw, "ratio": total / raw if raw else None,
+            "formula_bytes": sum(wire_bytes_formula(e) for e in entries),
+            "formula_ok": all(e["bytes"] == wire_bytes_formula(e)
+                              for e in entries),
+            "complex_compressed": any(
+                e["dtype"].startswith("complex") and e["wire"] != e["dtype"]
+                for e in entries),
+            "compressed": any(e["bytes"] != e["raw_bytes"] for e in entries),
+            "int8": any("int8" in e["wire"] for e in entries)}
+
+
+def _local_backward(fact, A):
+    """(||(QR - A)[:, mine]||^2, ||A[:, mine]||^2), in double, over this
+    rank's columns of a mesh factorization (summed over the ranks by the
+    caller)."""
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.parallel import sharded_qr
+
+    m, n = A.shape
+    mesh, nb = fact.mesh, fact.block_size
+    gidx = torch.as_tensor(sharded_qr._local_gidx(
+        mesh.rank, n, n // mesh.size, nb, fact.layout), device=A.device)
+    Hn = fact.natural_H()
+    Rp = torch.where(torch.arange(n, device=A.device)[:, None] < gidx,
+                     Hn[:n].index_select(1, gidx), 0)
+    Rp[gidx, torch.arange(gidx.numel(), device=A.device)] = fact.alpha[gidx]
+    QRp = blocked._apply_q_impl(Hn, torch.cat([Rp, Rp.new_zeros(
+        (m - n, Rp.shape[1]))]), nb, fact.precision)
+    Ap = A.index_select(1, gidx)
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    return (float(torch.linalg.vector_norm((QRp - Ap).to(wide)) ** 2),
+            float(torch.linalg.vector_norm(Ap.to(wide)) ** 2))
+
+
+def _wire_problem(m, n, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_complex:
+        def draw(shape):
+            return torch.complex(
+                torch.rand(shape, generator=g, device=device),
+                torch.rand(shape, generator=g, device=device))
+    else:
+        def draw(shape):
+            return torch.rand(shape, generator=g, device=device, dtype=dtype)
+    return draw((m, n)), draw((m,))
+
+
+def _wire_qr_case(ctx, m, n, dtype, seed, runs, pulse_run=None):
+    """``qr`` + ``solve`` per run (label, mesh, knobs): seconds, launches,
+    this rank's share of the backward error, the solve's normal-equations
+    residual, and the census of both calls. ``pulse_run`` repeats one run
+    with pulse armed and returns its reports (the dispatches run twice
+    there: warm, then profiled)."""
+    dt, hp, wire, pulse = ctx["dt"], ctx["hp"], ctx["wire"], ctx["pulse"]
+    device, dtype = ctx["device"], getattr(torch, dtype)
+    A, b = _wire_problem(m, n, dtype, seed, device)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    A64, b64 = A.to(wide), b.to(wide)
+    # one untimed factorization first: the process's first call holds
+    # cuBLAS's and the communicator's set-up
+    dt.qr(A, mesh=ctx["mesh"](runs[0][1])).solve(b)
+    rows = []
+    for label, spec, kw in runs:
+        mesh, kw = ctx["mesh"](spec), dict(kw)
+        if kw.pop("flat", False):
+            kw["mesh_axis"] = dataclasses.replace(
+                ctx["tier"](spec), hierarchical=False)
+        l0 = dict(hp.LAUNCHES)
+        with wire.census() as cen_qr:
+            fact, t = _timed(lambda: dt.qr(A, mesh=mesh, **kw), device)
+        with wire.census() as cen_solve:
+            x, t_solve = _timed(lambda: fact.solve(b), device)
+        launches = {k: hp.LAUNCHES[k] - l0[k] for k in l0}
+        census = _census_summary(cen_qr.entries + cen_solve.entries)
+        factor = _census_summary(cen_qr.entries)
+        census["factor_compressed"] = factor["compressed"]
+        census["factor_int8"] = factor["int8"]
+        bsq, asq = _local_backward(fact, A)
+        rows.append({
+            "run": label, "mesh": spec, "s": t, "solve_s": t_solve,
+            "launches": launches, "backward_sq": bsq, "a_sq": asq,
+            "residual": float(torch.linalg.vector_norm(
+                A64.mH @ (A64 @ x.to(wide) - b64))),
+            "finite": bool(torch.isfinite(torch.view_as_real(x)).all()
+                           if x.is_complex() else torch.isfinite(x).all()),
+            "census": census})
+        del fact, x
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    if pulse_run is not None:
+        label, spec, kw = pulse_run
+        mesh = ctx["mesh"](spec)
+        with pulse.pulsed() as store:
+            fact = dt.qr(A, mesh=mesh, **kw)
+            fact.solve(b)
+        rows.append({"run": label, "mesh": spec, "pulse": [
+            r.to_json() for r in store.reports()]})
+    return rows
+
+
+def _wire_lstsq_case(ctx, m, n, seed, runs):
+    """``lstsq(mesh=)`` of the reference's problem (numpy, from the seed)
+    per (mesh, comms, refine): ``refine`` 0 leaves the model tier's floor
+    of corrected semi-normal sweeps, more adds the caller's; x comes back
+    for the parent's LAPACK oracle."""
+    dt, hp, wire = ctx["dt"], ctx["hp"], ctx["wire"]
+    A, b = random_problem(m, n, np.float32, seed)
+    rows = []
+    for spec, comms, refine in runs:
+        mesh = ctx["mesh"](spec)
+        l0 = dict(hp.LAUNCHES)
+        with wire.census() as cen:
+            x, t = _timed(lambda: dt.lstsq(A, b, mesh=mesh, comms=comms,
+                                           refine=refine), ctx["device"])
+        rows.append({"mesh": spec, "comms": comms, "refine": refine, "s": t,
+                     "x": x.cpu().numpy(),
+                     "launches": {k: hp.LAUNCHES[k] - l0[k] for k in l0},
+                     "census": _census_summary(cen.entries)})
+    return rows
+
+
+def _wire_rows_case(ctx, m, n, seed, runs):
+    """``lstsq(engine=..., comms=...)`` on the row mesh, of a problem made
+    with numpy from the seed; x comes back for the parent's LAPACK oracle,
+    and rank 0's ``torch.linalg.lstsq`` x beside it (a yardstick)."""
+    dt, hp, wire, device = ctx["dt"], ctx["hp"], ctx["wire"], ctx["device"]
+    A, b = (torch.from_numpy(a).to(device)
+            for a in random_problem(m, n, np.float32, seed))
+    mesh = ctx["mesh"]("rows")
+    rows = []
+    for engine, comms in runs:
+        l0 = dict(hp.LAUNCHES)
+        with wire.census() as cen:
+            x, t = _timed(lambda: dt.lstsq(A, b, mesh=mesh, engine=engine,
+                                           comms=comms), device)
+        rows.append({"engine": engine, "comms": comms, "s": t,
+                     "x": x.cpu().numpy(),
+                     "launches": {k: hp.LAUNCHES[k] - l0[k] for k in l0},
+                     "census": _census_summary(cen.entries)})
+    if mesh.rank == 0:
+        x_ref = torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+        rows[0]["torch_lstsq_x"] = x_ref.cpu().numpy()
+    return rows
+
+
+def _wire_complex_case(ctx, m, n, seed):
+    """c64 ``qr`` + ``solve`` at None and at bf16: complex payloads pass
+    uncompressed, so the two runs agree bit for bit (H, alpha, x)."""
+    dt, hp, wire, device = ctx["dt"], ctx["hp"], ctx["wire"], ctx["device"]
+    A, b = _wire_problem(m, n, torch.complex64, seed, device)
+    mesh = ctx["mesh"]("cols")
+    out = {}
+    for comms in (None, "bf16"):
+        l0 = dict(hp.LAUNCHES)
+        with wire.census() as cen:
+            fact, t = _timed(lambda: dt.qr(A, mesh=mesh, comms=comms),
+                             device)
+            x = fact.solve(b)
+        out[comms] = (fact.H, fact.alpha, x, t,
+                      {k: hp.LAUNCHES[k] - l0[k] for k in l0},
+                      _census_summary(cen.entries))
+    (H0, a0, x0, _, _, _), (H1, a1, x1, t, launches, cen) = \
+        out[None], out["bf16"]
+    return [{"s": t, "launches": launches, "census": cen,
+             "none_launches": out[None][4],
+             "bit_identical": bool(torch.equal(H0, H1) and torch.equal(a0, a1)
+                                   and torch.equal(x0, x1))}]
+
+
+_WIRE_CASES = {"qr": _wire_qr_case, "lstsq": _wire_lstsq_case,
+               "rows": _wire_rows_case, "complex": _wire_complex_case}
+
+
+def wire_worker(device, cases):
+    """One rank of phase 16 (run by ``run_ranks``): each case on this
+    rank's meshes; returns {"cases": per-case rows, "launches": this
+    rank's kernel launches in the cases}."""
+    import dhqr_tpu_torch as dt
+    from dhqr_tpu_torch import parallel
+    from dhqr_tpu_torch.obs import pulse
+    from dhqr_tpu_torch.ops import hopper_panel as hp
+    from dhqr_tpu_torch.parallel import wire
+
+    meshes, tiers = {}, {}
+
+    def mesh_of(spec):
+        if spec not in meshes:
+            if spec.startswith("pod:"):
+                meshes[spec], tiers[spec] = parallel.pod_mesh(
+                    topo=spec[4:], device=device)
+            elif spec == "rows":
+                meshes[spec] = parallel.row_mesh(device=device)
+            else:
+                meshes[spec] = parallel.column_mesh(device=device)
+        return meshes[spec]
+
+    def tier_of(spec):
+        mesh_of(spec)
+        return tiers[spec]
+
+    ctx = {"dt": dt, "hp": hp, "wire": wire, "pulse": pulse,
+           "device": device, "mesh": mesh_of, "tier": tier_of}
+    out = []
+    launches = dict.fromkeys(hp.KERNELS.values(), 0)
+    for case in cases:
+        case = dict(case)
+        hp.reset_launches()
+        out.append(_WIRE_CASES[case.pop("kind")](ctx, **case))
+        for name, count in hp.LAUNCHES.items():
+            launches[name] += count
+    return {"cases": out, "launches": launches}
+
+
+def _wire_census_row(cen) -> dict:
+    return {"census_bytes_by_family": {
+                f: r["bytes"] for f, r in cen["families"].items()},
+            "census_launches_by_family": {
+                f: r["launches"] for f, r in cen["families"].items()},
+            "census_bytes_by_leg": cen["legs"],
+            "census_ratio": cen["ratio"], "census_bytes": cen["bytes"],
+            "formula_bytes": cen["formula_bytes"],
+            "formula_ok": cen["formula_ok"]}
+
+
+def _check_wire_qr(case, per_rank, P, where):
+    """Each run of a ``qr`` case: the launches summed over the ranks are
+    the plan's, the census carried what the formula says, the backward
+    error stays in its bound (a run whose factorization compressed a
+    payload: below ``WIRE_BACKWARD`` and above the uncompressed run's; the
+    flat pod schedule has no cross-host leg to compress, though its solve,
+    on the default hierarchical axis, has); pulse rows
+    print their reports, whose DHQR306 must read skip with the reason (no
+    collective of one card crosses a link with a known bandwidth)."""
+    from dhqr_tpu_torch.ops import hopper_panel as hp_
+
+    m, n = case["m"], case["n"]
+    dtype = getattr(torch, case["dtype"])
+    plan = sharded_plan(m, n, dtype, P)
+    base = None
+    for j in range(len(per_rank[0])):
+        rows = [r[j] for r in per_rank]
+        if "pulse" in rows[0]:
+            for rank, r in enumerate(rows):
+                if len(r["pulse"]) != 2:  # the qr and the solve dispatch
+                    raise AssertionError(f"pulse captured {r['pulse']}")
+                for rep in r["pulse"]:
+                    emit({"phase": 16, "name": "wire_pulse", **where,
+                          "rank": rank, "run": r["run"],
+                          "label": rep["label"],
+                          "measured": rep["measured"],
+                          "measured_unavailable": rep.get(
+                              "measured_unavailable"),
+                          "census": rep["analytic"],
+                          "dhqr306": rep["dhqr306"]["status"],
+                          "dhqr306_reason": rep["dhqr306"].get("reason"),
+                          "comms": rep.get("comms")})
+                    if rep["dhqr306"]["status"] != "skip" \
+                            or not rep["dhqr306"].get("reason") \
+                            or not rep["analytic"]:
+                        raise AssertionError(f"pulse failed: {rep}")
+            continue
+        backward = (sum(r["backward_sq"] for r in rows)
+                    / sum(r["a_sq"] for r in rows)) ** 0.5
+        launches = sum(r["launches"][hp_.KERNELS[dtype]] for r in rows)
+        cen = rows[0]["census"]
+        comms = any(r["census"]["factor_compressed"] for r in rows)
+        int8 = any(r["census"]["factor_int8"] for r in rows)
+        if rows[0]["run"] == "none":
+            base = backward
+        row = {"phase": 16, "name": "wire_qr", **where, "run": rows[0]["run"],
+               "mesh": rows[0]["mesh"], "dtype": case["dtype"],
+               "shape": [m, n], "s": max(r["s"] for r in rows),
+               "solve_s": max(r["solve_s"] for r in rows),
+               "backward_error": backward,
+               "solve_normal_eq_residual": rows[0]["residual"],
+               "launches": launches, "expected": plan,
+               "compressed": comms, "int8": int8,
+               "uncompressed_backward_error": base,
+               **_wire_census_row(cen),
+               "formula_ok_all_ranks": all(r["census"]["formula_ok"]
+                                           for r in rows)}
+        bound = np.inf if int8 else WIRE_BACKWARD if comms \
+            else TOL_BACKWARD_F32
+        row["ok"] = (all(r["finite"] for r in rows) and launches == plan
+                     and row["formula_ok_all_ranks"] and backward < bound
+                     and (not comms or base is None or backward > base))
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"wire qr failed: {row}")
+
+
+def phase_wire(hp, seed):
+    """The wire on one card: (a) one NCCL rank, ``qr`` + ``solve`` at
+    16384^2 f32 per wire format, then one run with pulse armed; (b) 4 gloo
+    ranks at 16384^2 f32: flat bf16 and int8, a 2x2 pod mesh hierarchical
+    and flat at None and dcn:bf16, the depth-2 and depth-3 pipeline at None
+    and bf16, then one run with pulse armed; (c) ``lstsq`` 4400 x 4000 f32
+    per wire format at the model tier's floor of sweeps (printed), and the
+    bf16 formats with ``WIRE_SWEEPS`` under 8x; (d) 65536 x 256 f32 TSQR
+    and CholeskyQR2 on the row mesh, uncompressed and at bf16 and int8,
+    under 8x of numpy's LAPACK QR; (e) 2 gloo ranks, 8192 x 4096
+    c64 at bf16: no complex payload compressed, every result bit-identical
+    to None's. Launches of every rank are added into the parent's."""
+    from dhqr_tpu_torch.parallel._ranks import run_ranks
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
+
+    torch.cuda.empty_cache()
+    device = "cuda:0"
+    square = {"kind": "qr", "m": 16384, "n": 16384, "dtype": "float32",
+              "seed": seed + 16}
+    runs = [
+        ("a", "nccl", 1, [dict(
+            square, runs=[("none", "cols", {}),
+                          ("bf16", "cols", {"comms": "bf16"}),
+                          ("int8", "cols", {"comms": "int8"})],
+            pulse_run=("pulse_bf16", "cols", {"comms": "bf16"}))]),
+        ("bcd", "gloo", 4, [
+            dict(square, runs=list(WIRE_RUNS_4),
+                 pulse_run=("pulse_bf16", "cols", {"comms": "bf16"})),
+            {"kind": "lstsq", "m": 4400, "n": 4000, "seed": seed + 3,
+             "runs": [("cols", "bf16", 0), ("cols", "int8", 0),
+                      ("pod:2x2", "dcn:bf16", 0), ("pod:2x2", "dcn:int8", 0),
+                      ("cols", "bf16", WIRE_SWEEPS),
+                      ("pod:2x2", "dcn:bf16", WIRE_SWEEPS)]},
+            {"kind": "rows", "m": 65536, "n": 256, "seed": seed + 17,
+             "runs": [("tsqr", None), ("tsqr", "bf16"), ("tsqr", "int8"),
+                      ("cholqr2", None), ("cholqr2", "bf16"),
+                      ("cholqr2", "int8")]}]),
+        ("e", "gloo", 2, [{"kind": "complex", "m": 8192, "n": 4096,
+                           "seed": seed + 18}]),
+    ]
+    for label, backend, P, cases in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(wire_worker, P, backend=backend, device=device,
+                          timeout_s=420, cases=cases)
+        wall_s = time.perf_counter() - t0
+        for r in ranks:
+            for name, count in r["launches"].items():
+                hp.LAUNCHES[name] += count
+        where = {"backend": backend, "ranks": P, "ranks_per_card": P}
+        for i, case in enumerate(cases):
+            per_rank = [r["cases"][i] for r in ranks]
+            kind = case["kind"]
+            if kind == "qr":
+                _check_wire_qr(case, per_rank, P, where)
+            elif kind == "lstsq":
+                A, b, oracle = oracle_of(case["m"], case["n"], np.float32,
+                                         case["seed"])
+                expect = sharded_plan(case["m"], case["n"], torch.float32, P)
+                for j, r0 in enumerate(per_rank[0]):
+                    res = normal_equations_residual(A, r0["x"], b)
+                    launches = sum(r[j]["launches"]["panel_qr_f32"]
+                                   for r in per_rank)
+                    row = {"phase": 16, "name": "wire_lstsq", **where,
+                           "mesh": r0["mesh"], "comms": r0["comms"],
+                           "refine": r0["refine"],
+                           "shape": [case["m"], case["n"]],
+                           "s": max(r[j]["s"] for r in per_rank),
+                           "normal_eq_residual": res,
+                           "lapack_residual": oracle,
+                           "ratio": res / oracle, "criterion": CRITERION,
+                           "launches": launches, "expected": expect,
+                           **_wire_census_row(r0["census"])}
+                    row["meets_criterion"] = bool(res < CRITERION * oracle)
+                    row["ok"] = (bool(np.isfinite(res))
+                                 and (row["meets_criterion"]
+                                      or not r0["refine"])
+                                 and launches == expect
+                                 and all(r[j]["census"]["formula_ok"]
+                                         for r in per_rank))
+                    emit(row)
+                    if not row["ok"]:
+                        raise AssertionError(f"wire lstsq failed: {row}")
+            elif kind == "rows":
+                _check_wire_rows(case, per_rank, P, where,
+                                 normal_equations_residual)
+            else:
+                r0 = per_rank[0][0]
+                launches = sum(r[0]["launches"]["panel_qr_c64"]
+                               for r in per_rank)
+                expect = sharded_plan(case["m"], case["n"],
+                                      torch.complex64, P)
+                row = {"phase": 16, "name": "wire_complex", **where,
+                       "comms": "bf16", "shape": [case["m"], case["n"]],
+                       "s": max(r[0]["s"] for r in per_rank),
+                       "launches": launches, "expected": expect,
+                       "complex_compressed": any(
+                           r[0]["census"]["complex_compressed"]
+                           for r in per_rank),
+                       "any_compressed": any(r[0]["census"]["compressed"]
+                                             for r in per_rank),
+                       "bit_identical_to_none": all(r[0]["bit_identical"]
+                                                    for r in per_rank),
+                       **_wire_census_row(r0["census"])}
+                row["ok"] = (not row["complex_compressed"]
+                             and not row["any_compressed"]
+                             and row["bit_identical_to_none"]
+                             and launches == expect
+                             and sum(r[0]["none_launches"]["panel_qr_c64"]
+                                     for r in per_rank) == expect)
+                emit(row)
+                if not row["ok"]:
+                    raise AssertionError(f"wire complex failed: {row}")
+        emit({"phase": 16, "name": "wire_run", "case": label, **where,
+              "wall_s": wall_s})
+
+
+def _check_wire_rows(case, per_rank, P, where, ne):
+    """Each row-engine run against numpy's LAPACK QR (the reference's
+    criterion), ``torch.linalg.lstsq``'s ratio printed beside it; the
+    launches summed over the ranks are TSQR's plan (none for CholeskyQR)."""
+    from dhqr_tpu_torch.ops import blocked
+
+    m, n = case["m"], case["n"]
+    A, b, oracle = oracle_of(m, n, np.float32, case["seed"])
+    cuda = torch.device("cuda")
+    nb = min(blocked.DEFAULT_BLOCK_SIZE, n)
+    leaf = blocked.panel_plan(m // P, n, nb, True, torch.float32, cuda)
+    combine = blocked.panel_plan(P * n, n, nb, True, torch.float32, cuda)
+    per_rank_plan = sum(blocked.kernel_leaves(w, lw)
+                        for _, w, lw in leaf + combine if lw)
+    torch_ratio = ne(A, per_rank[0][0]["torch_lstsq_x"], b) / oracle
+    for j, r0 in enumerate(per_rank[0]):
+        rows = [r[j] for r in per_rank]
+        launches = sum(r["launches"]["panel_qr_f32"] for r in rows)
+        expect = P * per_rank_plan if r0["engine"] == "tsqr" else 0
+        res = ne(A, r0["x"], b)
+        row = {"phase": 16, "name": "wire_rows", **where,
+               "engine": r0["engine"], "comms": r0["comms"],
+               "shape": [m, n], "s": max(r["s"] for r in rows),
+               "normal_eq_residual": res, "lapack_residual": oracle,
+               "ratio": res / oracle, "torch_lstsq_ratio": torch_ratio,
+               "criterion": CRITERION, "launches": launches,
+               "expected": expect, **_wire_census_row(r0["census"])}
+        row["ok"] = (bool(np.isfinite(res)) and res < CRITERION * oracle
+                     and launches == expect
+                     and all(r["census"]["formula_ok"] for r in rows))
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"wire row engine failed: {row}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15",
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -2142,6 +2689,8 @@ def main(argv=None) -> int:
             if any(paths[key][k] != tally.get(k, 0) for k in paths[key]):
                 raise AssertionError(f"the {key} path's count {paths[key]} "
                                      f"is not its calls' {tally}")
+    if 16 in phases:
+        counted("wire", lambda: phase_wire(hp, args.seed))
     emit({"launches_by_path": paths})
     for key in ("reconstruct", "sketch"):  # paths with no panel kernel on them
         if key in paths and any(paths[key].values()):
@@ -2149,7 +2698,7 @@ def main(argv=None) -> int:
                                  f"{paths[key]}")
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
-                "guarded")
+                "guarded", "wire")
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
         for key in on_paths + (("update",) if name == "panel_qr_f32" else ()):

@@ -17,6 +17,8 @@ JAX package — is a CUDA C++ kernel written for ``sm_90a``
     >>> fact = dhqr_tpu_torch.qr(A, lookahead=True)      # two CUDA streams
     >>> x = dhqr_tpu_torch.lstsq(A, b, device="cpu")   # plain PyTorch path
     >>> fact = dhqr_tpu_torch.qr(A, mesh=parallel.column_mesh())  # per rank
+    >>> x = dhqr_tpu_torch.lstsq(A, b, mesh=mesh, comms="bf16")  # wire
+    >>> mesh, tier = dhqr_tpu_torch.pod_mesh(topo="2x2")  # hosts x ranks
     >>> x = dhqr_tpu_torch.lstsq(A, b, guards="full")  # screen, ladder, gate
     >>> res = dhqr_tpu_torch.guarded_lstsq(A, b, engine="cholqr2")
     >>> live = dhqr_tpu_torch.UpdatableQR(A); live.update(u, v)
@@ -43,6 +45,10 @@ from dhqr_tpu_torch.numeric.errors import (
 from dhqr_tpu_torch.numeric.ladder import guarded_lstsq, guarded_qr
 from dhqr_tpu_torch.armor.errors import CorruptionDetected, ShardFailure
 from dhqr_tpu_torch import parallel
+from dhqr_tpu_torch.obs.pulse import PulseReport
+from dhqr_tpu_torch.parallel.mesh import pod_mesh
+from dhqr_tpu_torch.parallel.multihost import global_pod_mesh
+from dhqr_tpu_torch.parallel.topology import TierAxes
 from dhqr_tpu_torch.ops.blocked import blocked_householder_qr
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr2, cholesky_qr_lstsq
 from dhqr_tpu_torch.ops.differentiable import lstsq_diff
@@ -85,10 +91,12 @@ __all__ = [
     "POLICY_LADDER",
     "PRECISION_POLICIES",
     "PrecisionPolicy",
+    "PulseReport",
     "QRFactorization",
     "ResidualGateFailed",
     "ShardFailure",
     "SketchConfig",
+    "TierAxes",
     "UpdatableQR",
     "alphafactor",
     "apply_q",
@@ -97,11 +105,13 @@ __all__ = [
     "blocked_householder_qr",
     "cholesky_qr2",
     "cholesky_qr_lstsq",
+    "global_pod_mesh",
     "guarded_lstsq",
     "guarded_qr",
     "householder_qr",
     "lstsq",
     "lstsq_diff",
+    "pod_mesh",
     "qr",
     "qr_explicit",
     "resolve_policy",

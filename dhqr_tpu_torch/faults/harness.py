@@ -17,11 +17,13 @@ environment and :func:`install`, or the :func:`injected` scope):
 The site table is the JAX package's, name for name, so that one schedule
 string parses the same in both packages. The sites whose code the port
 runs are ``numeric.nan`` (the guarded entry points' input screen,
-``numeric/ladder.py``) and ``numeric.breakdown`` (each rung of the guarded
-ladder, and each rank-1 step of ``solvers/update.py``). The serving
-sites (``serve.*``) and the collective sites (``parallel.collective.*``,
-consulted through :func:`wire_sites_armed`) belong to code that is not
-ported yet: they parse and arm, and never fire.
+``numeric/ladder.py``), ``numeric.breakdown`` (each rung of the guarded
+ladder, and each rank-1 step of ``solvers/update.py``) and the collective
+sites ``parallel.collective.{corrupt,nan,drop}``, which the wire seam
+(``parallel/wire.py``) consults for each rank's contribution to each
+collective while :func:`wire_sites_armed` reads true. The serving sites
+(``serve.*``) belong to code that is not ported yet: they parse and arm,
+and never fire.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from dhqr_tpu_torch.utils.profiling import Counters
 # site name -> action kind. "raise" sites throw FaultInjected when they
 # trigger; "sleep" sites block for FaultConfig.latency_ms; "wire" sites
 # are payload mutators of the collective seam (parallel/wire.py), one
-# visit per collective, once the compressed wire and armor are ported.
+# visit per part of each collective leg.
 SITES = {
     "serve.compile": "raise",
     "serve.dispatch": "raise",

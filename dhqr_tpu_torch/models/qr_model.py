@@ -12,10 +12,11 @@
 ``mesh=`` (a :class:`~dhqr_tpu_torch.parallel.ColumnMesh`) runs the
 distributed tier (:mod:`dhqr_tpu_torch.parallel`): every rank of the mesh
 calls the entry point with the same inputs. ``guards=`` routes through
-the numeric ladder (:mod:`dhqr_tpu_torch.numeric.ladder`). Knobs the port
-does not run yet (plan, compressed comms) raise
-:class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming the ROADMAP
-item that brings them.
+the numeric ladder (:mod:`dhqr_tpu_torch.numeric.ladder`). ``comms=``
+names the mesh's wire format; a compressed mesh solve refines through
+corrected semi-normal sweeps (:func:`_csne_refine`). Knobs the port does
+not run yet (plan) raise :class:`~dhqr_tpu_torch.utils.config.
+NotPortedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -31,12 +32,19 @@ from dhqr_tpu_torch.ops import solve as _solve
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr_lstsq
 from dhqr_tpu_torch.ops.differentiable import lstsq_diff
 from dhqr_tpu_torch.ops.tsqr import tsqr_lstsq
+from dhqr_tpu_torch.ops import gemm as _gemm
 from dhqr_tpu_torch.parallel import sharded_qr as _sharded
-from dhqr_tpu_torch.parallel.mesh import DEFAULT_AXIS, check_mesh
+from dhqr_tpu_torch.parallel.mesh import DEFAULT_AXIS, ROW_AXIS, check_mesh
 from dhqr_tpu_torch.parallel.sharded_cholqr import sharded_cholqr_lstsq
 from dhqr_tpu_torch.parallel.sharded_solve import sharded_lstsq, sharded_solve
 from dhqr_tpu_torch.parallel.sharded_tsqr import sharded_tsqr_lstsq
-from dhqr_tpu_torch.parallel.topology import axis_size, resolve_axis
+from dhqr_tpu_torch.parallel.topology import (
+    DCN_AXIS,
+    ICI_AXIS,
+    axis_size,
+    resolve_axis,
+)
+from dhqr_tpu_torch.parallel.wire import CSNE_MODEL_SWEEPS
 from dhqr_tpu_torch.precision import (
     apply_policy_to_factor_args,
     resolve_comms,
@@ -44,16 +52,31 @@ from dhqr_tpu_torch.precision import (
 )
 from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
 from dhqr_tpu_torch.utils.config import (
-    _COMMS_ITEM,
     ENGINES,
     DHQRConfig,
-    NotPortedError,
     SketchConfig,
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
 
 LSTSQ_ENGINES = ENGINES
+
+
+def _csne_refine(A, R, x, b, steps: int):
+    """Corrected semi-normal refinement ``x += (R^H R)^{-1} A^H (b - A x)``,
+    the residual and ``A^H r`` in full precision. Its fixed point is the
+    least-squares solution whatever rounding R carries (``A^H r* = 0``
+    there), so it converges for a factorization whose R carries the wire's
+    rounding: the compressed-wire recovery (Björck's CSNE)."""
+    vec = x.ndim == 1
+    X = x[:, None] if vec else x
+    B = b[:, None] if vec else b
+    for _ in range(steps):
+        resid = B - _gemm.matmul(A, X, "highest")
+        G = _gemm.matmul(A.mH, resid, "highest")
+        Y = torch.linalg.solve_triangular(R.mH, G, upper=False)
+        X = X + torch.linalg.solve_triangular(R, Y, upper=True)
+    return X[:, 0] if vec else X
 
 
 @dataclasses.dataclass
@@ -79,8 +102,9 @@ class QRFactorization:
         rank; solves run the distributed engines, and :meth:`natural_H`
         all-gathers H in natural column order (every rank must call them).
       layout: the mesh's column layout, "block" or "cyclic".
-      comms: the collective wire format of a mesh factorization's solves;
-        only None (the f32 wire) runs until the compressed wire is ported.
+      comms: the collective wire format of a mesh factorization's solves
+        (None: uncompressed); with refinement, a compressed one refines
+        through corrected semi-normal sweeps (:func:`_csne_refine`).
 
     The fields are the JAX package's, in its order.
     """
@@ -94,11 +118,6 @@ class QRFactorization:
     refine: int = 0
     matrix: Optional[torch.Tensor] = None
     comms: "str | None" = None
-
-    def __post_init__(self):
-        if self.comms is not None:
-            raise NotPortedError(f"QRFactorization(comms={self.comms!r})",
-                                 _COMMS_ITEM)
 
     def _pad(self) -> int:
         """Columns (and rows) a mesh factorization was padded by."""
@@ -162,7 +181,8 @@ class QRFactorization:
                 self.H, alpha, _sharded._pad_rows(b, k), self.mesh,
                 block_size=self.block_size,
                 precision=self.precision, layout=self.layout,
-                _H_in_store_layout=True)[:self.alpha.shape[0]]
+                _H_in_store_layout=True,
+                comms=self.comms)[:self.alpha.shape[0]]
         c = _blocked._apply_qt_impl(self.H, b, self.block_size, self.precision)
         return _solve._back_substitute(self.H, self.alpha, c)
 
@@ -170,7 +190,9 @@ class QRFactorization:
         """Least-squares solve ``x = argmin ||A x - b||``: apply Q^H,
         back-substitute R. ``refine`` sweeps (default: the recorded count)
         of ``x += solve(b - A x)``, residual at full precision, need the
-        original ``matrix``."""
+        original ``matrix``; under a compressed ``comms`` the sweeps are
+        corrected semi-normal ones with this factorization's R (plain
+        refinement stalls at the bias of the perturbed Q^H)."""
         steps = self.refine if refine is None else int(refine)
         b = self._rhs(b)
         x = self._solve_once(b)
@@ -180,6 +202,9 @@ class QRFactorization:
                     "refinement needs the original matrix: factor with "
                     "qr(A, policy=...) (policy.refine > 0 keeps A on the "
                     "factorization), or pass refine=0")
+            if self.comms is not None:
+                return _csne_refine(self.matrix, self.r_matrix(), x, b,
+                                    steps)
             for _ in range(steps):
                 x = x + self._solve_once(b - torch.matmul(self.matrix, x))
         return x
@@ -270,9 +295,9 @@ def _resolved(cfg: DHQRConfig, mesh, device):
     return cfg, pol
 
 
-def _col_axis_size(cfg: DHQRConfig, mesh) -> "tuple[str, int]":
-    """The column axis the householder mesh path shards over, and its rank
-    count."""
+def _col_axis_size(cfg: DHQRConfig, mesh) -> "tuple[object, int]":
+    """The column axis the householder mesh path shards over (on a pod
+    mesh, its ``TierAxes``), and its rank count."""
     axis = resolve_axis(mesh, cfg.mesh_axis or DEFAULT_AXIS)
     return axis, axis_size(mesh, axis)
 
@@ -291,13 +316,13 @@ def _qr_mesh(A, cfg: DHQRConfig, mesh):
             use_pallas=cfg.use_pallas, panel_impl=cfg.panel_impl,
             trailing_precision=cfg.trailing_precision,
             lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
-            overlap_depth=cfg.overlap_depth)
+            overlap_depth=cfg.overlap_depth, comms=cfg.comms)
     else:
         _reject_nonblocked_knobs(cfg)
         H, alpha = _sharded.sharded_householder_qr(
             Ap, mesh, axis_name=axis, precision=cfg.precision,
             layout=cfg.layout, store_nb=nb, _store_layout_output=True,
-            norm=cfg.norm)
+            norm=cfg.norm, comms=cfg.comms)
     return H, alpha[:n], nb
 
 
@@ -372,7 +397,7 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
             H, alpha, block_size=nb,
             precision=cfg.apply_precision or cfg.precision,
             refine=solve_refine, matrix=A if solve_refine else None,
-            mesh=mesh, layout=cfg.layout)
+            mesh=mesh, layout=cfg.layout, comms=cfg.comms)
     if cfg.blocked:
         H, alpha = _blocked.blocked_householder_qr(
             A, cfg.block_size, donate=donate, precision=cfg.precision,
@@ -552,25 +577,42 @@ def _lstsq_refined(A, b, cfg: DHQRConfig, mesh=None):
     return _lstsq_mesh(A, b, cfg, mesh)
 
 
-def _lstsq_alt_engine(A, b, cfg: DHQRConfig, mesh=None):
-    """Route ``lstsq`` to TSQR ("tsqr", row blocks looped, leaves on the
-    panel kernel) or CholeskyQR ("cholqr2"/"cholqr3", all GEMMs). On a
-    mesh both shard ROWS, over ``mesh_axis`` when it is given, else over
-    the mesh's one axis (the port's meshes are 1-D)."""
-    _validate_alt_engine_cfg(cfg)
-    if mesh is not None:
-        if cfg.mesh_axis is not None and cfg.mesh_axis not in mesh.shape:
+def _row_axis(cfg: DHQRConfig, mesh):
+    """The axis the row engines shard over: ``mesh_axis`` when it is
+    given, else the 1-D mesh's one axis; on a pod mesh, both tiers (the
+    default row axis resolves to its ``TierAxes``)."""
+    if cfg.mesh_axis is not None:
+        if cfg.mesh_axis not in mesh.shape:
             raise ValueError(
                 f"mesh axes {tuple(mesh.shape)} do not include "
                 f"mesh_axis={cfg.mesh_axis!r}")
-        axis = cfg.mesh_axis or mesh.axis_name
+        return cfg.mesh_axis
+    if len(mesh.shape) == 1:
+        return next(iter(mesh.shape))
+    if tuple(mesh.axis_names) == (DCN_AXIS, ICI_AXIS):
+        return ROW_AXIS
+    raise ValueError(
+        f"ambiguous row axis on mesh axes {tuple(mesh.shape)} for "
+        f"engine={cfg.engine!r}: pass mesh_axis= to pick one")
+
+
+def _lstsq_alt_engine(A, b, cfg: DHQRConfig, mesh=None):
+    """Route ``lstsq`` to TSQR ("tsqr", row blocks looped, leaves on the
+    panel kernel) or CholeskyQR ("cholqr2"/"cholqr3", all GEMMs). On a
+    mesh both shard ROWS (:func:`_row_axis`), with ``comms`` on their
+    exchanges."""
+    _validate_alt_engine_cfg(cfg)
+    if mesh is not None:
+        axis = _row_axis(cfg, mesh)
         if cfg.engine == "tsqr":
             return sharded_tsqr_lstsq(
                 A, b, mesh, block_size=cfg.block_size, axis_name=axis,
-                precision=cfg.precision, use_pallas=cfg.use_pallas)
+                precision=cfg.precision, use_pallas=cfg.use_pallas,
+                comms=cfg.comms)
         return sharded_cholqr_lstsq(A, b, mesh, axis_name=axis,
                                     precision=cfg.precision,
-                                    shift=cfg.engine == "cholqr3")
+                                    shift=cfg.engine == "cholqr3",
+                                    comms=cfg.comms)
     if cfg.engine == "tsqr":
         m, n = A.shape
         n_blocks = max(1, min(8, m // max(n, 1)))
@@ -608,6 +650,11 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     engine chained into :func:`~dhqr_tpu_torch.parallel.sharded_solve`)
     and tsqr / cholqr2 / cholqr3 row-sharded; ``refine`` factors once
     and loops the sharded solve. The mesh path is not differentiable.
+
+    ``comms=`` (mesh only) names the wire format of the mesh's
+    collectives; a compressed householder mesh solve refines by at least
+    ``wire.CSNE_MODEL_SWEEPS[comms]`` corrected semi-normal sweeps, so it
+    holds the 8x criterion (the row engines sweep inside).
 
     ``guards=`` ("screen", "fallback", "full") routes through
     :func:`~dhqr_tpu_torch.numeric.ladder.guarded_lstsq` (screen, run,
@@ -651,6 +698,13 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
                 "is already exact to working precision)")
         return _minimum_norm_impl(A, b, cfg.block_size, cfg.precision,
                                   norm=cfg.norm)
+    if cfg.comms is not None and mesh is not None \
+            and cfg.engine == "householder":
+        # A compressed wire's factorization carries its rounding: the
+        # solve refines by CSNE sweeps, at least the format's floor.
+        floor = CSNE_MODEL_SWEEPS.get(cfg.comms, 2)
+        if cfg.refine < floor:
+            cfg = dataclasses.replace(cfg, refine=floor)
     if cfg.refine:
         return _lstsq_refined(A, b, cfg, mesh)
     if cfg.engine != "householder":
@@ -674,9 +728,11 @@ def _lstsq_mesh(A, b, cfg: DHQRConfig, mesh):
             trailing_precision=cfg.trailing_precision,
             lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
             overlap_depth=cfg.overlap_depth,
-            apply_precision=cfg.apply_precision)
+            apply_precision=cfg.apply_precision, comms=cfg.comms)
     fact = qr(A, config=dataclasses.replace(cfg, refine=0), mesh=mesh)
     x = fact.solve(b)
+    if cfg.comms is not None:
+        return _csne_refine(A, fact.r_matrix(), x, b, cfg.refine)
     for _ in range(cfg.refine):
         x = x + fact.solve(b - torch.matmul(A, x))
     return x

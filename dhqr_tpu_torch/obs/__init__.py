@@ -10,16 +10,20 @@ scoped tracing and the flight recorder, ported from ``dhqr_tpu.obs``.
 * ``obs.trace`` — trace ids and spans in a bounded ring buffer;
 * ``obs.recorder`` — the flight recorder: typed errors carry their trace
   id(s), :func:`flight_dump_error` reconstructs the path, and the
-  ``on_error`` hook (``ObsConfig.auto_dump``) persists it.
+  ``on_error`` hook (``ObsConfig.auto_dump``) persists it;
+* ``obs.pulse`` and ``obs.netmodel`` — the collective profiler of the mesh
+  dispatches (``ObsConfig(pulse=True)``: a :class:`PulseReport` per
+  label) and its network model.
 
 Disarmed (the default), every instrumentation point is one module-global
-``None`` check. The metrics registry, xray, pulse and the regression gate
-wait for ROADMAP Queue A item 16.
+``None`` check. The metrics registry, xray and the regression gate wait
+for ROADMAP Queue A item 16.
 """
 
 from __future__ import annotations
 
-from dhqr_tpu_torch.obs import recorder
+from dhqr_tpu_torch.obs import netmodel, pulse, recorder
+from dhqr_tpu_torch.obs.pulse import PulseReport
 from dhqr_tpu_torch.obs.trace import (
     Span,
     TraceRecorder,
@@ -49,6 +53,7 @@ def flight_dump_error(exc: BaseException) -> "list[dict]":
 
 __all__ = [
     "ObsConfig",
+    "PulseReport",
     "Span",
     "TraceRecorder",
     "active",
@@ -58,6 +63,8 @@ __all__ = [
     "flight_dump",
     "flight_dump_error",
     "mint",
+    "netmodel",
     "observed",
+    "pulse",
     "recorder",
 ]

@@ -18,9 +18,10 @@ package:
   oldest fall off (counted in :meth:`TraceRecorder.stats`). The flight
   recorder (``obs.recorder``) snapshots a request's spans at error time.
 
-This module imports nothing it observes. The xray and
-pulse subsystems that the JAX package's ``arm`` also arms wait for ROADMAP
-Queue A item 16.
+This module imports nothing it observes. :func:`arm` also arms or
+disarms the pulse collective profiler (``obs.pulse``), as the JAX
+package's does; the xray subsystem it also arms waits for ROADMAP Queue A
+item 16.
 """
 
 from __future__ import annotations
@@ -250,24 +251,34 @@ def arm(config: "ObsConfig | None" = None,
         clock=time.monotonic) -> "TraceRecorder | None":
     """Arm process-wide tracing from ``config`` (default: the
     environment's ``DHQR_OBS*``), declaratively: tracing iff
-    ``config.enabled``, so ``obs.arm()`` with no variable set is a no-op,
-    as ``faults.install()`` with no sites is. A config that asks for
-    xray or pulse raises :class:`~dhqr_tpu_torch.utils.config.
+    ``config.enabled`` and pulse collective profiling
+    (``obs.pulse``) iff ``config.pulse``, so ``obs.arm()`` with no
+    variable set is a no-op, as ``faults.install()`` with no sites is. A
+    config that asks for xray raises :class:`~dhqr_tpu_torch.utils.config.
     NotPortedError` before anything is armed. Returns the armed recorder,
     or None when tracing is left disarmed."""
+    from dhqr_tpu_torch.obs import pulse as _pulse
+
     cfg = config if config is not None else ObsConfig.from_env()
     cfg.refuse_unported()
     recorder = TraceRecorder(cfg, clock=clock) if cfg.enabled else None
     with _ARM_LOCK:
         _swap_active_locked(recorder)
+    if cfg.pulse:
+        _pulse.arm(max_reports=cfg.pulse_reports)
+    else:
+        _pulse.disarm()
     return recorder
 
 
 def disarm() -> None:
     """Back to the zero-overhead path (the ring and its spans are
-    dropped with the recorder)."""
+    dropped with the recorder; the pulse store with its reports)."""
+    from dhqr_tpu_torch.obs import pulse as _pulse
+
     with _ARM_LOCK:
         _swap_active_locked(None)
+    _pulse.disarm()
 
 
 def active() -> Optional[TraceRecorder]:

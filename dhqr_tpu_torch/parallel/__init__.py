@@ -5,7 +5,10 @@ reference's worker processes, each holding a column block —
 src/DistributedHouseholderQR.jl:11-40); a :class:`ColumnMesh` names the
 group, this rank's device and the axis. Every rank calls an entry point
 with the same global inputs and keeps its own columns (or rows); every
-collective goes through :mod:`dhqr_tpu_torch.parallel.wire`.
+collective goes through :mod:`dhqr_tpu_torch.parallel.wire`, at the wire
+format ``comms=`` names. :func:`pod_mesh` gives the two-tier (hosts x
+ranks per host) mesh and its :class:`TierAxes`, on which the collectives
+run the hierarchical schedules.
 """
 
 from dhqr_tpu_torch.parallel.layout import (
@@ -14,9 +17,16 @@ from dhqr_tpu_torch.parallel.layout import (
     column_block_ranges,
     local_column_block,
 )
-from dhqr_tpu_torch.parallel.mesh import ColumnMesh, column_mesh, row_mesh
+from dhqr_tpu_torch.parallel.mesh import (
+    ColumnMesh,
+    PodMesh,
+    column_mesh,
+    pod_mesh,
+    row_mesh,
+)
 from dhqr_tpu_torch.parallel.multihost import (
     global_column_mesh,
+    global_pod_mesh,
     global_row_mesh,
     initialize,
     process_info,
@@ -28,10 +38,13 @@ from dhqr_tpu_torch.parallel.sharded_qr import (
 )
 from dhqr_tpu_torch.parallel.sharded_solve import sharded_lstsq, sharded_solve
 from dhqr_tpu_torch.parallel.sharded_tsqr import sharded_tsqr_lstsq
+from dhqr_tpu_torch.parallel.topology import TierAxes
 
 __all__ = [
     "ColumnBlock",
     "ColumnMesh",
+    "PodMesh",
+    "TierAxes",
     "area_balanced_splits",
     "column_block_ranges",
     "local_column_block",
@@ -47,4 +60,6 @@ __all__ = [
     "global_column_mesh",
     "global_row_mesh",
     "process_info",
+    "pod_mesh",
+    "global_pod_mesh",
 ]

@@ -126,7 +126,8 @@ def run_ranks(fn, size: int, backend: str = "gloo", device=None,
 
 class Placeholder:
     """An argument of a :func:`run_calls` case that the rank fills in: its
-    column mesh, its row mesh, or the previous step's value."""
+    column mesh, its row mesh, a pod mesh, or the previous step's
+    value."""
 
     def __init__(self, name: str):
         self.name = name
@@ -137,9 +138,43 @@ ROWS = Placeholder("rows")
 PREV = Placeholder("prev")
 
 
+class AsTensor:
+    """A numpy array that a :func:`run_calls` step takes as a tensor on
+    the rank's device (for the wire seam's functions)."""
+
+    def __init__(self, array):
+        self.array = array
+
+
+def pod(topo: str) -> Placeholder:
+    """This rank's :func:`~dhqr_tpu_torch.parallel.pod_mesh` of ``topo``
+    (``"2x2"``), made at its first use (every rank reaches it in the same
+    case, so the subgroups are made in one order)."""
+    return Placeholder(f"pod:{topo}")
+
+
+def mesh_summary(mesh) -> dict:
+    """What a mesh is, for a caller in another process (a process group
+    does not pickle): its axes and shape, this rank, and the default-group
+    ranks of its group and of a pod mesh's two tier groups."""
+    def ranks(m):
+        return [m.global_rank(r) for r in range(m.size)]
+
+    out = {"axis_names": tuple(mesh.axis_names), "shape": dict(mesh.shape),
+           "rank": mesh.rank, "size": mesh.size, "ranks": ranks(mesh)}
+    if getattr(mesh, "ici_mesh", None) is not None:
+        out["ici_ranks"] = ranks(mesh.ici_mesh)
+        out["dcn_ranks"] = ranks(mesh.dcn_mesh)
+    return out
+
+
 def _numpy(value):
+    from dhqr_tpu_torch.parallel.mesh import ColumnMesh
+
     if isinstance(value, torch.Tensor):
         return value.detach().resolve_conj().cpu().numpy()
+    if isinstance(value, ColumnMesh):
+        return mesh_summary(value)
     if isinstance(value, (tuple, list)):
         return type(value)(_numpy(v) for v in value)
     return value
@@ -153,21 +188,37 @@ def run_calls(device, cases):
     A case is a list of steps ``(target, args, kwargs)``: ``target`` names
     a function of :mod:`dhqr_tpu_torch.parallel` or :mod:`dhqr_tpu_torch`
     (a dotted name: of its submodule, e.g. ``"interop.to_numpy"``), or,
-    starting with ``"."``, a method of the previous step's value.
+    starting with ``"."``, a method of the previous step's value. A mesh
+    in the value comes back as its :func:`mesh_summary`.
     :data:`COLS` / :data:`ROWS` in the arguments become this rank's column
-    / row mesh on ``device``, :data:`PREV` the previous step's value;
-    numpy arrays go in as they are."""
+    / row mesh on ``device``, :func:`pod` a pod mesh, :data:`PREV` the
+    previous step's value; numpy arrays go in as they are, and an
+    :class:`AsTensor` as a tensor on ``device``. A case may
+    also be a dict ``{"steps": [...], "faults": FaultConfig or None,
+    "census": bool}``: its steps run under that fault schedule
+    (``faults.injected``), and with ``census`` an ``"ok"`` outcome carries
+    a third element, the wire census's entries."""
+    import contextlib
     import importlib
 
     import dhqr_tpu_torch
-    from dhqr_tpu_torch import parallel
+    from dhqr_tpu_torch import faults, parallel
+    from dhqr_tpu_torch.parallel import wire
 
     meshes = {"cols": parallel.column_mesh(device=device),
               "rows": parallel.row_mesh(device=device)}
 
+    def mesh_of(name):
+        if name not in meshes:  # "pod:<topo>"
+            meshes[name] = parallel.pod_mesh(topo=name[4:],
+                                             device=device)[0]
+        return meshes[name]
+
     def bind(x):
         if isinstance(x, Placeholder):  # compared by name: it was pickled
-            return value if x.name == PREV.name else meshes[x.name]
+            return value if x.name == PREV.name else mesh_of(x.name)
+        if isinstance(x, AsTensor):
+            return torch.as_tensor(x.array, device=device)
         if isinstance(x, (tuple, list)):
             return type(x)(bind(v) for v in x)
         if isinstance(x, dict):
@@ -175,20 +226,27 @@ def run_calls(device, cases):
         return x
 
     out = []
-    for steps in cases:
+    for case in cases:
+        if not isinstance(case, dict):
+            case = {"steps": case}
+        steps = case["steps"]
         value = None
+        scope = faults.injected(case["faults"]) if case.get("faults") \
+            else contextlib.nullcontext()
         try:
-            for target, args, kwargs in steps:
-                args, kwargs = bind(args), bind(kwargs)
-                if target.startswith("."):
-                    value = getattr(value, target[1:])(*args, **kwargs)
-                    continue
-                path, _, name = target.rpartition(".")
-                mod = importlib.import_module(f"dhqr_tpu_torch.{path}") \
-                    if path else parallel if hasattr(parallel, name) \
-                    else dhqr_tpu_torch
-                value = getattr(mod, name)(*args, **kwargs)
-            out.append(("ok", _numpy(value)))
+            with scope, wire.census() as seen:
+                for target, args, kwargs in steps:
+                    args, kwargs = bind(args), bind(kwargs)
+                    if target.startswith("."):
+                        value = getattr(value, target[1:])(*args, **kwargs)
+                        continue
+                    path, _, name = target.rpartition(".")
+                    mod = importlib.import_module(
+                        f"dhqr_tpu_torch.{path}") if path else parallel \
+                        if hasattr(parallel, name) else dhqr_tpu_torch
+                    value = getattr(mod, name)(*args, **kwargs)
+            out.append(("ok", _numpy(value), seen.entries)
+                       if case.get("census") else ("ok", _numpy(value)))
         except Exception as exc:  # the case's outcome, for the caller
             out.append(("raised", type(exc).__name__, str(exc)))
     return out

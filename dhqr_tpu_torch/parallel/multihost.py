@@ -30,6 +30,7 @@ from dhqr_tpu_torch.parallel.mesh import (
     DEFAULT_AXIS,
     ROW_AXIS,
     column_mesh,
+    pod_mesh,
     row_mesh,
 )
 
@@ -75,6 +76,17 @@ def global_column_mesh(axis_name: str = DEFAULT_AXIS, device=None):
     """Column mesh over every rank of the default group (this rank's
     card unless ``device`` says otherwise)."""
     return column_mesh(None, device, axis_name)
+
+
+def global_pod_mesh(topo=None, device=None):
+    """Two-tier ``("dcn", "ici")`` mesh over every rank of the default
+    group, and its ``TierAxes``: the hosts are the DCN tier and the ranks
+    of one host its ICI domain (``DHQR_TOPO=PdcnxPici`` or ``topo``
+    force a shape); on one host it is a ``1xP`` mesh, whose collectives
+    are the flat tier's."""
+    from dhqr_tpu_torch.parallel.mesh import pod_mesh
+
+    return pod_mesh(topo=topo, device=device)
 
 
 def global_row_mesh(axis_name: str = ROW_AXIS, device=None):

@@ -33,8 +33,19 @@ and waited for after it (the collective hides behind the GEMM, as the
 JAX order lets XLA's scheduler do); ``agg_panels=k``, where each group of
 k panels is gathered in ONE collective and factored redundantly on every
 rank (launches: P times the plan's), and with ``lookahead=True`` the
-grouped-lookahead composition. ``overlap_depth`` deeper than one panel
-(the depth-k pipeline) is not ported.
+grouped-lookahead composition; ``overlap_depth=k`` with ``lookahead``, the
+depth-k pipeline: the broadcasts of the k panels after panel q are in
+flight before panel q's wide GEMM.
+
+``comms`` (the wire format, :mod:`~dhqr_tpu_torch.parallel.wire`) applies
+to every broadcast of a factorization; under a compressed format the owner
+keeps the panel as the wire delivered it, as every JAX device keeps the
+``psum``'s result. ``axis_name`` a :class:`~dhqr_tpu_torch.parallel.
+topology.TierAxes` (or any string on a pod mesh) runs each collective as
+the two-tier schedule. The owner's broadcast carries the panel from its
+diagonal row down (the JAX engines' scanned and lookahead frames also
+carry R rows above it): under a compressed format the two packages round
+the same reflectors, and the JAX package also rounds those R rows.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import warnings
 import numpy as np
 import torch
 
+from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.blocked import (
     _panel_factor,
@@ -61,21 +73,23 @@ from dhqr_tpu_torch.parallel.layout import (
     plan_padding,
 )
 from dhqr_tpu_torch.parallel.mesh import DEFAULT_AXIS, check_mesh
-from dhqr_tpu_torch.parallel.topology import axis_size, resolve_axis
+from dhqr_tpu_torch.parallel.topology import (
+    axis_label,
+    axis_size,
+    resolve_axis,
+)
 from dhqr_tpu_torch.precision import (
     apply_policy_to_comms_arg,
     apply_policy_to_factor_args,
+    resolve_comms,
 )
 from dhqr_tpu_torch.utils.config import (
     DHQRConfig,
-    NotPortedError,
     refuse_grad,
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
 
-PIPELINE_ITEM = ("Queue A item 11 (the depth-k pipeline "
-                 "_blocked_shard_pipeline)")
 LAYOUTS = ("block", "cyclic")
 
 
@@ -217,10 +231,11 @@ def _local_block(A: torch.Tensor, mesh, n: int, nb: int, layout: str
     return A.index_select(1, torch.as_tensor(cols, device=A.device))
 
 
-def _gather_natural(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str,
-                    comms=None) -> torch.Tensor:
-    """Every rank's block, all-gathered, in natural column order (m, n)."""
-    H = wire.wire_all_gather(Hl, mesh, comms, dim=1)
+def _gather_natural(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str
+                    ) -> torch.Tensor:
+    """Every rank's block, all-gathered, in natural column order (m, n):
+    the result's relayout (exact, whatever the wire format)."""
+    H = wire.wire_all_gather(Hl, mesh, dim=1, relayout=True)
     if layout == "block":
         return H
     pos = natural_store_positions(n, mesh.size, nb)
@@ -241,13 +256,14 @@ def _prepare(A, mesh, axis_name, layout):
 
 # -- unblocked --------------------------------------------------------------
 
-def _unblocked_shard(Al, n, mesh, precision, layout, store_nb, norm):
+def _unblocked_shard(Al, n, mesh, precision, layout, store_nb, norm,
+                     comms=None, axis=None):
     """Factor the local block Al (m, nloc) in place; returns (Al, alpha).
 
     Per column j: the owner broadcasts rows j: of it (the reference's
-    per-column reflector broadcast, src:141-143), every rank forms the
-    reflector (the full-length masked norm, as on one device) and updates
-    its local columns right of j."""
+    per-column reflector broadcast, src:141-143; the JAX engine sends the
+    whole column), every rank forms the reflector (the full-length masked
+    norm, as on one device) and updates its local columns right of j."""
     m, nloc = Al.shape
     p, P = mesh.rank, mesh.size
     gidx = _local_gidx(p, n, nloc, store_nb, layout)
@@ -257,7 +273,7 @@ def _unblocked_shard(Al, n, mesh, precision, layout, store_nb, norm):
         jl = _col_local(j, n, P, store_nb, layout)
         buf = Al[j:, jl].contiguous() if p == owner \
             else Al.new_empty(m - j)
-        wire.wire_broadcast(buf, owner, mesh)
+        buf = wire.wire_broadcast(buf, owner, mesh, comms, axis=axis)
         col = Al.new_zeros(m)
         col[j:] = buf
         v, alpha[j] = householder_reflector(col, j, norm)
@@ -284,8 +300,9 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
     (m, n / P) block in store order and alpha (for chaining into
     :func:`~dhqr_tpu_torch.parallel.sharded_solve.sharded_solve`; n must
     then divide by ``store_nb * P``). ``layout="cyclic"`` stores
-    ``store_nb``-wide blocks round-robin."""
-    wire.check_comms(comms)
+    ``store_nb``-wide blocks round-robin. ``comms``: the wire format of
+    the column broadcasts."""
+    comms = resolve_comms(comms)
     A, axis_name, nproc = _prepare(A, mesh, axis_name, layout)
     m, n = A.shape
     refuse_unported(DHQRConfig(precision=precision, norm=norm,
@@ -303,9 +320,14 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
             stacklevel=2,
         )
     _check_divisibility(Ap.shape[0], n_pad, nproc, None, layout)
-    Al = _local_block(Ap, mesh, n_pad, store_nb, layout)
-    Hl, alpha = _unblocked_shard(Al, n_pad, mesh, precision, layout,
-                                 store_nb, norm)
+    m_pad = Ap.shape[0]
+    label = (f"unblocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x"
+             f"{n_pad},{layout}" + (f",w{comms}" if comms else "") + "]")
+    Hl, alpha = _pulse.observed_dispatch(
+        label, lambda: _unblocked_shard(
+            _local_block(Ap, mesh, n_pad, store_nb, layout), n_pad, mesh,
+            precision, layout, store_nb, norm, comms, axis_name),
+        mesh=mesh, n_devices=nproc, wire_format=comms)
     if _store_layout_output:
         return Hl, alpha
     return (_gather_natural(Hl, mesh, n_pad, store_nb, layout)[:m, :n],
@@ -318,10 +340,14 @@ class _Shard:
     """One rank's local block and what the blocked schedules share."""
 
     def __init__(self, Al, n, nb, mesh, layout, plan, precision, tprec,
-                 norm, panel_impl):
+                 norm, panel_impl, comms=None, axis=None):
         self.Al, self.n, self.nb, self.mesh = Al, n, nb, mesh
         self.layout, self.precision, self.tprec = layout, precision, tprec
         self.norm, self.panel_impl = norm, panel_impl
+        self.comms, self.axis = comms, axis
+        # Owners keep a panel as the wire delivered it unless it arrives
+        # exactly as sent.
+        self.keep_wire = not wire.exact(comms, axis)
         self.plan = plan
         self.p, self.P = mesh.rank, mesh.size
         self.nloc = Al.shape[1]
@@ -352,24 +378,33 @@ class _Shard:
             apply_block_reflector_h(Y, self.Al[r0:, c0:], self.precision,
                                     self.tprec, inplace=True)
 
+    def broadcast(self, parts, src, async_op=False):
+        return wire.wire_broadcast(parts, src, self.mesh, self.comms,
+                                   axis=self.axis, async_op=async_op)
+
     def share_panel(self, k: int, leaf: int, async_op: bool = False):
         """Factor panel k on its owner (in place) and broadcast the factored
-        panel, with its alpha as one more row, to every rank."""
+        panel (rows k:) and its alpha to every rank, in one collective."""
         owner, kl = self.owner(k)
         m, nb = self.Al.shape[0], self.nb
         if self.p == owner:
             panel = self.Al[k:, kl:kl + nb]
             pf, alpha_k = self.factor(panel, leaf)
             panel.copy_(pf)
-            buf = torch.cat([pf, alpha_k[None]])
+            parts = [pf, alpha_k]
         else:
-            buf = self.Al.new_empty((m - k + 1, nb))
-        return wire.wire_broadcast(buf, owner, self.mesh, async_op=async_op)
+            parts = [self.Al.new_empty((m - k, nb)), self.Al.new_empty(nb)]
+        return self.broadcast(parts, owner, async_op)
 
-    def take_panel(self, k: int, buf) -> torch.Tensor:
-        """Record the shared panel's alpha; returns its Y (rows k:)."""
-        self.alpha[k:k + self.nb] = buf[-1]
-        return torch.tril(buf[:-1])
+    def take_panel(self, k: int, parts) -> torch.Tensor:
+        """Record the shared panel's alpha (and on its owner, under a lossy
+        wire, the panel as delivered); returns its Y (rows k:)."""
+        pf, alpha_k = parts
+        self.alpha[k:k + self.nb] = alpha_k
+        owner, kl = self.owner(k)
+        if self.keep_wire and self.p == owner:
+            self.Al[k:, kl:kl + self.nb] = pf
+        return torch.tril(pf)
 
     def gather_group(self, group, r0: int, async_op: bool = False):
         """The group's columns, rows r0:, on every rank in ONE collective:
@@ -383,12 +418,13 @@ class _Shard:
             (src,) = ranks
             buf = torch.cat(cols, 1) if self.p == src else \
                 self.Al.new_empty((m - r0, nb * len(group)))
-            return wire.wire_broadcast(buf, src, self.mesh, async_op=async_op)
+            return self.broadcast(buf, src, async_op)
         buf = self.Al.new_zeros((m - r0, nb * len(group)))
         for j, (o, _) in enumerate(owners):
             if o == self.p:
                 buf[:, j * nb:(j + 1) * nb] = cols[j]
-        return wire.wire_psum(buf, self.mesh, async_op=async_op)
+        return wire.wire_psum(buf, self.mesh, self.comms, axis=self.axis,
+                              async_op=async_op)
 
     def factor_group(self, G, c0: int, group) -> None:
         """Factor the gathered group G in place (its diagonal at row c0),
@@ -438,6 +474,47 @@ def _lookahead_schedule(s: _Shard) -> None:
         Yp, kp = s.take_panel(k1, pending.wait()), k1
 
 
+class _InFlight:
+    """A shared panel of the pipeline: its broadcast, waited for (and the
+    panel taken) the first time its Y is needed."""
+
+    def __init__(self, s: _Shard, k: int, pending):
+        self.s, self.k, self.pending, self.Y = s, k, pending, None
+
+    def y(self) -> torch.Tensor:
+        if self.Y is None:
+            self.Y = self.s.take_panel(self.k, self.pending.wait())
+        return self.Y
+
+
+def _pipeline_schedule(s: _Shard, depth: int) -> None:
+    """The depth-k pipeline (``_blocked_shard_pipeline``): up to ``depth``
+    shared panels in flight. Panel q's owner first applies the pending
+    panels' transforms to its columns, oldest first (the narrow updates),
+    factors it and puts its broadcast in flight; then, once ``depth``
+    panels are pending, the oldest one's wide GEMM runs on the live
+    columns past panel q, and leaves the ring. A column of panel j thus
+    receives panels < j - depth through wide GEMMs and the rest through
+    narrow ones, in ascending order, as in the lookahead order (depth 1).
+    Every panel's transform has reached every column when the last panel
+    factors; the drain only takes the panels still in flight."""
+    ring: "list[_InFlight]" = []
+    for k1, _, leaf1 in s.plan:
+        owner1, kl1 = s.owner(k1)
+        if s.p == owner1:
+            for entry in ring:
+                apply_block_reflector_h(
+                    entry.y(), s.Al[entry.k:, kl1:kl1 + s.nb],
+                    s.precision, s.tprec, inplace=True)
+        pending = s.share_panel(k1, leaf1, async_op=True)
+        if len(ring) == depth:
+            oldest = ring.pop(0)
+            s.update(oldest.y(), oldest.k, k1 + s.nb)  # beside the flight
+        ring.append(_InFlight(s, k1, pending))
+    for entry in ring:
+        entry.y()
+
+
 def _grouped_schedule(s: _Shard, k: int, lookahead: bool) -> None:
     """``agg_panels=k``: groups of k consecutive panels from column 0 (the
     last may be smaller). Each group is gathered in one collective,
@@ -473,12 +550,16 @@ def _grouped_schedule(s: _Shard, k: int, lookahead: bool) -> None:
 
 
 def _blocked_shard(Al, n, nb, mesh, layout, plan, precision, tprec, norm,
-                   panel_impl, lookahead, agg_panels):
-    """Factor the local block Al (m, n / P) in place; returns (Al, alpha)."""
+                   panel_impl, lookahead, agg_panels, depth=None, comms=None,
+                   axis=None):
+    """Factor the local block Al (m, n / P) in place; returns (Al, alpha).
+    ``depth`` (>= 2, resolved by the caller) picks the pipeline."""
     s = _Shard(Al, n, nb, mesh, layout, plan, precision, tprec, norm,
-               panel_impl)
+               panel_impl, comms, axis)
     if agg_panels and len(plan) > 1:
         _grouped_schedule(s, agg_panels, lookahead)
+    elif depth:
+        _pipeline_schedule(s, depth)
     elif lookahead and len(plan) > 1:
         _lookahead_schedule(s)
     else:
@@ -509,16 +590,17 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
     (n must divide by nb * P). ``use_pallas`` routes the owner's panels
     through the Hopper panel kernel (resolved against ``mesh.device``).
     ``lookahead`` and ``agg_panels`` pick the schedule (module docstring);
-    ``overlap_depth`` 1 is the lookahead order, and a deeper pipeline
-    raises ``NotPortedError``. ``policy`` sets ``precision`` /
-    ``trailing_precision`` / ``comms`` together; only ``comms=None`` (the
-    uncompressed wire) is ported.
+    ``overlap_depth=k`` (with ``lookahead``) the depth-k pipeline, its
+    depth clamped to the panels after the first (depth 1 is the lookahead
+    order); it is exclusive with ``agg_panels``. ``comms`` names the wire
+    format of every broadcast (``"bf16"`` / ``"int8"`` / ``"dcn:*"``;
+    None keeps the uncompressed tier's results bit for bit). ``policy``
+    sets ``precision`` / ``trailing_precision`` / ``comms`` together.
     """
     comms = apply_policy_to_comms_arg(policy, comms)
     precision, trailing_precision = apply_policy_to_factor_args(
         policy, precision, trailing_precision,
         default_precision=DEFAULT_PRECISION)
-    wire.check_comms(comms)
     A, axis_name, nproc = _prepare(A, mesh, axis_name, layout)
     m, n = A.shape
     if agg_panels is not None and agg_panels < 2:
@@ -556,18 +638,26 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
                                     chained=_store_layout_output)
     m_pad = Ap.shape[0]
     _check_divisibility(m_pad, n_pad, nproc, nb, layout)
+    depth = None
     if overlap_depth is not None:
         # Clamped to the deepest pipeline the panel count supports; depth
         # 1 IS the one-panel lookahead order.
-        if min(overlap_depth, max(n_pad // nb - 1, 1)) > 1:
-            raise NotPortedError(f"overlap_depth={overlap_depth} on a mesh",
-                                 PIPELINE_ITEM)
+        depth = min(overlap_depth, max(n_pad // nb - 1, 1))
+        if depth <= 1:
+            depth = None
     kernel = _resolve_kernel(use_pallas, m_pad, A.dtype, mesh.device)
     plan = panel_plan(m_pad, n_pad, nb, kernel, A.dtype, mesh.device)
-    Hl, alpha = _blocked_shard(
-        _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb, mesh, layout,
-        plan, precision, trailing_precision, norm, panel_impl, lookahead,
-        agg_panels)
+    sched = (((f"la{depth}" if depth else "la") if lookahead else "")
+             + (f"agg{agg_panels}" if agg_panels else ""))
+    label = (f"blocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x{n_pad},"
+             f"nb={nb},{layout}" + (f",{sched}" if sched else "")
+             + (f",w{comms}" if comms else "") + "]")
+    Hl, alpha = _pulse.observed_dispatch(
+        label, lambda: _blocked_shard(
+            _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb, mesh,
+            layout, plan, precision, trailing_precision, norm, panel_impl,
+            lookahead, agg_panels, depth, comms, axis_name),
+        mesh=mesh, n_devices=nproc, wire_format=comms)
     if _store_layout_output:
         return Hl, alpha
     return (_gather_natural(Hl, mesh, n_pad, nb, layout)[:m, :n],

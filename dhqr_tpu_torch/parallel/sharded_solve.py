@@ -8,12 +8,16 @@
   nb x nb diagonal block and forms its columns' update to the earlier
   rows; one broadcast carries both (n / nb collectives in place of the
   reference's n rounds of host RPCs, src:256-282).
+
+Both stages' broadcasts ride the ``comms`` wire format, on the
+``axis_name`` (a two-tier axis on a pod mesh) as the factorization's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.blocked import apply_block_reflector_h
 from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
@@ -30,30 +34,38 @@ from dhqr_tpu_torch.parallel.sharded_qr import (
     _panel_owner,
     sharded_blocked_qr,
 )
-from dhqr_tpu_torch.parallel.topology import axis_size, resolve_axis
+from dhqr_tpu_torch.parallel.topology import (
+    axis_label,
+    axis_size,
+    resolve_axis,
+)
 from dhqr_tpu_torch.precision import (
     apply_policy_to_comms_arg,
     apply_policy_to_factor_args,
+    resolve_comms,
     resolve_policy,
 )
 from dhqr_tpu_torch.utils.config import check_precision, refuse_grad
 from dhqr_tpu_torch.utils.device import as_tensor
 
 
-def _apply_qt_shard(Hl, B, n, nb, mesh, precision, layout):
+def _apply_qt_shard(Hl, B, n, nb, mesh, precision, layout, comms=None,
+                    axis=None):
     """B <- Q^H B in place (B (m, k), whole on every rank): per panel, the
-    owner's reflectors broadcast and applied everywhere."""
+    owner's reflectors (rows k:, R's entries zeroed) broadcast and applied
+    everywhere."""
     m, nloc = Hl.shape
     for k in range(0, n, nb):
         owner, kl = _panel_owner(k, n, nloc, nb, layout)
-        Y = Hl[k:, kl:kl + nb].contiguous() if mesh.rank == owner \
+        Y = torch.tril(Hl[k:, kl:kl + nb]) if mesh.rank == owner \
             else Hl.new_empty((m - k, nb))
-        wire.wire_broadcast(Y, owner, mesh)
-        apply_block_reflector_h(torch.tril(Y), B[k:], precision, inplace=True)
+        Y = wire.wire_broadcast(Y, owner, mesh, comms, axis=axis)
+        apply_block_reflector_h(Y, B[k:], precision, inplace=True)
     return B
 
 
-def _backsub_shard(Hl, alpha, C, n, nb, mesh, precision, layout):
+def _backsub_shard(Hl, alpha, C, n, nb, mesh, precision, layout, comms=None,
+                   axis=None):
     """Solve R x = C[:n] (R packed in Hl's strict upper triangle and
     alpha); returns x (n, k) on every rank."""
     nloc = Hl.shape[1]
@@ -69,7 +81,7 @@ def _backsub_shard(Hl, alpha, C, n, nb, mesh, precision, layout):
             packed = torch.cat([delta, xp])
         else:
             packed = C.new_empty((k + nb, C.shape[1]))
-        wire.wire_broadcast(packed, owner, mesh)
+        packed = wire.wire_broadcast(packed, owner, mesh, comms, axis=axis)
         x[k:k + nb] = packed[k:]
         C[:k] -= packed[:k]
     return x
@@ -99,8 +111,9 @@ def sharded_solve(H, alpha, b, mesh, block_size: int = 128,
     (m, n / P) block in store order (the chaining of
     :func:`sharded_lstsq` and of a mesh factorization's solves). ``b``
     ((m,) or (m, k)) is the same on every rank; so is the returned x.
+    ``comms``: the wire format of the solve's broadcasts.
     """
-    wire.check_comms(comms)
+    comms = resolve_comms(comms)
     check_precision(precision)
     check_mesh(mesh)
     _check_layout(layout)
@@ -119,10 +132,19 @@ def sharded_solve(H, alpha, b, mesh, block_size: int = 128,
     _check_divisibility(H.shape[0], n_pad, nproc, nb, layout)
     Hl = H if _H_in_store_layout else _local_block(H, mesh, n_pad, nb,
                                                    layout)
-    B = b[:, None].clone() if b.ndim == 1 else b.clone()
-    x = _backsub_shard(Hl, alpha, _apply_qt_shard(Hl, B, n_pad, nb, mesh,
-                                                  precision, layout),
-                       n_pad, nb, mesh, precision, layout)
+    m = H.shape[0]
+
+    def dispatch():
+        B = b[:, None].clone() if b.ndim == 1 else b.clone()
+        return _backsub_shard(
+            Hl, alpha, _apply_qt_shard(Hl, B, n_pad, nb, mesh, precision,
+                                       layout, comms, axis_name),
+            n_pad, nb, mesh, precision, layout, comms, axis_name)
+
+    label = (f"sharded_solve[P={axis_label(axis_name, nproc)},{m}x{n_pad},"
+             f"nb={nb},{layout}" + (f",w{comms}" if comms else "") + "]")
+    x = _pulse.observed_dispatch(label, dispatch, mesh=mesh,
+                                 n_devices=nproc, wire_format=comms)
     return x[:n, 0] if b.ndim == 1 else x[:n]
 
 
@@ -164,7 +186,6 @@ def sharded_lstsq(A, b, mesh, block_size: int = 128, axis_name=DEFAULT_AXIS,
         default_precision=DEFAULT_PRECISION)
     if apply_precision is None:
         apply_precision = precision
-    wire.check_comms(comms)
     check_mesh(mesh)
     A = as_tensor(A, mesh.device)
     b = as_tensor(b, mesh.device, A.dtype)
@@ -176,7 +197,8 @@ def sharded_lstsq(A, b, mesh, block_size: int = 128, axis_name=DEFAULT_AXIS,
         layout=layout, _store_layout_output=True, norm=norm,
         use_pallas=use_pallas, panel_impl=panel_impl,
         trailing_precision=trailing_precision, lookahead=lookahead,
-        agg_panels=agg_panels, overlap_depth=overlap_depth)
+        agg_panels=agg_panels, overlap_depth=overlap_depth, comms=comms)
     return sharded_solve(Hl, alpha, b, mesh, block_size=nb,
                          axis_name=axis_name, precision=apply_precision,
-                         layout=layout, _H_in_store_layout=True)[:n]
+                         layout=layout, _H_in_store_layout=True,
+                         comms=comms)[:n]

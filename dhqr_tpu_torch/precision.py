@@ -43,9 +43,8 @@ TRAILING_PRECISIONS = ("highest", "high", "default")
 # (full FP32 is 6 bf16 passes there); the JAX package's cost model.
 MXU_PASSES = {"highest": 6, "high": 3, "default": 1, "float32": 6}
 
-# Collective wire formats of the sharded tier. The port parses them as the
-# JAX package does; a run that would use one raises NotPortedError until
-# the sharded tier is ported.
+# Collective wire formats of the sharded tier (parallel/wire.py), parsed as
+# the JAX package parses them.
 COMMS_MODES = ("bf16", "int8", "dcn:bf16", "dcn:int8")
 WIRE_ITEMSIZE = {None: None, "bf16": 2, "int8": 1,
                  "dcn:bf16": 2, "dcn:int8": 1}

@@ -66,12 +66,12 @@ class DHQRConfig:
     "screen" / "fallback" / "full": the entry points route through
     :mod:`dhqr_tpu_torch.numeric.ladder`). ``mesh_axis`` and ``layout``
     steer the mesh tier (``mesh=``, :mod:`dhqr_tpu_torch.parallel`) and
-    are ignored on a single device, as in the JAX package. ``comms``
-    parses ("f32"/"none" mean None, the one wire format ported);
+    are ignored on a single device, as in the JAX package, and so is
+    ``comms``, the mesh's wire format (``"bf16"`` / ``"int8"`` /
+    ``"dcn:bf16"`` / ``"dcn:int8"``; "f32"/"none" mean None);
     ``overlap_depth`` is mesh-only, a ``ValueError`` on a single device as
-    in the JAX package, and on a mesh only depth 1 (the lookahead order)
-    runs. Every other field must stay at its default: the entry points
-    refuse it (:func:`refuse_unported`).
+    in the JAX package. ``plan`` must stay at its default: the entry
+    points refuse it (:func:`refuse_unported`).
     """
 
     block_size: "int | None" = None
@@ -132,12 +132,9 @@ def check_precision(precision: str) -> None:
                          f"got {precision!r}")
 
 
-_COMMS_ITEM = ("Queue A item 11 (the compressed wire, with the two-tier "
-               "pod mesh)")
 # (field, ROADMAP item that brings it). Each must stay at its default.
 _UNPORTED_FIELDS = (
     ("plan", "Queue A item 14 (tune/)"),
-    ("comms", _COMMS_ITEM),
 )
 
 ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
@@ -383,7 +380,7 @@ class FaultConfig:
         return FaultConfig(**env)
 
 
-_OBS_ITEM = "Queue A item 16 (obs/: xray and pulse)"
+_OBS_ITEM = "Queue A item 16 (obs/: xray)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,11 +397,13 @@ class ObsConfig:
       auto_dump: the flight recorder's ``on_error`` destination
         (``DHQR_OBS_DUMP``): None (off), ``"stderr"``, or a directory that
         receives ``flight_<pid>.jsonl``.
-      xray, xray_reports, pulse, pulse_reports, profile_dir: the device
-        introspection knobs (``DHQR_OBS_XRAY``, ``DHQR_OBS_XRAY_REPORTS``,
-        ``DHQR_OBS_PULSE``, ``DHQR_OBS_PULSE_REPORTS``,
+      pulse, pulse_reports: whether ``obs.arm`` arms the pulse collective
+        profiler (:mod:`dhqr_tpu_torch.obs.pulse`; ``DHQR_OBS_PULSE``) and
+        its report capacity (``DHQR_OBS_PULSE_REPORTS``).
+      xray, xray_reports, profile_dir: the device introspection knobs
+        (``DHQR_OBS_XRAY``, ``DHQR_OBS_XRAY_REPORTS``,
         ``DHQR_OBS_PROFILE``). They construct and parse as in the JAX
-        package; ``obs.arm`` with ``xray`` or ``pulse`` set raises
+        package; ``obs.arm`` with ``xray`` set raises
         :class:`NotPortedError` until ROADMAP Queue A item 16.
     """
 
@@ -435,10 +434,9 @@ class ObsConfig:
 
     def refuse_unported(self) -> None:
         """Raise :class:`NotPortedError` when this config would arm what
-        the port does not run yet (xray, pulse)."""
-        for field in ("xray", "pulse"):
-            if getattr(self, field):
-                raise NotPortedError(f"ObsConfig({field}=True)", _OBS_ITEM)
+        the port does not run yet (xray)."""
+        if self.xray:
+            raise NotPortedError("ObsConfig(xray=True)", _OBS_ITEM)
 
     @staticmethod
     def from_env(**overrides) -> "ObsConfig":

@@ -116,9 +116,18 @@ def test_qr_factorization_fields_in_the_reference_order():
 
 
 def test_qr_factorization_comms_waits_for_the_compressed_wire():
+    """With the compressed wire ported, a factorization records its
+    wire format, as the JAX package's does, and a one-device solve (no
+    collective to compress) is the plain one."""
     f = dt.qr(np.eye(6, 3), device="cpu")
-    with pytest.raises(dt.NotPortedError, match="item 11"):
-        dt.QRFactorization(f.H, f.alpha, comms="bf16")
+    fj = dhqr_tpu.qr(jnp.asarray(np.eye(6, 3)))
+    for comms in ("bf16", "int8", "dcn:bf16"):
+        mine = dt.QRFactorization(f.H, f.alpha, comms=comms)
+        theirs = dhqr_tpu.QRFactorization(fj.H, fj.alpha, comms=comms)
+        assert mine.comms == theirs.comms == comms
+        rhs = np.arange(6.0)
+        np.testing.assert_array_equal(mine.solve(rhs).numpy(),
+                                      f.solve(rhs).numpy())
 
 
 # ------------------------------------------------------- run_ranks device

@@ -153,7 +153,8 @@ def test_facade_exports():
               "NonFiniteInput", "Breakdown", "IllConditioned",
               "ResidualGateFailed", "PrecisionPolicy", "PRECISION_POLICIES",
               "POLICY_LADDER", "resolve_policy", "sketched_lstsq",
-              "SketchConfig"}
+              "SketchConfig", "TierAxes", "pod_mesh", "global_pod_mesh",
+              "PulseReport"}
     assert wanted <= set(dt.__all__)
     assert (wanted - {"DHQRConfig"}) <= set(dhqr_tpu.__all__) | {"__version__"}
     # the distributed tier: the names of dhqr_tpu.parallel that the port
@@ -168,8 +169,11 @@ def test_facade_exports():
                 "sharded_solve", "sharded_lstsq", "sharded_tsqr_lstsq",
                 "sharded_cholqr_lstsq", "initialize", "global_column_mesh",
                 "global_row_mesh", "process_info"}
-    assert set(dt.parallel.__all__) == parallel | {"ColumnMesh"}
+    pod = {"TierAxes", "pod_mesh", "global_pod_mesh"}
+    assert set(dt.parallel.__all__) == parallel | pod | {"ColumnMesh",
+                                                          "PodMesh"}
     assert parallel <= set(jpar.__all__)
+    assert pod <= set(dhqr_tpu.__all__)  # exported at the JAX top level
 
 
 # The collectives of torch.distributed; in the port's parallel/ package

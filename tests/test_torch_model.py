@@ -155,12 +155,14 @@ def test_solve_refine_needs_the_matrix():
 
 
 UNPORTED = [
-    {"plan": "auto"}, {"comms": "bf16"},
+    {"plan": "auto"},
 ]
 
 # Knobs that raised NotPortedError until the precision policies, the
 # tall-skinny engines, the schedules, the reconstruct panel engine, the
-# sketched solver and the guarded ladder were ported; each now runs.
+# sketched solver, the guarded ladder and the compressed wire were ported;
+# each now runs (a wire format is the mesh's: one device ignores it, as
+# the JAX package does).
 PORTED = [
     {"policy": "accurate"}, {"engine": "tsqr"}, {"engine": "cholqr2"},
     {"precision": "default"}, {"precision": "high"},
@@ -168,6 +170,7 @@ PORTED = [
     {"engine": "sketch"}, {"lookahead": True}, {"agg_panels": 2},
     {"panel_impl": "reconstruct"}, {"panel_impl": "reconstruct:64"},
     {"guards": "screen"}, {"guards": "fallback"}, {"guards": "full"},
+    {"comms": "bf16"},
 ]
 
 
@@ -231,8 +234,7 @@ def test_mesh_and_bad_values():
     with pytest.raises(ValueError):
         dt.qr(A, blocked=False, donate=True, device="cpu")
     # overlap_depth is mesh-only: a ValueError on one device, as in JAX;
-    # on a mesh a pipeline deeper than one panel is not ported
-    # (tests/test_torch_sharded_engines.py)
+    # on a mesh it runs the depth-k pipeline (tests/test_torch_pipeline.py)
     with pytest.raises(ValueError, match="mesh-only"):
         dt.qr(A, device="cpu", overlap_depth=2, lookahead=True)
     with pytest.raises(TypeError, match="ColumnMesh"):

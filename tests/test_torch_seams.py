@@ -240,10 +240,24 @@ def test_obs_config_from_env_matches_jax(monkeypatch, env):
 
 @pytest.mark.parametrize("field", ["xray", "pulse"])
 def test_xray_and_pulse_refuse_when_armed_not_built(field):
+    """xray still waits for item 16 and arms nothing; pulse arms
+    its store beside the recorder, and ``obs.disarm`` disarms both."""
+    from dhqr_tpu_torch.obs import pulse
+
     cfg = tconfig.ObsConfig(enabled=True, **{field: True})  # constructs
-    with pytest.raises(dt.NotPortedError, match="item 16"):
-        obs.arm(cfg)
-    assert obs.active() is None  # nothing was armed
+    if field == "xray":
+        with pytest.raises(dt.NotPortedError, match="item 16"):
+            obs.arm(cfg)
+        assert obs.active() is None  # nothing was armed
+        assert pulse.active() is None
+        return
+    try:
+        recorder = obs.arm(cfg)
+        assert obs.active() is recorder and recorder is not None
+        assert pulse.active() is not None
+    finally:
+        obs.disarm()
+    assert obs.active() is None and pulse.active() is None
 
 
 def _drive(recorder_cls, obs_config_cls):

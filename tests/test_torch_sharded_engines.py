@@ -1,8 +1,10 @@
 """PyTorch port: the mesh tier through the public entry points — ``qr``,
 ``QRFactorization``, ``qr_explicit`` and ``lstsq`` with ``mesh=``, the
 row-sharded TSQR / CholeskyQR engines, the refusals with their messages,
-and the rank launcher — on gloo process groups of 2 and 4 CPU ranks,
-against the JAX package on the conftest's 8-device CPU mesh.
+the knobs ported last (the depth-k pipeline, a compressed wire, the
+two-tier pod mesh), and the rank launcher — on gloo process groups of 2
+and 4 CPU ranks, against the JAX package on the conftest's 8-device CPU
+mesh.
 
 The ranks run through ``parallel/_ranks.run_ranks`` with its
 ``run_calls`` worker, one spawn per rank count for the module. Inputs are
@@ -23,6 +25,7 @@ from dhqr_tpu.parallel import column_mesh, row_mesh  # noqa: E402
 from dhqr_tpu.parallel import sharded_qr as jsq  # noqa: E402
 from dhqr_tpu.parallel.sharded_cholqr import sharded_cholqr_lstsq  # noqa: E402
 from dhqr_tpu.parallel.sharded_solve import sharded_lstsq, sharded_solve  # noqa: E402,E501
+from dhqr_tpu.parallel.mesh import pod_mesh as jax_pod_mesh  # noqa: E402
 from dhqr_tpu.parallel.sharded_tsqr import sharded_tsqr_lstsq  # noqa: E402
 from dhqr_tpu.utils.testing import (  # noqa: E402
     normal_equations_residual,
@@ -34,6 +37,7 @@ from dhqr_tpu_torch.parallel._ranks import (  # noqa: E402
     COLS,
     PREV,
     ROWS,
+    pod,
     results_equal_across_ranks,
     run_calls,
     run_ranks,
@@ -97,6 +101,13 @@ CASES = {
                                                engine="cholqr2"))],
     "cholqr3": [("lstsq", (TALL, TALL_B), dict(mesh=ROWS,
                                                engine="cholqr3"))],
+    # the knobs that raised NotPortedError until the wire was ported
+    "pipeline": [("sharded_blocked_qr", (A, COLS), dict(
+        block_size=NB, overlap_depth=2, lookahead=True))],
+    "comms": [("lstsq", (A, b), dict(mesh=COLS, comms="bf16"))],
+    "comms_engine": [("sharded_tsqr_lstsq", (TALL, TALL_B, ROWS), dict(
+        comms="int8"))],
+    "two_tier": [("sharded_blocked_qr", (A, pod("")), dict(block_size=NB))],
 }
 
 # Refusals: name -> (steps, the JAX call that must raise the same message,
@@ -167,12 +178,7 @@ REFUSALS = {
         lambda m: sharded_lstsq(A, b, m, policy="balanced")),
     "layout": ([("sharded_blocked_qr", (A, COLS), dict(layout="diagonal"))],
                lambda m: jsq.sharded_blocked_qr(A, m, layout="diagonal")),
-    "pipeline": ([("sharded_blocked_qr", (A, COLS), dict(
-        block_size=NB, overlap_depth=2, lookahead=True))], None),
-    "comms": ([("lstsq", (A, b), dict(mesh=COLS, comms="bf16"))], None),
-    "comms_engine": ([("sharded_tsqr_lstsq", (TALL, TALL_B, ROWS), dict(
-        comms="int8"))], None),
-    "two_tier": ([("sharded_blocked_qr", (A, COLS), dict(
+    "two_tier_on_1d": ([("sharded_blocked_qr", (A, COLS), dict(
         axis_name=("dcn", "ici")))], None),
     "row_mesh_for_columns": ([("qr", (A,), dict(mesh=ROWS))], None),
 }
@@ -229,15 +235,12 @@ def test_qr_on_a_mesh_matches_jax(ranks, P):
     assert _rel(Q @ R, A) <= 1e-12
     # overlap_depth is clamped to the panels after the first: at P = 2,
     # n = 8 holds two panels, so depth 2 is the lookahead order; at P = 4
-    # the panel width drops to 2 and a depth-2 pipeline is not ported
-    if P == 2:
-        f8 = dhqr_tpu.qr(jnp.asarray(A[:, :8]), mesh=mesh, block_size=NB,
-                         lookahead=True)
-        assert _rel(_ok(got["qr_depth1_is_lookahead"]),
-                    np.asarray(f8.H)) <= 1e-9
-    else:
-        assert got["qr_depth1_is_lookahead"][:2] == ("raised",
-                                                     "NotPortedError")
+    # the panel width drops to 2 and four panels run the depth-2 pipeline
+    f8 = dhqr_tpu.qr(jnp.asarray(A[:, :8]), mesh=mesh, block_size=NB,
+                     lookahead=True,
+                     **({} if P == 2 else {"overlap_depth": 2}))
+    assert _rel(_ok(got["qr_depth1_is_lookahead"]),
+                np.asarray(f8.H)) <= 1e-9
 
 
 @pytest.mark.parametrize("P", RANKS)
@@ -316,17 +319,28 @@ def test_refusals_match_jax_messages(ranks, P, name):
 
 @pytest.mark.parametrize("P", RANKS)
 def test_unported_mesh_knobs_raise(ranks, P):
-    """A depth-2 pipeline, a compressed wire and a two-tier axis raise
-    NotPortedError naming what waits; a column call on a row mesh raises
-    the axis KeyError."""
+    """The knobs that raised NotPortedError before the wire was ported
+    run and match the JAX package: a depth-2 pipeline (1e-9), a compressed
+    wire through
+    the model tier and a row engine (within the wire's rounding, 2^-6 /
+    4/127) and a pod mesh's two-tier axis (1e-9). What still raises: a
+    two-tier spelling on a 1-D mesh and a column call on a row mesh, the
+    axis KeyError, as in the JAX package."""
     got = ranks(P)
-    for name, word in (("pipeline", "_blocked_shard_pipeline"),
-                       ("comms", "compressed wire"),
-                       ("comms_engine", "compressed wire"),
-                       ("two_tier", "pod mesh")):
-        assert got[name][:2] == ("raised", "NotPortedError"), got[name]
-        assert word in got[name][2] and "ROADMAP.md" in got[name][2]
-    assert got["row_mesh_for_columns"][:2] == ("raised", "KeyError")
+    mesh = column_mesh(P)
+    H_j, alpha_j = jsq.sharded_blocked_qr(A, mesh, block_size=NB,
+                                          overlap_depth=2, lookahead=True)
+    H, alpha = _ok(got["pipeline"])
+    assert _rel(H, H_j) <= 1e-9 and _rel(alpha, alpha_j) <= 1e-9
+    x_j = dhqr_tpu.lstsq(jnp.asarray(A), jnp.asarray(b), mesh=mesh,
+                         comms="bf16")
+    assert _rel(_ok(got["comms"]), x_j) <= 2.0 ** -6
+    xt_j = sharded_tsqr_lstsq(TALL, TALL_B, row_mesh(P), comms="int8")
+    assert _rel(_ok(got["comms_engine"]), xt_j) <= 4 / 127
+    H_p, _ = jsq.sharded_blocked_qr(A, jax_pod_mesh(P)[0], block_size=NB)
+    assert _rel(_ok(got["two_tier"])[0], H_p) <= 1e-9
+    for name in ("two_tier_on_1d", "row_mesh_for_columns"):
+        assert got[name][:2] == ("raised", "KeyError"), got[name]
 
 
 def test_a_rank_that_raises_fails_the_run():
