@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18]
+                          [--phases 0,1,2,...,18,19]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-18 run by default, 7 on request):
+on any error (0-6 and 8-19 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -183,7 +183,35 @@ on any error (0-6 and 8-18 run by default, 7 on request):
    tenant spread, the kill ladder, a sticky update session; (g) a child
    interpreter on a key store this process recorded: its recaptures,
    counted misses with their reason, zero warm misses, an adopted
-   quarantine.
+   quarantine;
+19. tune_armor: the tuner and the armor seam, into a temporary plan DB
+   (``DHQR_TUNE_DB``): (a) ``tune("lstsq", 65536, 256)`` at the default
+   budget, each candidate's plan, ms, ratio to numpy's LAPACK QR and
+   kernel launches, the winner and its speedup, then ``lstsq(plan=
+   "auto")`` hitting the DB with no second tune, bit-identical to the
+   winner's knobs; (b) ``tune("qr", 16384, 16384)`` at budget 8 and 2
+   repeats (the f64 Gram gate on the card), then ``qr(plan="auto")``
+   launching the winner's panel plan; (c) ``prewarm(plan="auto")`` of
+   ``serve_lstsq`` on phase 17's two heaviest shapes, each bucket's
+   candidates captured and replayed, then 256 requests with zero misses,
+   the plan segment in the keys; (d) three rung-0 gate failures of
+   ``guarded_lstsq(plan="auto")`` under an injected ``numeric.breakdown``
+   demote the tall key (``resolve_plan`` None, ``tune.plan_gate.*`` in
+   the registry); (e) ``armor.checks.qr_gap`` at 16384^2, honest against
+   a corrupted entry (2 decades apart, localized); ``qr(mesh=)`` on one
+   NCCL rank at 16384^2 f32 armed and disarmed (bit-identical, one
+   verification, equal launches, the armed overhead); 4 gloo ranks at
+   4400 x 4000 f32: a one-shot ``parallel.collective.corrupt`` in the
+   ``lstsq``'s solve stage and one in a ``qr`` panel re-dispatched away,
+   the same hit on an ``lstsq`` panel printed (the normal-equations
+   checksum misses it at this size), a persistent ``drop`` typed
+   ``ShardFailure`` with a shard index,
+   the integrity tags poisoning a corrupted bf16 sum, two one-shot
+   corruptions and a NaN on two dispatches of the bf16 ``sharded_lstsq``
+   (re-dispatch, then the f32 degrade), and the three trips stripping
+   ``comms`` from a stored plan in ``resolve_plan``; 2 gloo ranks at 8192
+   x 4096 c64 armed, bit-identical to disarmed; (f) a mesh-less
+   ``obs.pulse.measure`` of a card ``lstsq`` records CUDA events.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -201,8 +229,9 @@ the parent's, and the serve path (17), which must launch no panel kernel
 the async serve path (18), whose batched dispatches launch no panel
 kernel and whose ``"update"`` kind launches 4 per factorization (its
 direct yardstick stream, when phase 15 did not run, and the sticky
-session's construction are taken back out). The ``kernels`` line sums
-the paths.
+session's construction are taken back out), and the tune_armor path (19),
+whose ranks' counts are added to the parent's and on which both kernels
+must launch. The ``kernels`` line sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -212,10 +241,13 @@ JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3722,11 +3754,564 @@ def phase_serve_async(dt, hp, seed, card, device="cuda",
     return update_launches
 
 
+# -- phase 19: the tuner and the armor seam ----------------------------------
+
+TUNE_TALL = (65536, 256)          # BASELINE.json's tall-skinny lstsq
+TUNE_SQUARE = (16384, 16384)      # BASELINE.json's square qr
+TUNE_SQUARE_BUDGET, TUNE_SQUARE_REPEATS = 8, 2
+TUNE_SERVE_REQUESTS = 256
+ARMOR_SEPARATION = 100.0   # corrupted / honest qr_gap, at least 2 decades
+ARMOR_REFERENCE = (4400, 4000)    # the reference's lstsq, 4 gloo ranks
+ARMOR_C64 = (8192, 4096)
+
+
+def _rank_matrix(m, n, dtype, seed, device):
+    """A deterministic uniform (m, n) matrix and m-vector on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype.is_complex:
+        real = torch.float32
+        A = torch.complex(torch.rand((m, n), generator=g, device=device,
+                                     dtype=real),
+                          torch.rand((m, n), generator=g, device=device,
+                                     dtype=real))
+        b = torch.complex(torch.rand(m, generator=g, device=device,
+                                     dtype=real),
+                          torch.rand(m, generator=g, device=device,
+                                     dtype=real))
+        return A, b
+    return (torch.rand((m, n), generator=g, device=device, dtype=dtype),
+            torch.rand(m, generator=g, device=device, dtype=dtype))
+
+
+def _armor_clean_case(dt, parallel, hp, device, m, n, dtype, seed, warm):
+    """``qr(mesh=)`` disarmed and armed on this rank's column mesh: each
+    twice after an optional warm-up (best seconds), launches per call,
+    the armed calls' verifications, and whether the armed factors are the
+    disarmed ones bit for bit."""
+    from dhqr_tpu_torch import armor
+    from dhqr_tpu_torch.utils.config import ArmorConfig
+
+    A, _ = _rank_matrix(m, n, dtype, seed, device)
+    mesh = parallel.column_mesh(device=device)
+
+    def call():
+        return dt.qr(A, mesh=mesh)
+
+    if warm:
+        call()
+    rows = {}
+    for armed in (False, True, False, True):
+        scope = armor.armored(ArmorConfig(enabled=True)) if armed \
+            else contextlib.nullcontext()
+        with scope as state:
+            l0 = dict(hp.LAUNCHES)
+            fact, t = _timed(call, device)
+            launched = {k: hp.LAUNCHES[k] - l0[k] for k in l0}
+            snap = state.metrics_snapshot() if armed else None
+        row = rows.setdefault(armed, {"s": [], "fact": fact})
+        row["s"].append(t)
+        row["launches"] = launched
+        row["metrics"] = snap
+    off, on = rows[False], rows[True]
+    same = bool(torch.equal(off["fact"].H, on["fact"].H)
+                and torch.equal(off["fact"].alpha, on["fact"].alpha))
+    return {"s_disarmed": min(off["s"]), "s_armed": min(on["s"]),
+            "launches_disarmed": off["launches"],
+            "launches_armed": on["launches"],
+            "armed_metrics": on["metrics"], "bit_identical": same}
+
+
+def _armor_faults_case(dt, parallel, hp, device, m, n, seed):
+    """The recovery ladder under injected wire faults on this rank's
+    column mesh at (m, n) f32: a one-shot corrupt in the ``lstsq``'s solve
+    stage and one in a ``qr`` panel (both re-dispatched away), the same
+    hit on an ``lstsq`` panel (printed: the normal-equations checksum does
+    not see it at this size, in the JAX package's invariant too), a
+    persistent drop on ``qr`` (typed, with a shard index), the tags on a
+    corrupted bf16 sum, two one-shot corruptions on the bf16 wire and a
+    NaN on two dispatches (the degrade), then ``resolve_plan`` on a stored
+    bf16 plan of the key those trips demote."""
+    from dhqr_tpu_torch import armor, faults, tune
+    from dhqr_tpu_torch.parallel import wire
+    from dhqr_tpu_torch.parallel.layout import plan_padding
+    from dhqr_tpu_torch.utils.config import ArmorConfig, FaultConfig
+
+    A, b = _rank_matrix(m, n, torch.float32, seed, device)
+    mesh = parallel.column_mesh(device=device)
+    armor.reset_wire_trips()
+    out = {}
+
+    def scenario(name, fn, *sites, armed=True):
+        scope = armor.armored(ArmorConfig(enabled=True)) if armed \
+            else contextlib.nullcontext()
+        with scope as state, faults.injected(FaultConfig(
+                sites=tuple(sites))) as harness:
+            t0 = time.perf_counter()
+            try:
+                value, error = fn(), None
+            except armor.ArmorError as err:
+                value, error = None, {
+                    "class": type(err).__name__, "label": err.label,
+                    "shard_index": err.shard_index,
+                    "recovery": list(err.recovery)}
+            _sync(device)
+            out[name] = {
+                "s": time.perf_counter() - t0, "error": error,
+                "metrics": state.metrics_snapshot() if armed else None,
+                "visits": {k: v["visits"]
+                           for k, v in harness.stats().items()},
+                "fired": {k: v["fired"] for k, v in harness.stats().items()}}
+        return value
+
+    # the factorization's collectives come first, two parts per panel
+    nb, n_pad = plan_padding(n, mesh.size, 128)
+    solve_visit = 2 * (n_pad // nb) + 1
+    x = scenario("corrupt_once", lambda: dt.lstsq(A, b, mesh=mesh),
+                 ("parallel.collective.corrupt", 1.0, 1, solve_visit))
+    out["corrupt_once"]["x"] = x.cpu().numpy()
+    out["corrupt_once"]["visit"] = solve_visit
+    scenario("corrupt_qr", lambda: dt.qr(A, mesh=mesh),
+             ("parallel.collective.corrupt", 1.0, 1, 3))
+    # the same one-shot hit on a factorization panel of the lstsq: the
+    # normal-equations checksum's known blind spot at this size (printed)
+    x = scenario("corrupt_factor_lstsq", lambda: dt.lstsq(A, b, mesh=mesh),
+                 ("parallel.collective.corrupt", 1.0, 1, 3))
+    out["corrupt_factor_lstsq"]["x"] = x.cpu().numpy()
+    scenario("drop_qr", lambda: dt.qr(A, mesh=mesh),
+             ("parallel.collective.drop", 1.0, None))
+    payload = A[:, :128].contiguous()
+    for armed in (True, False):
+        y = scenario(f"tag_{armed}", lambda: wire.wire_psum(
+            payload, mesh, "bf16", onehot=False),
+            ("parallel.collective.corrupt", 1.0, 1), armed=armed)
+        out[f"tag_{armed}"].update(
+            all_nan=bool(torch.isnan(y).all()),
+            finite=bool(torch.isfinite(y).all()))
+
+    def bf16():
+        return parallel.sharded_lstsq(A, b, mesh, comms="bf16")
+
+    # one dispatch's collective visits, from a clean bf16 run
+    scenario("bf16_clean", bf16, ("parallel.collective.nan", 0.0, None))
+    visits = out["bf16_clean"]["visits"]["parallel.collective.nan"]
+    for i in range(2):
+        scenario(f"bf16_corrupt_{i}", bf16,
+                 ("parallel.collective.corrupt", 1.0, 1))
+    x = scenario("bf16_nan_degrade", bf16,
+                 ("parallel.collective.nan", 1.0, visits + 1))
+    out["bf16_nan_degrade"]["x"] = x.cpu().numpy()
+    out["trips"] = armor.export_wire_trips()
+    out["degraded"] = armor.degraded_labels()
+    db = tune.PlanDB()
+    db.record(tune.plan_key("lstsq", m, n, "float32", nproc=mesh.size,
+                            device=device),
+              tune.Plan(block_size=128, comms="bf16"))
+    plan = tune.resolve_plan("lstsq", m, n, "float32", nproc=mesh.size,
+                             db=db, device=device)
+    out["resolved_plan"] = plan.to_dict()
+    armor.reset_wire_trips()
+    return out
+
+
+_ARMOR_CASES = {"clean": _armor_clean_case, "faults": _armor_faults_case}
+
+
+def armor_worker(device, cases):
+    """One rank of phase 19 (e): each case on this rank's mesh; returns
+    {"cases": per-case rows, "launches": this rank's kernel launches}
+    (every call here is on the tune_armor path)."""
+    import dhqr_tpu_torch as dt
+    from dhqr_tpu_torch import parallel
+    from dhqr_tpu_torch.ops import hopper_panel as hp
+
+    hp.reset_launches()
+    out = []
+    for case in cases:
+        case = dict(case)
+        out.append(_ARMOR_CASES[case.pop("kind")](dt, parallel, hp, device,
+                                                  **case))
+    return {"cases": out, "launches": dict(hp.LAUNCHES)}
+
+
+def _tune_tall(dt, hp, seed, tune):
+    """(a) the default-budget tune of ``lstsq`` at 65536 x 256 f32 into the
+    process-default DB, each candidate's launches, and ``plan="auto"``
+    hitting the DB with no second tune, bit-identical to the winner's
+    knobs."""
+    from dhqr_tpu_torch.tune import search
+    from dhqr_tpu_torch.utils.config import DHQRConfig
+
+    m, n = TUNE_TALL
+    res, t = wall(lambda: tune.tune("lstsq", m, n, torch.float32,
+                                    seed=seed))
+    A, b = random_problem(m, n, np.float32, seed + 19)
+    At, bt = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
+    rows = []
+    for meas in res.measurements:
+        cfg = tune.apply_plan_to_config(DHQRConfig(), meas.plan)
+        try:
+            _, launched, _ = _launches_of(
+                hp, lambda: dt.lstsq(At, bt, config=cfg))
+        except Exception as exc:  # printed: the tune skipped it too
+            launched = f"{type(exc).__name__}: {exc}"[:120]
+        rows.append({"plan": meas.plan.describe(),
+                     "ms": None if meas.seconds is None
+                     else 1e3 * meas.seconds,
+                     "ratio_to_lapack": meas.residual, "reason": meas.reason,
+                     "launches": launched})
+        emit({"phase": 19, "name": "tune_tall_candidate", **rows[-1]})
+    emit({"phase": 19, "name": "tune_tall", "shape": [m, n],
+          "key": res.key, "winner": res.plan.describe(),
+          "winner_ms": 1e3 * res.seconds,
+          "default_ms": 1e3 * res.baseline_seconds,
+          "speedup": res.speedup, "candidates": len(res.measurements),
+          "tune_s": t, "entry": tune.default_db().get_entry(res.key)})
+    real_tune = search.tune
+
+    def no_second_tune(*args, **kwargs):
+        raise AssertionError("plan='auto' re-tuned a key the DB holds")
+
+    search.tune = no_second_tune
+    try:
+        x_auto, l_auto, _ = _launches_of(
+            hp, lambda: dt.lstsq(At, bt, plan="auto"))
+    finally:
+        search.tune = real_tune
+    x_ref = dt.lstsq(At, bt, config=tune.apply_plan_to_config(
+        DHQRConfig(), res.plan))
+    same = bool(torch.equal(x_auto, x_ref))
+    _, _, oracle = oracle_of(m, n, np.float32, seed + 19)
+    from dhqr_tpu_torch.utils.testing import normal_equations_residual
+
+    ratio = normal_equations_residual(A, x_auto.cpu().numpy(), b) / oracle
+    row = {"phase": 19, "name": "tune_tall_auto", "bit_identical": same,
+           "launches": l_auto, "ratio_to_lapack": ratio}
+    row["ok"] = same and ratio < CRITERION and res.speedup >= 1.0
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (a) failed: {row}")
+    return res, At, bt
+
+
+def _tune_square(dt, hp, seed, tune):
+    """(b) the square tune at 16384^2 f32 (budget 8, 2 repeats, the f64
+    Gram gate on the card), then ``qr(plan="auto")``'s launches against
+    the winner's panel plan; returns the factorization and A."""
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.tune import search
+
+    m, n = TUNE_SQUARE
+    res, t = wall(lambda: tune.tune(
+        "qr", m, n, torch.float32, budget=TUNE_SQUARE_BUDGET,
+        repeats=TUNE_SQUARE_REPEATS, seed=seed))
+    cuda = torch.device("cuda")
+    for meas in res.measurements:
+        nb = meas.plan.block_size or blocked.DEFAULT_BLOCK_SIZE
+        plan = blocked.panel_plan(m, n, nb, True, torch.float32, cuda)
+        emit({"phase": 19, "name": "tune_square_candidate",
+              "plan": meas.plan.describe(),
+              "ms": None if meas.seconds is None else 1e3 * meas.seconds,
+              "gram_gap": meas.residual, "reason": meas.reason,
+              "planned_launches": sum(blocked.kernel_leaves(w, leaf)
+                                      for _, w, leaf in plan if leaf)})
+    emit({"phase": 19, "name": "tune_square", "shape": [m, n],
+          "key": res.key, "winner": res.plan.describe(),
+          "winner_ms": 1e3 * res.seconds,
+          "default_ms": 1e3 * res.baseline_seconds, "speedup": res.speedup,
+          "budget": TUNE_SQUARE_BUDGET, "repeats": TUNE_SQUARE_REPEATS,
+          "tune_s": t})
+    g = torch.Generator(device="cuda").manual_seed(seed + 191)
+    A = torch.rand((m, n), generator=g, device="cuda")
+    fact, launched, t_qr = _launches_of(hp, lambda: dt.qr(A, plan="auto"))
+    nb = res.plan.block_size or blocked.DEFAULT_BLOCK_SIZE
+    plan = blocked.panel_plan(m, n, nb, True, torch.float32, cuda)
+    expect = sum(blocked.kernel_leaves(w, leaf) for _, w, leaf in plan
+                 if leaf)
+    gate = search._verify("qr", (fact.H, fact.alpha), (A,), None)
+    row = {"phase": 19, "name": "tune_square_auto", "nb": fact.block_size,
+           "n_over_nb": n // nb, "launches": launched,
+           "expected_launches": expect, "qr_s": t_qr,
+           "gram_gap": gate[1]}
+    row["ok"] = fact.block_size == nb and \
+        launched["panel_qr_f32"] == expect and gate[0]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (b) failed: {row}")
+    return fact, A
+
+
+def _tune_serve(dt, seed, tune):
+    """(c) ``prewarm(plan="auto")`` of ``serve_lstsq`` on phase 17's two
+    most frequent shapes, then a 256-request run in micro-batches of 32
+    (16 of each) with zero misses, every residual under 8x."""
+    from dhqr_tpu_torch import serve
+    from dhqr_tpu_torch.serve.buckets import plan_bucket
+    from dhqr_tpu_torch.serve.cache import canonical_key, default_cache
+
+    shapes = SERVE_LADDER[:2]   # the Zipf stream's two heaviest ranks
+    half = SERVE_MICRO_BATCH // 2
+    cache = default_cache(torch.device("cuda", torch.cuda.current_device()))
+    keys, t = wall(lambda: serve.prewarm(
+        [(half, m, n) for m, n in shapes], kind="lstsq", plan="auto"))
+    for m, n in shapes:
+        bucket = plan_bucket(m, n, "float32")
+        stored = tune.default_db().get_entry(tune.plan_key(
+            "serve_lstsq", bucket.m, bucket.n, "float32"))
+        emit({"phase": 19, "name": "tune_serve_bucket", "shape": [m, n],
+              "bucket": [bucket.m, bucket.n], "entry": stored})
+    rng = np.random.default_rng(seed + 192)
+    As, bs = [], []
+    for _ in range(TUNE_SERVE_REQUESTS // SERVE_MICRO_BATCH):
+        for m, n in shapes:
+            for _ in range(half):
+                As.append(rng.random((m, n)).astype(np.float32))
+                bs.append(rng.random(m).astype(np.float32))
+    misses0 = cache.stats()["misses"]
+    xs, t_run = _serve_pass(
+        lambda A_, b_: serve.batched_lstsq(A_, b_, plan="auto"), As, bs)
+    misses = cache.stats()["misses"] - misses0
+    ratios = _ratios(As, bs, xs)
+    row = {"phase": 19, "name": "tune_serve", "prewarm_s": t,
+           "keys": [canonical_key(k) for k in keys],
+           "requests": len(As), "run_s": t_run,
+           "requests_per_s": len(As) / t_run, "warm_misses": misses,
+           "worst_ratio": max(ratios)}
+    row["ok"] = misses == 0 and max(ratios) < CRITERION and all(
+        "householder+nb" in canonical_key(k) for k in keys)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (c) failed: {row}")
+
+
+def _tune_demotion(dt, tune, At, bt):
+    """(d) three rung-0 gate failures of ``guarded_lstsq(plan="auto")``
+    under an injected ``numeric.breakdown`` demote the tall key."""
+    from dhqr_tpu_torch import faults, obs
+    from dhqr_tpu_torch.utils.config import FaultConfig
+
+    m, n = TUNE_TALL
+    tune.reset_gate_failures()
+    paths = []
+    for _ in range(tune.PLAN_DEMOTE_AFTER):
+        with faults.injected(FaultConfig(
+                sites=(("numeric.breakdown", 1.0, 1),))):
+            res = dt.guarded_lstsq(At, bt, plan="auto")
+        paths.append(_path_of(res))
+    demoted = tune.resolve_plan("lstsq", m, n, torch.float32)
+    snap = obs.registry().snapshot()
+    gate = {k: v for k, v in snap.items()
+            if k.startswith("tune.plan_gate.")}
+    row = {"phase": 19, "name": "tune_demotion", "paths": paths,
+           "resolve_plan": demoted, "registry": gate}
+    row["ok"] = demoted is None and all(p[0][1] == "breakdown"
+                                        for p in paths) and \
+        gate.get("tune.plan_gate.failures", 0) >= tune.PLAN_DEMOTE_AFTER \
+        and gate.get("tune.plan_gate.demoted_keys", 0) >= 1
+    emit(row)
+    tune.reset_gate_failures()
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (d) failed: {row}")
+
+
+def _armor_on_card(hp, seed, fact, A):
+    """(e) the armor seam on the card: ``qr_gap`` honest against corrupted
+    factors at 16384^2; one NCCL rank armed and disarmed at 16384^2; 4
+    gloo ranks under injected faults at the reference's 4400 x 4000; 2
+    gloo ranks armed at 8192 x 4096 c64. The ranks' launches join the
+    parent's counts."""
+    from dhqr_tpu_torch.armor import checks
+    from dhqr_tpu_torch.parallel._ranks import run_ranks
+    from dhqr_tpu_torch.utils.testing import (lapack_lstsq,
+                                              normal_equations_residual)
+
+    honest, _ = checks.qr_gap(fact.H, fact.alpha, A, fact.block_size)
+    H = fact.H.clone()
+    col = A.shape[1] // 2
+    H[col // 3, col] += 1e4 * (1.0 + float(H.abs().max()))
+    corrupt, worst = checks.qr_gap(H, fact.alpha, A, fact.block_size)
+    _, t_gap = wall(lambda: checks.qr_gap(fact.H, fact.alpha, A,
+                                          fact.block_size))
+    row = {"phase": 19, "name": "armor_qr_gap", "shape": list(A.shape),
+           "honest": honest, "corrupted": corrupt, "worst_col": worst,
+           "corrupted_col": col, "separation": corrupt / max(honest, 1e-30),
+           "gap_ms": 1e3 * t_gap}
+    row["ok"] = honest < 1e-4 and row["separation"] >= ARMOR_SEPARATION \
+        and worst == col
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (e) qr_gap failed: {row}")
+    device = "cuda:0"
+    m, n = ARMOR_REFERENCE
+    runs = [("nccl", 1, [{"kind": "clean", "m": TUNE_SQUARE[0],
+                          "n": TUNE_SQUARE[1], "dtype": "float32",
+                          "seed": seed + 193, "warm": True}]),
+            ("gloo", 4, [{"kind": "faults", "m": m, "n": n,
+                          "seed": seed + 194}]),
+            ("gloo", 2, [{"kind": "clean", "m": ARMOR_C64[0],
+                          "n": ARMOR_C64[1], "dtype": "complex64",
+                          "seed": seed + 195, "warm": False}])]
+    for backend, P, cases in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(armor_worker, P, backend=backend, device=device,
+                          timeout_s=420, cases=cases)
+        for r in ranks:
+            for name, count in r["launches"].items():
+                hp.LAUNCHES[name] += count
+        rows = [r["cases"][0] for r in ranks]
+        where = {"backend": backend, "ranks": P, "rank_device": device,
+                 "wall_s": time.perf_counter() - t0}
+        if cases[0]["kind"] == "clean":
+            r0 = rows[0]
+            row = {"phase": 19, "name": "armor_clean", **where,
+                   "shape": [cases[0]["m"], cases[0]["n"]],
+                   "dtype": cases[0]["dtype"],
+                   "s_disarmed": max(r["s_disarmed"] for r in rows),
+                   "s_armed": max(r["s_armed"] for r in rows),
+                   "armed_overhead_ms": 1e3 * (
+                       max(r["s_armed"] for r in rows)
+                       - max(r["s_disarmed"] for r in rows)),
+                   "launches_disarmed": [r["launches_disarmed"]
+                                         for r in rows],
+                   "launches_armed": [r["launches_armed"] for r in rows],
+                   "armed_metrics": r0["armed_metrics"],
+                   "bit_identical": all(r["bit_identical"] for r in rows)}
+            row["ok"] = row["bit_identical"] and all(
+                r["armed_metrics"]["verifications"] == 1
+                and r["armed_metrics"]["detections"] == 0
+                and r["launches_armed"] == r["launches_disarmed"]
+                for r in rows) and sum(
+                sum(l.values()) for l in row["launches_armed"]) > 0
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"phase 19 (e) armor failed: {row}")
+            continue
+        r0 = rows[0]
+        A_, b_ = _rank_matrix(m, n, torch.float32, seed + 194, device)
+        A_, b_ = A_.cpu().numpy(), b_.cpu().numpy()
+        oracle = normal_equations_residual(A_, lapack_lstsq(A_, b_), b_)
+        for name in ("corrupt_once", "corrupt_factor_lstsq",
+                     "bf16_nan_degrade"):
+            r0[name]["ratio_to_lapack"] = normal_equations_residual(
+                A_, r0[name].pop("x"), b_) / oracle
+        for name, sc in r0.items():
+            if isinstance(sc, dict) and "metrics" in sc:
+                emit({"phase": 19, "name": f"armor_{name}", **where,
+                      "shape": [m, n], **sc})
+        emit({"phase": 19, "name": "armor_trips", **where,
+              "trips": r0["trips"], "degraded": r0["degraded"],
+              "resolved_plan": r0["resolved_plan"]})
+        checks_ = {
+            "corrupt_once": r0["corrupt_once"]["error"] is None
+            and r0["corrupt_once"]["metrics"]["detections"] == 1
+            and r0["corrupt_once"]["metrics"]["recovered_redispatch"] == 1
+            and r0["corrupt_once"]["ratio_to_lapack"] < CRITERION,
+            "corrupt_qr": r0["corrupt_qr"]["error"] is None
+            and r0["corrupt_qr"]["metrics"]["detections"] == 1
+            and r0["corrupt_qr"]["metrics"]["recovered_redispatch"] == 1,
+            "corrupt_factor_lstsq_finite": bool(np.isfinite(
+                r0["corrupt_factor_lstsq"]["ratio_to_lapack"])),
+            "drop_qr": r0["drop_qr"]["error"] is not None
+            and r0["drop_qr"]["error"]["class"] == "ShardFailure"
+            and r0["drop_qr"]["error"]["shard_index"] is not None,
+            "tags": r0["tag_True"]["all_nan"] and r0["tag_False"]["finite"],
+            "bf16_clean": r0["bf16_clean"]["error"] is None
+            and r0["bf16_clean"]["metrics"]["detections"] == 0,
+            "bf16_corrupt": all(
+                r0[f"bf16_corrupt_{i}"]["metrics"]["recovered_redispatch"]
+                == 1 for i in range(2)),
+            "degrade": r0["bf16_nan_degrade"]["error"] is None
+            and r0["bf16_nan_degrade"]["metrics"]["recovered_degrade"] == 1
+            and r0["bf16_nan_degrade"]["ratio_to_lapack"] < CRITERION,
+            "trips": r0["trips"].get(f"lstsq|{m}|{n}|float32|{P}", 0) >= 3,
+            "stripped": r0["resolved_plan"].get("comms") is None,
+            "ranks_agree": all(r["drop_qr"]["error"] == r0["drop_qr"]["error"]
+                               for r in rows)}
+        emit({"phase": 19, "name": "armor_faults_checks", **checks_})
+        if not all(checks_.values()):
+            raise AssertionError(f"phase 19 (e) faults failed: {checks_}")
+
+
+def _pulse_on_card(dt, At, bt):
+    """(f) a mesh-less pulse measurement of a card dispatch traces the
+    card: CUDA events in its profile (the CPU-only default of the past
+    had none), beside the same call measured on request on the CPU's
+    activities only."""
+    from dhqr_tpu_torch.obs import pulse
+
+    real = pulse._events
+    seen = []
+
+    def spy(prof, device_type):
+        seen.append(real(prof, device_type))
+        return seen[-1]
+
+    pulse._events = spy
+    try:
+        _, report = pulse.measure("card_lstsq",
+                                  lambda: dt.lstsq(At, bt))
+    finally:
+        pulse._events = real
+    cuda_events = sum(e["device"] for e in seen[0])
+    row = {"phase": 19, "name": "pulse_card", "cuda_events": cuda_events,
+           "events": len(seen[0]), "device_kind": report.device_kind,
+           "measured_unavailable": report.measured_unavailable,
+           "wall_s": report.wall_s}
+    row["ok"] = cuda_events > 0 and report.device_kind == \
+        torch.cuda.get_device_name(0)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 19 (f) failed: {row}")
+
+
+def phase_tune_armor(dt, hp, seed, card):
+    """Phase 19: the tuner on the card ((a) tall, (b) square, (c) serve,
+    (d) demotion, into a temporary plan DB) and the armor seam ((e)), and
+    (f) pulse's mesh-less device."""
+    from dhqr_tpu_torch import tune
+
+    with tempfile.TemporaryDirectory(prefix="dhqr_plans_") as tmp:
+        saved = {k: os.environ.get(k) for k in ("DHQR_TUNE_DB",
+                                                "DHQR_TUNE_SEEDS")}
+        os.environ["DHQR_TUNE_DB"] = os.path.join(tmp, "plans.json")
+        os.environ["DHQR_TUNE_SEEDS"] = "0"
+        tune.reset_default_db()
+        try:
+            t0 = time.perf_counter()
+            _, At, bt = _tune_tall(dt, hp, seed, tune)
+            t_a = time.perf_counter()
+            fact, A = _tune_square(dt, hp, seed, tune)
+            t_b = time.perf_counter()
+            _tune_serve(dt, seed, tune)
+            t_c = time.perf_counter()
+            _tune_demotion(dt, tune, At, bt)
+            t_d = time.perf_counter()
+            _armor_on_card(hp, seed, fact, A)
+            del fact, A
+            t_e = time.perf_counter()
+            _pulse_on_card(dt, At, bt)
+            with open(os.environ["DHQR_TUNE_DB"]) as fh:
+                emit({"phase": 19, "name": "tune_db", "card": card,
+                      "plans": json.load(fh)["plans"]})
+            emit({"phase": 19, "name": "tune_armor_seconds",
+                  "a": t_a - t0, "b": t_b - t_a, "c": t_c - t_b,
+                  "d": t_d - t_c, "e": t_e - t_d,
+                  "f": time.perf_counter() - t_e,
+                  "total": time.perf_counter() - t0})
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            tune.reset_default_db()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -3811,6 +4396,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"the serve_async path's count "
                                  f"{paths['serve_async']} is not its update "
                                  f"kind's {async_tally}")
+    if 19 in phases:
+        counted("tune_armor", lambda: phase_tune_armor(dt, hp, args.seed,
+                                                        smi))
     emit({"launches_by_path": paths})
     # paths with no panel kernel on them
     for key in ("reconstruct", "sketch", "serve"):
@@ -3819,7 +4407,7 @@ def main(argv=None) -> int:
                                  f"{paths[key]}")
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
-                "guarded", "wire")
+                "guarded", "wire", "tune_armor")
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
         for key in on_paths + (("update", "serve_async")

@@ -25,11 +25,16 @@ JAX package — is a CUDA C++ kernel written for ``sm_90a``
     >>> xs = dhqr_tpu_torch.batched_lstsq(As, bs)  # buckets, CUDA graphs
     >>> fut = dhqr_tpu_torch.AsyncScheduler().submit("lstsq", A, b)
     >>> fut = dhqr_tpu_torch.Router(replicas=3).submit("lstsq", A, b)
+    >>> x = dhqr_tpu_torch.lstsq(A, b, plan="auto")  # tuned, DB-backed
+    >>> with dhqr_tpu_torch.armor.armored():          # ABFT on the mesh
+    ...     fact = dhqr_tpu_torch.qr(A, mesh=mesh)
 
 The distributed tier is :mod:`dhqr_tpu_torch.parallel` (one process per
 rank over a ``torch.distributed`` process group); the serving tier (the
 batched entry points, the async scheduler, the fleet router and the key
-store) is :mod:`dhqr_tpu_torch.serve`. This package imports neither ``jax`` nor
+store) is :mod:`dhqr_tpu_torch.serve`; the tuner is
+:mod:`dhqr_tpu_torch.tune` and the mesh tier's verification seam
+:mod:`dhqr_tpu_torch.armor`. This package imports neither ``jax`` nor
 ``dhqr_tpu``.
 """
 
@@ -89,8 +94,10 @@ from dhqr_tpu_torch.serve import (
     batched_sketched_lstsq,
 )
 from dhqr_tpu_torch.solvers.sketch import sketched_lstsq
+from dhqr_tpu_torch.tune import Plan, PlanDB, resolve_plan
 from dhqr_tpu_torch.solvers.update import UpdatableQR
 from dhqr_tpu_torch.utils.config import (
+    ArmorConfig,
     DHQRConfig,
     FaultConfig,
     FleetConfig,
@@ -99,11 +106,13 @@ from dhqr_tpu_torch.utils.config import (
     SchedulerConfig,
     ServeConfig,
     SketchConfig,
+    TuneConfig,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "ArmorConfig",
     "AsyncScheduler",
     "BackpressureError",
     "Breakdown",
@@ -123,6 +132,8 @@ __all__ = [
     "ObsConfig",
     "POLICY_LADDER",
     "PRECISION_POLICIES",
+    "Plan",
+    "PlanDB",
     "PrecisionPolicy",
     "PulseReport",
     "QRFactorization",
@@ -136,6 +147,7 @@ __all__ = [
     "ShardFailure",
     "SketchConfig",
     "TierAxes",
+    "TuneConfig",
     "UpdatableQR",
     "XrayReport",
     "alphafactor",
@@ -157,6 +169,7 @@ __all__ = [
     "pod_mesh",
     "qr",
     "qr_explicit",
+    "resolve_plan",
     "resolve_policy",
     "solve",
     "solve_least_squares",

@@ -7,9 +7,8 @@ types are ``NumericalError`` subclasses (they arrive as wrong numbers, and
 the guarded ladder escalates past them as it does past a breakdown), and
 they carry the transport's provenance: which collective label, which
 shard, the trace id of the dispatch that caught them, and the recovery
-rungs tried. The checks that raise them (``armor/checks.py``, the ABFT
-verification and its recovery ladder) wait for ROADMAP Queue A item 15;
-until then the guarded ladder is the one place that handles them.
+rungs tried. :func:`dhqr_tpu_torch.armor.checked_dispatch` raises them
+when its recovery ladder runs dry.
 """
 
 from __future__ import annotations

@@ -14,9 +14,9 @@ distributed tier (:mod:`dhqr_tpu_torch.parallel`): every rank of the mesh
 calls the entry point with the same inputs. ``guards=`` routes through
 the numeric ladder (:mod:`dhqr_tpu_torch.numeric.ladder`). ``comms=``
 names the mesh's wire format; a compressed mesh solve refines through
-corrected semi-normal sweeps (:func:`_csne_refine`). Knobs the port does
-not run yet (plan) raise :class:`~dhqr_tpu_torch.utils.config.
-NotPortedError` naming the ROADMAP item that brings them.
+corrected semi-normal sweeps (:func:`_csne_refine`). ``plan=`` ("auto",
+"default" or a :class:`~dhqr_tpu_torch.tune.Plan`) selects the
+engine-selection knobs from the tuner (:func:`_resolve_plan_cfg`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dhqr_tpu_torch.ops import blocked as _blocked
@@ -283,7 +284,87 @@ def _resolve_policy_cfg(cfg: DHQRConfig):
     return cfg, pol
 
 
-def _resolved(cfg: DHQRConfig, mesh, device):
+def _shape_dtype(A):
+    """(shape, dtype) of an input that is not a tensor yet."""
+    if not hasattr(A, "shape") or not hasattr(A, "dtype"):
+        A = np.asarray(A)
+    return tuple(A.shape), A.dtype
+
+
+def _resolve_plan_cfg(cfg: DHQRConfig, kind: str, shape, dtype, mesh, pol,
+                      device=None, applied: "list | None" = None
+                      ) -> DHQRConfig:
+    """Resolve ``cfg.plan`` into the classic engine-selection knobs (shared
+    by ``qr`` and ``lstsq``; the serve tier has its per-bucket twin in
+    ``serve.engine``) — the JAX package's rules and messages.
+
+    ``"auto"`` looks the (kind, shape, dtype, mesh, policy) key up in the
+    plan database on this call's device (tuning on a miss per
+    ``TuneConfig.on_miss``), a :class:`~dhqr_tpu_torch.tune.Plan` applies
+    verbatim, and ``"default"`` (or None) keeps the static knobs. A plan
+    names the engine-selection tuple at once, so it is mutually exclusive
+    with setting any of those knobs. Runs after policy resolution: plans
+    are keyed under the policy, and a policy-set ``trailing_precision``
+    wins over the plan's. ``applied`` receives the plan when one actually
+    lands on the config (the numeric ladder keys plan demotion on it).
+    """
+    spec = cfg.plan
+    if spec is None:
+        return cfg
+    if isinstance(spec, str) and spec == "default":
+        return dataclasses.replace(cfg, plan=None)
+    from dhqr_tpu_torch.tune import Plan, apply_plan_to_config, resolve_plan
+
+    m, n = shape
+    if m < n:
+        # The minimum-norm path has one configuration: nothing to select.
+        return dataclasses.replace(cfg, plan=None)
+    if not cfg.blocked:
+        raise ValueError(
+            "plan= applies to the blocked/alt engines only: the "
+            "unblocked reference-parity engine (blocked=False) has no "
+            "plan knobs to select"
+        )
+    defaults = DHQRConfig()
+    # use_pallas is refused beside a plan although it is not a Plan
+    # field: plans are measured under "auto", so pinning the kernel choice
+    # would apply them to a program family the tuner never timed.
+    for knob in ("engine", "block_size", "panel_impl", "lookahead",
+                 "agg_panels", "overlap_depth", "use_pallas"):
+        if getattr(cfg, knob) != getattr(defaults, knob):
+            raise ValueError(
+                f"pass either plan= or {knob}=, not both (a plan names "
+                f"the engine-selection knobs at once; got "
+                f"{knob}={getattr(cfg, knob)!r} with plan={spec!r})"
+            )
+    if isinstance(spec, Plan):
+        if spec.trailing_precision and cfg.trailing_precision is not None:
+            raise ValueError(
+                "the plan carries trailing_precision="
+                f"{spec.trailing_precision!r} but the policy/config "
+                f"already set {cfg.trailing_precision!r} — drop one"
+            )
+        plan = spec
+    elif isinstance(spec, str) and spec == "auto":
+        plan = resolve_plan(kind, m, n, dtype, mesh=mesh, policy=pol,
+                            device=device)
+        if plan is None:  # DB miss with on_miss="default", or demoted
+            return dataclasses.replace(cfg, plan=None)
+    else:
+        raise ValueError(
+            f"plan must be 'auto', 'default', None or a "
+            f"dhqr_tpu_torch.tune.Plan, got {spec!r}"
+        )
+    if applied is not None:
+        applied.append(plan)
+    return apply_plan_to_config(cfg, plan)
+
+
+def _resolved(cfg: DHQRConfig, mesh, device, kind: str, A,
+              applied: "list | None" = None):
+    """``(cfg, policy)`` of an entry point: the mesh/device checks, the
+    policy, then the plan (:func:`_resolve_plan_cfg`), then the value
+    checks."""
     if mesh is not None:
         check_mesh(mesh)
         if device is not None and torch.device(device) != mesh.device:
@@ -291,6 +372,11 @@ def _resolved(cfg: DHQRConfig, mesh, device):
                 f"device={device!r} differs from the mesh's device "
                 f"{mesh.device}: a mesh call runs on mesh.device")
     cfg, pol = _resolve_policy_cfg(cfg)
+    if kind == "lstsq" and pol is not None and pol.refine:
+        cfg = dataclasses.replace(cfg, refine=pol.refine)
+    shape, dtype = _shape_dtype(A)
+    cfg = _resolve_plan_cfg(cfg, kind, shape, dtype, mesh, pol,
+                            device=device, applied=applied)
     refuse_unported(cfg, mesh)
     return cfg, pol
 
@@ -305,7 +391,9 @@ def _col_axis_size(cfg: DHQRConfig, mesh) -> "tuple[object, int]":
 def _qr_mesh(A, cfg: DHQRConfig, mesh):
     """``(H, alpha, nb)`` of the mesh path: A padded once to the panel
     width's divisibility (``_pad_problem``), factored by the sharded
-    engine, left in store order on each rank; alpha cut back to n."""
+    engine, left in store order on each rank; alpha cut back to n. With
+    the armor seam armed the factorization is verified, as the JAX
+    package's natural-layout ``qr(mesh=)`` is."""
     axis, nproc = _col_axis_size(cfg, mesh)
     n = A.shape[1]
     Ap, _, nb, _ = _sharded._pad_problem(A, nproc, cfg.block_size)
@@ -316,13 +404,14 @@ def _qr_mesh(A, cfg: DHQRConfig, mesh):
             use_pallas=cfg.use_pallas, panel_impl=cfg.panel_impl,
             trailing_precision=cfg.trailing_precision,
             lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
-            overlap_depth=cfg.overlap_depth, comms=cfg.comms)
+            overlap_depth=cfg.overlap_depth, comms=cfg.comms,
+            _verify_store=True)
     else:
         _reject_nonblocked_knobs(cfg)
         H, alpha = _sharded.sharded_householder_qr(
             Ap, mesh, axis_name=axis, precision=cfg.precision,
             layout=cfg.layout, store_nb=nb, _store_layout_output=True,
-            norm=cfg.norm, comms=cfg.comms)
+            norm=cfg.norm, comms=cfg.comms, _verify_store=True)
     return H, alpha[:n], nb
 
 
@@ -366,7 +455,7 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
 
         return guarded_qr(A, config=cfg, mesh=mesh,
                           device=device).factorization
-    cfg, pol = _resolved(cfg, mesh, device)
+    cfg, pol = _resolved(cfg, mesh, device, "qr", A)
     cfg = _with_block_size(cfg)
     if cfg.engine != "householder":
         raise ValueError(
@@ -666,9 +755,7 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
         from dhqr_tpu_torch.numeric.ladder import guarded_lstsq
 
         return guarded_lstsq(A, b, config=cfg, mesh=mesh, device=device).x
-    cfg, pol = _resolved(cfg, mesh, device)
-    if pol is not None and pol.refine:
-        cfg = dataclasses.replace(cfg, refine=pol.refine)
+    cfg, pol = _resolved(cfg, mesh, device, "lstsq", A)
     A = as_tensor(A, device if mesh is None else mesh.device)
     b = as_tensor(b, A.device, A.dtype)
     check_fp32_matmul(A.device)

@@ -41,9 +41,10 @@ never a rung to escalate past.
 Deterministic testing: the ``numeric.nan`` fault site fires at the input
 screen (as if the scan had found a NaN) and ``numeric.breakdown`` fires per
 rung (as if that rung's output came back non-finite), so every escalation
-path replays without crafting a matrix for it. The plan demotion of the
-JAX package (``_note_plan_failure``) waits with ``plan=`` for ROADMAP Queue
-A item 14.
+path replays without crafting a matrix for it. A rung-0 failure under an
+active plan is reported to the tuner (:func:`_note_plan_failure`), so a
+plan whose gate keeps failing is demoted out of ``plan="auto"``
+resolution.
 """
 
 from __future__ import annotations
@@ -88,8 +89,6 @@ ENGINE_LADDER = {
 }
 
 GUARD_MODES = ("screen", "fallback", "full")
-
-_PLAN_ITEM = "Queue A item 14 (tune/)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,17 +250,21 @@ def _screen(A, b, engine_hint: "str | None") -> None:
             engine=engine_hint, cond_estimate=float("inf"))
 
 
-def _resolve_start(cfg):
-    """Mirror ``lstsq``'s own policy resolution so that rung 0 runs the
-    program the unguarded call would have run. Returns ``(cfg0, pol)``.
-    (The JAX package also resolves ``plan=`` here; the port refuses it on
-    rung 0, as the unguarded call does.)"""
+def _resolve_start(A, cfg, mesh, device):
+    """Mirror ``lstsq``'s own policy/plan resolution so that rung 0 runs
+    the program the unguarded call would have run. Returns
+    ``(cfg0, pol, plan_active)``: ``plan_active`` is True only when a
+    stored or explicit plan actually landed on the config (a DB miss
+    falling back to the static default never feeds plan demotion)."""
     from dhqr_tpu_torch.models import qr_model as _qm
 
     cfg, pol = _qm._resolve_policy_cfg(cfg)
     if pol is not None and pol.refine:
         cfg = dataclasses.replace(cfg, refine=pol.refine)
-    return cfg, pol
+    applied: list = []
+    cfg = _qm._resolve_plan_cfg(cfg, "lstsq", tuple(A.shape), A.dtype,
+                                mesh, pol, device=device, applied=applied)
+    return cfg, pol, bool(applied)
 
 
 def _fallback_cfg(engine: str, pol, base, mesh):
@@ -296,12 +299,14 @@ def _escalation_policies(pol, base):
 
 
 def _note_plan_failure(A, mesh, pol) -> None:
-    """Rung 0 failed under an active plan: the JAX package reports it to
-    its tuner so that ``plan="auto"`` demotes a repeat offender. No plan
-    can be active in the port until the tuner is ported."""
-    from dhqr_tpu_torch.utils.config import NotPortedError
+    """Rung 0 failed under an active plan: report it to the tuner so that
+    ``plan="auto"`` demotes a repeat offender (``tune/search.py``), keyed
+    on the platform of the device A lives on."""
+    from dhqr_tpu_torch.tune.search import _nproc, note_gate_failure
 
-    raise NotPortedError("plan demotion after a failed rung 0", _PLAN_ITEM)
+    nproc = _nproc(mesh) if mesh is not None else 1
+    note_gate_failure("lstsq", A.shape[0], A.shape[1], A.dtype,
+                      nproc=nproc, policy=pol, device=A.device)
 
 
 def _classify_exhausted(A, attempts, probe_ran: bool):
@@ -398,7 +403,7 @@ def guarded_lstsq(A, b, config=None, mesh=None, device=None,
         return GuardedResult(x, cfg.engine, pol_desc, (att,),
                              trace_id=tid)
 
-    cfg0, pol = _resolve_start(cfg)
+    cfg0, pol, plan_active = _resolve_start(A, cfg, mesh, A.device)
     probe = mode == "full"
     m, n = A.shape
 
@@ -432,6 +437,8 @@ def guarded_lstsq(A, b, config=None, mesh=None, device=None,
         except _faults.FaultInjected:
             _att(Attempt(eng, desc, "breakdown",
                          detail="injected numeric.breakdown"))
+            if i == 0 and plan_active:
+                _note_plan_failure(A, mesh, pol)
             continue
         try:
             x = _qm.lstsq(A, b, config=rcfg, mesh=mesh, device=dev)
@@ -447,9 +454,13 @@ def guarded_lstsq(A, b, config=None, mesh=None, device=None,
             # dispatches a different program.
             last_armor = e
             _att(Attempt(eng, desc, "corruption", detail=str(e)[:200]))
+            if i == 0 and plan_active:
+                _note_plan_failure(A, mesh, pol)
             continue
         if _guards.any_nonfinite(x):
             _att(Attempt(eng, desc, "breakdown"))
+            if i == 0 and plan_active:
+                _note_plan_failure(A, mesh, pol)
             continue
         ratio = None
         if probe:
@@ -457,6 +468,8 @@ def guarded_lstsq(A, b, config=None, mesh=None, device=None,
             if ratio > TOLERANCE_FACTOR:
                 _att(Attempt(eng, desc, "residual_gate",
                              residual_ratio=ratio))
+                if i == 0 and plan_active:
+                    _note_plan_failure(A, mesh, pol)
                 continue
         _att(Attempt(eng, desc, "ok", residual_ratio=ratio))
         if len(attempts) > 1:

@@ -20,13 +20,12 @@ Sources come in two kinds:
   instances sum under one name;
 * **providers** (``register(prefix, callable)``) are held strongly and
   read at snapshot time: the default registry wires lazy providers for
-  the armed fault harness, the numeric ladder's counters, the armed
-  trace recorder, the armed xray and pulse stores and the solvers'
-  counters, so those modules never import obs.
+  the armed fault harness, the tuner's plan-gate state
+  (``tune.plan_gate.*``), the numeric ladder's counters, the armed trace
+  recorder, the armed xray and pulse stores, the solvers' counters and
+  the armed armor seam (``armor.*``), so those modules never import obs.
 
-The JAX package's ``tune.plan_gate`` and ``armor`` providers read modules
-the port does not have yet (ROADMAP Queue A items 14 and 15), so their
-names are absent here. Exporters: :meth:`MetricsRegistry.export_jsonl`
+Exporters: :meth:`MetricsRegistry.export_jsonl`
 appends one timestamped JSON object per call and
 :meth:`MetricsRegistry.export_prometheus` renders the Prometheus text
 exposition format (``dhqr_serve_cache_hits 42``).
@@ -234,6 +233,24 @@ def _faults_provider() -> dict:
     return out
 
 
+def _tune_provider() -> dict:
+    """The tuner's ``plan_gate_stats()`` as registry numbers: recorded
+    numeric-gate failures, failing and demoted keys, demoted lookups."""
+    from dhqr_tpu_torch.tune.search import PLAN_DEMOTE_AFTER, plan_gate_stats
+
+    stats = plan_gate_stats()
+    failures = stats.get("failures", {})
+    return {
+        "failures": sum(failures.values()),
+        "failing_keys": len(failures),
+        "demoted_keys": sum(1 for v in failures.values()
+                            if v >= PLAN_DEMOTE_AFTER),
+        "demoted_lookups": stats.get("demoted_lookups", 0),
+        "wire_demoted_lookups": stats.get("wire_demoted_lookups", 0),
+        "demote_after": stats.get("demote_after", PLAN_DEMOTE_AFTER),
+    }
+
+
 def _numeric_provider() -> dict:
     """The numeric ladder's counters (``numeric.fallbacks`` et al.), the
     known names as zeros before the first bump so the series exist in
@@ -278,6 +295,20 @@ def _pulse_provider() -> dict:
     return store.stats()
 
 
+def _armor_provider() -> dict:
+    """The armed armor state's accounting (``armor.verifications``,
+    ``armor.detections``, ``armor.recovered_redispatch``,
+    ``armor.recovered_degrade``, ``armor.typed_failures``,
+    ``armor.degraded_labels``, ``armor.wire_trips``), empty when the
+    seam is disarmed."""
+    from dhqr_tpu_torch import armor as _armor
+
+    state = _armor.active()
+    if state is None:
+        return {}
+    return state.metrics_snapshot()
+
+
 def _solvers_provider() -> dict:
     """The solver families' counters (``solvers.sketch_calls``,
     ``solvers.update_refactors``, ...), known names as zeros before the
@@ -301,11 +332,13 @@ _REGISTRY_LOCK = _lockwitness.make_lock("metrics._REGISTRY_LOCK")
 def _new_default_registry() -> MetricsRegistry:
     reg = MetricsRegistry()
     reg.register("faults", _faults_provider)
+    reg.register("tune.plan_gate", _tune_provider)
     reg.register("numeric", _numeric_provider)
     reg.register("obs", _obs_provider)
     reg.register("xray", _xray_provider)
     reg.register("comms", _pulse_provider)
     reg.register("solvers", _solvers_provider)
+    reg.register("armor", _armor_provider)
     # serve.cache.* / serve.sched.* / fleet.router.* / fleet.store.* have
     # no provider: each instance registers itself at construction (weakly).
     return reg

@@ -290,21 +290,35 @@ def measure(label: str, thunk: Callable[[], object], *, mesh=None,
             slack: float = DEFAULT_SLACK,
             contract_families: "tuple | None" = None,
             keep_trace_dir: "str | None" = None,
-            wire_format: "str | None" = None):
+            wire_format: "str | None" = None, device=None):
     """Run ``thunk`` warm (once with the fault sites suspended, absorbing
     first-call costs such as a kernel build), then once under
     ``torch.profiler`` and a wire census, and build its
     :class:`PulseReport`. Returns ``(thunk's result, report)`` — the
     profiled run's result. A thunk that raises raises; a profiler that
     refuses costs only the measured side, null with the reason.
-    ``keep_trace_dir`` keeps the profiled run's Chrome trace there."""
+    ``keep_trace_dir`` keeps the profiled run's Chrome trace there.
+
+    The device measured is ``mesh.device``, or without a mesh the port's
+    device rule (:func:`~dhqr_tpu_torch.utils.device.resolve_device`):
+    ``device=None`` is the card, and without CUDA that raises rather than
+    profile the CPU for a call that was meant for the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dhqr_tpu_torch.faults import harness as _faults
     from dhqr_tpu_torch.parallel import wire as _wire
 
-    device = mesh.device if mesh is not None else torch.device("cpu")
+    from dhqr_tpu_torch.utils.device import resolve_device
+
+    if mesh is None:
+        device = resolve_device(device)
+    elif device is not None and torch.device(device) != mesh.device:
+        raise ValueError(
+            f"device={device!r} differs from the mesh's device "
+            f"{mesh.device}: a mesh measurement runs on mesh.device")
+    else:
+        device = mesh.device
     cuda = device.type == "cuda"
     if device_kind is None:
         device_kind = torch.cuda.get_device_name(device) if cuda else "cpu"
@@ -531,12 +545,14 @@ class pulsed:
 def observed_dispatch(label: str, thunk: Callable[[], object], *,
                       mesh=None, n_devices: int = 1,
                       contract_families: "tuple | None" = None,
-                      on_report=None, wire_format: "str | None" = None):
+                      on_report=None, wire_format: "str | None" = None,
+                      device=None):
     """The mesh engines' instrumentation seam: ``thunk()`` when pulse is
     disarmed (one ``None`` check) or ``label`` was measured already;
     measured once (:func:`measure`) when armed and new. The result is
-    returned either way. ``on_report(report)`` fires once, after the
-    capture; its failure costs the pairing, never the dispatch."""
+    returned either way. ``device`` (no mesh) is what :func:`measure`
+    profiles: None is the card. ``on_report(report)`` fires once, after
+    the capture; its failure costs the pairing, never the dispatch."""
     store = _ACTIVE
     if store is None:
         return thunk()
@@ -545,7 +561,7 @@ def observed_dispatch(label: str, thunk: Callable[[], object], *,
     out, report = measure(label, thunk, mesh=mesh, n_devices=n_devices,
                           slack=store.slack,
                           contract_families=contract_families,
-                          wire_format=wire_format)
+                          wire_format=wire_format, device=device)
     store.capture(label, report)
     if on_report is not None:
         try:

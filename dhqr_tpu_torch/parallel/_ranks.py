@@ -169,6 +169,8 @@ def mesh_summary(mesh) -> dict:
 
 
 def _numpy(value):
+    import dataclasses
+
     from dhqr_tpu_torch.parallel.mesh import ColumnMesh
 
     if isinstance(value, torch.Tensor):
@@ -177,12 +179,17 @@ def _numpy(value):
         return mesh_summary(value)
     if isinstance(value, (tuple, list)):
         return type(value)(_numpy(v) for v in value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return dataclasses.replace(value, **{
+            f.name: _numpy(getattr(value, f.name))
+            for f in dataclasses.fields(value) if f.init})
     return value
 
 
 def run_calls(device, cases):
     """Worker: run each case on this rank and return, per case,
-    ``("ok", value)`` with tensors as numpy arrays, or ``("raised",
+    ``("ok", value)`` with tensors as numpy arrays (in lists, tuples and
+    dataclasses too), or ``("raised",
     exception type name, message)``.
 
     A case is a list of steps ``(target, args, kwargs)``: ``target`` names
@@ -195,14 +202,17 @@ def run_calls(device, cases):
     previous step's value; numpy arrays go in as they are, and an
     :class:`AsTensor` as a tensor on ``device``. A case may
     also be a dict ``{"steps": [...], "faults": FaultConfig or None,
-    "census": bool}``: its steps run under that fault schedule
-    (``faults.injected``), and with ``census`` an ``"ok"`` outcome carries
-    a third element, the wire census's entries."""
+    "census": bool, "armor": ArmorConfig or None}``: its steps run under
+    that fault schedule (``faults.injected``), with ``census`` an ``"ok"``
+    outcome carries a third element, the wire census's entries, and with
+    ``armor`` the steps run armed (``armor.armored``) and the outcome ends
+    in the seam's report (:func:`_armor_report`). The armor seam's
+    degraded labels and wire trips outlive a case, as in a process."""
     import contextlib
     import importlib
 
     import dhqr_tpu_torch
-    from dhqr_tpu_torch import faults, parallel
+    from dhqr_tpu_torch import armor, faults, parallel
     from dhqr_tpu_torch.parallel import wire
 
     meshes = {"cols": parallel.column_mesh(device=device),
@@ -233,23 +243,55 @@ def run_calls(device, cases):
         value = None
         scope = faults.injected(case["faults"]) if case.get("faults") \
             else contextlib.nullcontext()
+        armed = armor.armored(case["armor"]) if case.get("armor") \
+            else contextlib.nullcontext()
         try:
-            with scope, wire.census() as seen:
-                for target, args, kwargs in steps:
-                    args, kwargs = bind(args), bind(kwargs)
-                    if target.startswith("."):
-                        value = getattr(value, target[1:])(*args, **kwargs)
-                        continue
-                    path, _, name = target.rpartition(".")
-                    mod = importlib.import_module(
-                        f"dhqr_tpu_torch.{path}") if path else parallel \
-                        if hasattr(parallel, name) else dhqr_tpu_torch
-                    value = getattr(mod, name)(*args, **kwargs)
-            out.append(("ok", _numpy(value), seen.entries)
-                       if case.get("census") else ("ok", _numpy(value)))
+            with armed as state, scope, wire.census() as seen:
+                try:
+                    for target, args, kwargs in steps:
+                        args, kwargs = bind(args), bind(kwargs)
+                        if target.startswith("."):
+                            value = getattr(value, target[1:])(*args,
+                                                               **kwargs)
+                            continue
+                        path, _, name = target.rpartition(".")
+                        mod = importlib.import_module(
+                            f"dhqr_tpu_torch.{path}") if path else \
+                            parallel if hasattr(parallel, name) else \
+                            dhqr_tpu_torch
+                        value = getattr(mod, name)(*args, **kwargs)
+                except Exception as exc:
+                    outcome = ("raised", type(exc).__name__, str(exc))
+                    if state is not None:
+                        outcome += (_armor_report(state, exc),)
+                    out.append(outcome)
+                    continue
+            outcome = ("ok", _numpy(value))
+            if case.get("census"):
+                outcome += (seen.entries,)
+            if state is not None:
+                outcome += (_armor_report(state),)
+            out.append(outcome)
         except Exception as exc:  # the case's outcome, for the caller
             out.append(("raised", type(exc).__name__, str(exc)))
     return out
+
+
+def _armor_report(state, exc=None) -> dict:
+    """The armor seam's account of a case: its counters, the degraded
+    labels and wire trips so far, and a typed error's provenance."""
+    from dhqr_tpu_torch import armor
+
+    report = {"metrics": state.metrics_snapshot(),
+              "degraded": armor.degraded_labels(),
+              "trips": armor.export_wire_trips()}
+    if exc is not None:
+        report["error"] = {
+            name: getattr(exc, name, None) for name in (
+                "label", "shard_index", "recovery", "engine")}
+        attempts = getattr(exc, "attempts", None) or ()
+        report["error"]["attempts"] = [a.outcome for a in attempts]
+    return report
 
 
 def results_equal_across_ranks(results) -> bool:

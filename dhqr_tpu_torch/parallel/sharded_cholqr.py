@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch import armor as _armor
 from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.cholqr import _cholqr_passes
@@ -56,21 +57,30 @@ def sharded_cholqr_lstsq(A, b, mesh, axis_name=ROW_AXIS,
     Al, bl = local_rows(A, b, mesh)
     Bl, restore = as_matrix_rhs(bl)
 
-    def dense_sum(X):
-        return wire.wire_psum(X, mesh, comms, onehot=False, axis=axis)
+    def dispatch(wire_comms):
+        def dense_sum(X):
+            return wire.wire_psum(X, mesh, wire_comms, onehot=False,
+                                  axis=axis)
 
-    def dispatch():
-        Ql, R = _cholqr_passes(
-            Al, lambda X: dense_sum(gemm.matmul(X.mH, X, precision)),
-            precision, bool(shift))
-        C = dense_sum(gemm.matmul(Ql.mH, Bl, precision))
-        x = torch.linalg.solve_triangular(R, C, upper=True)
-        if comms is None:
-            return x
-        return csne_sweeps(Al, Bl, x, R, mesh, axis, wire.CSNE_SWEEPS)
+        def run():
+            Ql, R = _cholqr_passes(
+                Al, lambda X: dense_sum(gemm.matmul(X.mH, X, precision)),
+                precision, bool(shift))
+            C = dense_sum(gemm.matmul(Ql.mH, Bl, precision))
+            x = torch.linalg.solve_triangular(R, C, upper=True)
+            if wire_comms is None:
+                return x
+            return csne_sweeps(Al, Bl, x, R, mesh, axis, wire.CSNE_SWEEPS)
 
-    x = _pulse.observed_dispatch(
-        dispatch_label("cholqr_lstsq", axis, nproc, m, n, comms,
-                       ",shift" if shift else ""),
-        dispatch, mesh=mesh, n_devices=nproc, wire_format=comms)
+        return _pulse.observed_dispatch(
+            dispatch_label("cholqr_lstsq", axis, nproc, m, n, wire_comms,
+                           ",shift" if shift else ""),
+            run, mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+
+    base_label = dispatch_label("cholqr_lstsq", axis, nproc, m, n, None,
+                                ",shift" if shift else "")
+    comms = _armor.effective_comms(base_label, comms)
+    x = _armor.checked_solve(
+        base_label, dispatch, A, b, engine="cholqr3" if shift else "cholqr2",
+        comms=comms, plan_shape=("lstsq", m, n, A.dtype, nproc))
     return restore(x)

@@ -56,6 +56,7 @@ import warnings
 import numpy as np
 import torch
 
+from dhqr_tpu_torch import armor as _armor
 from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.blocked import (
@@ -254,6 +255,41 @@ def _prepare(A, mesh, axis_name, layout):
     return A, axis_name, axis_size(mesh, axis_name)
 
 
+def _factor_result(label, dispatch, comms, Ap, mesh, n_pad, nb, layout,
+                   nproc, shape, dtype, store_output: bool, verify: bool,
+                   verify_nb: int):
+    """Run a column-sharded factorization: ``dispatch(wire)`` returns this
+    rank's store-order block and alpha. Returns that block with alpha
+    (``store_output``), else the natural H cut to ``shape`` and alpha cut
+    to n. With the armor seam armed and ``verify``, the JAX package's
+    ``checked_dispatch`` over ``qr_gap`` wraps it: the weighted checksum
+    is computed on the natural H every rank all-gathers (the exact
+    relayout), against the padded ``Ap``, and localizes to the worst
+    column's owner."""
+    m, n = shape
+    armed = verify and _armor.active() is not None
+
+    def attempt(wire_comms):
+        Hl, alpha = dispatch(wire_comms)
+        H = _gather_natural(Hl, mesh, n_pad, nb, layout) \
+            if armed or not store_output else None
+        return Hl, alpha, H
+
+    if not armed:
+        Hl, alpha, H = attempt(comms)
+    else:
+        Hl, alpha, H = _armor.checked_dispatch(
+            label, lambda: attempt(comms),
+            lambda out: _armor.checks.qr_gap(out[2], out[1], Ap, verify_nb),
+            engine="householder", comms=comms,
+            degrade=(lambda: attempt(None)) if comms else None,
+            shard_of=lambda col: _col_owner(col, n_pad, nproc, nb, layout),
+            plan_shape=("qr", m, n, dtype, nproc))
+    if store_output:
+        return Hl, alpha
+    return H[:m, :n], alpha[:n]
+
+
 # -- unblocked --------------------------------------------------------------
 
 def _unblocked_shard(Al, n, mesh, precision, layout, store_nb, norm,
@@ -291,7 +327,8 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
                            precision: str = DEFAULT_PRECISION,
                            layout: str = "block", store_nb: int = 1,
                            _store_layout_output: bool = False,
-                           norm: str = "accurate", comms=None):
+                           norm: str = "accurate", comms=None,
+                           _verify_store: bool = False):
     """Unblocked distributed QR: ``(H, alpha)``, one broadcast per column.
 
     Every rank of ``mesh`` calls it with the same global A (m x n, m >= n).
@@ -301,7 +338,10 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
     :func:`~dhqr_tpu_torch.parallel.sharded_solve.sharded_solve`; n must
     then divide by ``store_nb * P``). ``layout="cyclic"`` stores
     ``store_nb``-wide blocks round-robin. ``comms``: the wire format of
-    the column broadcasts."""
+    the column broadcasts. With the armor seam armed the factorization is
+    verified (:func:`_factor_result`), unless it is a store-order link
+    of a chain that verifies at its end (``_store_layout_output``
+    without ``_verify_store``)."""
     comms = resolve_comms(comms)
     A, axis_name, nproc = _prepare(A, mesh, axis_name, layout)
     m, n = A.shape
@@ -321,17 +361,24 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
         )
     _check_divisibility(Ap.shape[0], n_pad, nproc, None, layout)
     m_pad = Ap.shape[0]
-    label = (f"unblocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x"
-             f"{n_pad},{layout}" + (f",w{comms}" if comms else "") + "]")
-    Hl, alpha = _pulse.observed_dispatch(
-        label, lambda: _unblocked_shard(
-            _local_block(Ap, mesh, n_pad, store_nb, layout), n_pad, mesh,
-            precision, layout, store_nb, norm, comms, axis_name),
-        mesh=mesh, n_devices=nproc, wire_format=comms)
-    if _store_layout_output:
-        return Hl, alpha
-    return (_gather_natural(Hl, mesh, n_pad, store_nb, layout)[:m, :n],
-            alpha[:n])
+    base_label = (f"unblocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x"
+                  f"{n_pad},{layout}]")
+    comms = _armor.effective_comms(base_label, comms)
+
+    def dispatch(wire_comms):
+        return _pulse.observed_dispatch(
+            base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
+            + "]",
+            lambda: _unblocked_shard(
+                _local_block(Ap, mesh, n_pad, store_nb, layout), n_pad,
+                mesh, precision, layout, store_nb, norm, wire_comms,
+                axis_name),
+            mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+
+    return _factor_result(
+        base_label, dispatch, comms, Ap, mesh, n_pad, store_nb, layout,
+        nproc, (m, n), A.dtype, _store_layout_output,
+        _verify_store or not _store_layout_output, min(32, n_pad))
 
 
 # -- blocked ----------------------------------------------------------------
@@ -578,7 +625,7 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
                        lookahead: bool = False,
                        agg_panels: "int | None" = None,
                        overlap_depth: "int | None" = None, comms=None,
-                       policy=None):
+                       policy=None, _verify_store: bool = False):
     """Compact-WY distributed QR: one broadcast per panel, GEMM trailing
     updates on each rank's live columns.
 
@@ -596,6 +643,11 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
     format of every broadcast (``"bf16"`` / ``"int8"`` / ``"dcn:*"``;
     None keeps the uncompressed tier's results bit for bit). ``policy``
     sets ``precision`` / ``trailing_precision`` / ``comms`` together.
+    With the armor seam armed the factorization is verified by its
+    weighted checksum (:func:`_factor_result`; re-dispatch, then the f32
+    wire, then typed), unless it is a store-order link of a chain that
+    verifies at its end (``_store_layout_output`` without
+    ``_verify_store``, as ``sharded_lstsq`` calls it).
     """
     comms = apply_policy_to_comms_arg(policy, comms)
     precision, trailing_precision = apply_policy_to_factor_args(
@@ -649,16 +701,23 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
     plan = panel_plan(m_pad, n_pad, nb, kernel, A.dtype, mesh.device)
     sched = (((f"la{depth}" if depth else "la") if lookahead else "")
              + (f"agg{agg_panels}" if agg_panels else ""))
-    label = (f"blocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x{n_pad},"
-             f"nb={nb},{layout}" + (f",{sched}" if sched else "")
-             + (f",w{comms}" if comms else "") + "]")
-    Hl, alpha = _pulse.observed_dispatch(
-        label, lambda: _blocked_shard(
-            _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb, mesh,
-            layout, plan, precision, trailing_precision, norm, panel_impl,
-            lookahead, agg_panels, depth, comms, axis_name),
-        mesh=mesh, n_devices=nproc, wire_format=comms)
-    if _store_layout_output:
-        return Hl, alpha
-    return (_gather_natural(Hl, mesh, n_pad, nb, layout)[:m, :n],
-            alpha[:n])
+    base_label = (f"blocked_qr[P={axis_label(axis_name, nproc)},{m_pad}x"
+                  f"{n_pad},nb={nb},{layout}"
+                  + (f",{sched}" if sched else "") + "]")
+    comms = _armor.effective_comms(base_label, comms)
+
+    def dispatch(wire_comms):
+        return _pulse.observed_dispatch(
+            base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
+            + "]",
+            lambda: _blocked_shard(
+                _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb, mesh,
+                layout, plan, precision, trailing_precision, norm,
+                panel_impl, lookahead, agg_panels, depth, wire_comms,
+                axis_name),
+            mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+
+    return _factor_result(
+        base_label, dispatch, comms, Ap, mesh, n_pad, nb, layout, nproc,
+        (m, n), A.dtype, _store_layout_output,
+        _verify_store or not _store_layout_output, nb)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch import armor as _armor
 from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.blocked import apply_block_reflector_h
@@ -134,17 +135,34 @@ def sharded_solve(H, alpha, b, mesh, block_size: int = 128,
                                                    layout)
     m = H.shape[0]
 
-    def dispatch():
-        B = b[:, None].clone() if b.ndim == 1 else b.clone()
-        return _backsub_shard(
-            Hl, alpha, _apply_qt_shard(Hl, B, n_pad, nb, mesh, precision,
-                                       layout, comms, axis_name),
-            n_pad, nb, mesh, precision, layout, comms, axis_name)
+    def dispatch(wire_comms):
+        def run():
+            B = b[:, None].clone() if b.ndim == 1 else b.clone()
+            return _backsub_shard(
+                Hl, alpha, _apply_qt_shard(Hl, B, n_pad, nb, mesh,
+                                           precision, layout, wire_comms,
+                                           axis_name),
+                n_pad, nb, mesh, precision, layout, wire_comms, axis_name)
 
-    label = (f"sharded_solve[P={axis_label(axis_name, nproc)},{m}x{n_pad},"
-             f"nb={nb},{layout}" + (f",w{comms}" if comms else "") + "]")
-    x = _pulse.observed_dispatch(label, dispatch, mesh=mesh,
-                                 n_devices=nproc, wire_format=comms)
+        return _pulse.observed_dispatch(
+            base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
+            + "]", run, mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+
+    base_label = (f"sharded_solve[P={axis_label(axis_name, nproc)},"
+                  f"{m}x{n_pad},nb={nb},{layout}]")
+    comms = _armor.effective_comms(base_label, comms)
+    if _armor.active() is None or _H_in_store_layout:
+        # A store-order link of a chain verifies at the chain's end.
+        x = dispatch(comms)
+    else:
+        # Handed factors, not A: the checkable invariant is finiteness
+        # (wire-tag poisoning and injected NaN are caught).
+        x = _armor.checked_dispatch(
+            base_label, lambda: dispatch(comms),
+            lambda x: (_armor.checks.finite_gap(x), None),
+            engine="householder", comms=comms,
+            degrade=(lambda: dispatch(None)) if comms else None,
+            plan_shape=("lstsq", m, n, H.dtype, nproc))
     return x[:n, 0] if b.ndim == 1 else x[:n]
 
 
@@ -189,16 +207,30 @@ def sharded_lstsq(A, b, mesh, block_size: int = 128, axis_name=DEFAULT_AXIS,
     check_mesh(mesh)
     A = as_tensor(A, mesh.device)
     b = as_tensor(b, mesh.device, A.dtype)
-    n = A.shape[1]
-    nproc = axis_size(mesh, resolve_axis(mesh, axis_name))
+    m, n = A.shape
+    axis = resolve_axis(mesh, axis_name)
+    nproc = axis_size(mesh, axis)
     A, b, nb, _ = _pad_problem(A, nproc, block_size, b)
-    Hl, alpha = sharded_blocked_qr(
-        A, mesh, block_size=nb, axis_name=axis_name, precision=precision,
-        layout=layout, _store_layout_output=True, norm=norm,
-        use_pallas=use_pallas, panel_impl=panel_impl,
-        trailing_precision=trailing_precision, lookahead=lookahead,
-        agg_panels=agg_panels, overlap_depth=overlap_depth, comms=comms)
-    return sharded_solve(Hl, alpha, b, mesh, block_size=nb,
-                         axis_name=axis_name, precision=apply_precision,
-                         layout=layout, _H_in_store_layout=True,
-                         comms=comms)[:n]
+
+    def dispatch(wire_comms):
+        Hl, alpha = sharded_blocked_qr(
+            A, mesh, block_size=nb, axis_name=axis_name,
+            precision=precision, layout=layout, _store_layout_output=True,
+            norm=norm, use_pallas=use_pallas, panel_impl=panel_impl,
+            trailing_precision=trailing_precision, lookahead=lookahead,
+            agg_panels=agg_panels, overlap_depth=overlap_depth,
+            comms=wire_comms)
+        return sharded_solve(Hl, alpha, b, mesh, block_size=nb,
+                             axis_name=axis_name, precision=apply_precision,
+                             layout=layout, _H_in_store_layout=True,
+                             comms=wire_comms)
+
+    # One normal-equations checksum over the whole factor + solve (the
+    # chained stages skip their own); a re-dispatch re-runs both. The
+    # wire-trip key is the caller's (m, n), the one resolve_plan looks up.
+    base_label = (f"sharded_lstsq[P={axis_label(axis, nproc)},"
+                  f"{A.shape[0]}x{A.shape[1]},nb={nb},{layout}]")
+    comms = _armor.effective_comms(base_label, comms)
+    return _armor.checked_solve(
+        base_label, dispatch, A, b, engine="householder", comms=comms,
+        plan_shape=("lstsq", m, n, A.dtype, nproc))[:n]

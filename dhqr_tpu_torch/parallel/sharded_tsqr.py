@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch import armor as _armor
 from dhqr_tpu_torch.obs import pulse as _pulse
 from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.blocked import _resolve_kernel
@@ -105,19 +106,28 @@ def sharded_tsqr_lstsq(A, b, mesh, block_size: int = 128, axis_name=ROW_AXIS,
     Al, bl = local_rows(A, b, mesh)
     Bl, restore = as_matrix_rhs(bl)
 
-    def dispatch():
-        R, c = _leaf_factor(Al.clone(), Bl, nb, precision, kernel)
-        Rstack = wire.wire_all_gather(R, mesh, comms, axis=axis)
-        cstack = wire.wire_all_gather(c, mesh, comms, axis=axis)
-        H2, alpha2, c2 = _combine_factor(Rstack, cstack, nb, precision,
-                                         kernel)
-        x = _back_substitute(H2, alpha2, c2)
-        if comms is None:
-            return x
-        return csne_sweeps(Al, Bl, x, r_matrix(H2, alpha2), mesh, axis,
-                           wire.CSNE_SWEEPS)
+    def dispatch(wire_comms):
+        def run():
+            R, c = _leaf_factor(Al.clone(), Bl, nb, precision, kernel)
+            Rstack = wire.wire_all_gather(R, mesh, wire_comms, axis=axis)
+            cstack = wire.wire_all_gather(c, mesh, wire_comms, axis=axis)
+            H2, alpha2, c2 = _combine_factor(Rstack, cstack, nb, precision,
+                                             kernel)
+            x = _back_substitute(H2, alpha2, c2)
+            if wire_comms is None:
+                return x
+            return csne_sweeps(Al, Bl, x, r_matrix(H2, alpha2), mesh, axis,
+                               wire.CSNE_SWEEPS)
 
-    x = _pulse.observed_dispatch(
-        dispatch_label("tsqr_lstsq", axis, nproc, m, n, comms, f",nb={nb}"),
-        dispatch, mesh=mesh, n_devices=nproc, wire_format=comms)
+        return _pulse.observed_dispatch(
+            dispatch_label("tsqr_lstsq", axis, nproc, m, n, wire_comms,
+                           f",nb={nb}"),
+            run, mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+
+    base_label = dispatch_label("tsqr_lstsq", axis, nproc, m, n, None,
+                                f",nb={nb}")
+    comms = _armor.effective_comms(base_label, comms)
+    x = _armor.checked_solve(base_label, dispatch, A, b, engine="tsqr",
+                             comms=comms,
+                             plan_shape=("lstsq", m, n, A.dtype, nproc))
     return restore(x)

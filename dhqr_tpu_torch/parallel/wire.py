@@ -52,8 +52,19 @@ contributes: the owner its payload, the others zeros), so a fault on the
 zero contributors adds what it adds in JAX. The JAX package consults a
 site once per traced collective; the port, once per executed one: the
 two agree where the JAX engines unroll their panel loop
-(``n / nb <= MAX_UNROLLED_PANELS``). The armor integrity tags of the JAX
-seam are not ported (ROADMAP item 15).
+(``n / nb <= MAX_UNROLLED_PANELS``).
+
+**Integrity tags.** While the armor seam is armed with its wire tags
+(:func:`dhqr_tpu_torch.armor.wire_tags_armed`), every COMPRESSED part
+travels with one f32 ``(sum, sum|.|, 1)`` triple computed by its sender
+before the fault sites mutate the payload, in the same collective (a
+broadcast's or gather's byte buffer; a sum's f32 buffer). On arrival the
+received payload's sum is held to the tag's within the format's rounding
+bound (:func:`_int8_sum_bound`; :data:`_TAG_EPS_BF16`, plus
+:data:`_TAG_EPS_BF16_PER_RANK` per rank for a dense bf16 sum); a mismatch
+poisons the whole part NaN (:func:`_check_tag`), so the armor checksum
+cannot miss it. Uncompressed parts carry no tag, and a disarmed seam
+sends exactly what it sent before.
 
 **The census.** Every collective is recorded — its family
 (``broadcast`` / ``psum`` / ``all_gather``), leg (``flat``, ``ici`` or
@@ -207,16 +218,126 @@ def _inject_collective(x: torch.Tensor) -> torch.Tensor:
     harness = _faults.active()
     if harness is None or x.numel() == 0:
         return x
+    first = (0,) * x.ndim  # element 0 whatever the payload's strides
     if harness.should_fire("parallel.collective.corrupt"):
         hit = torch.zeros_like(x)
-        hit.view(-1)[0] = 1
+        hit[first] = 1
         x = x + hit * (1e4 * (1.0 + x.abs().max())).to(x.dtype)
     if harness.should_fire("parallel.collective.nan"):
         x = x.clone()
-        x.view(-1)[0] = float("nan")
+        x[first] = float("nan")
     if harness.should_fire("parallel.collective.drop"):
         x = torch.zeros_like(x)
     return x
+
+
+# -- the integrity tags -------------------------------------------------------
+
+#: Relative sum-tag slack of the bf16 wire: payload rounding is <= 2^-8
+#: per element (x4 margin). Dense bf16 sums also accumulate up to P - 1
+#: partial-sum roundings of ~2^-9 each, so their bound carries a
+#: ``2^-9 * P`` term, P read from the tag's own count lane.
+_TAG_EPS_BF16 = 4.0 * 2.0 ** -8
+_TAG_EPS_BF16_PER_RANK = 2.0 ** -9
+
+
+def _tags_armed() -> bool:
+    from dhqr_tpu_torch import armor as _armor
+
+    return _armor.wire_tags_armed()
+
+
+def _pack_tags(x: torch.Tensor) -> torch.Tensor:
+    """The integrity tag of one payload: ``(sum, sum|.|, 1)`` in f32 (the
+    count lane sums to the number of contributing ranks)."""
+    return torch.stack([x.sum(), x.abs().sum(),
+                        torch.ones((), dtype=x.dtype, device=x.device)]
+                       ).to(torch.float32)
+
+
+def _int8_sum_bound(scale: torch.Tensor, elems_per_scale: int):
+    """Worst-case |sum error| of an int8 block-scaled payload: at most
+    scale / 2 per element, ``elems_per_scale`` elements per scale entry
+    (the row block of a matrix, every element of a vector's one scale)."""
+    return (0.5 * max(int(elems_per_scale), 1)
+            * scale.sum().to(torch.float32) + 1e-30)
+
+
+def _int8_elems_per_scale(shape) -> int:
+    return (_block_rows(shape[0]) if len(shape) == 2
+            else max(math.prod(shape), 1))
+
+
+def _check_tag(rx: torch.Tensor, tag_sum, bound) -> torch.Tensor:
+    """``rx``, or all NaN when its sum disagrees with the sender's tag by
+    more than ``bound`` (a device-side select: no host read)."""
+    ok = (rx.sum().to(torch.float32) - tag_sum).abs() <= bound
+    return torch.where(ok, rx, torch.full_like(rx, float("nan")))
+
+
+def _tags_of(parts, modes, sender: bool = True):
+    """The (k, 3) tag rows of ``parts`` (zeros for an uncompressed part,
+    and on a broadcast's receivers), or None when nothing is tagged."""
+    if all(m is None for m in modes) or not _tags_armed():
+        return None
+    device = parts[0].device
+    zero = torch.zeros(3, dtype=torch.float32, device=device)
+    return torch.stack([_pack_tags(p) if m is not None and sender else zero
+                        for p, m in zip(parts, modes)])
+
+
+def _tagged_layout(parts, modes, tags):
+    """The parts with the tag rows appended (raw f32) when there are any,
+    and the layout they travel in."""
+    if tags is None:
+        return parts, _Layout(parts, modes)
+    return parts + [tags], _Layout(parts + [tags], modes + [None])
+
+
+def _tag_bound(mode, shape, tag, scale, onehot: bool):
+    if mode == "int8":
+        return _int8_sum_bound(scale, _int8_elems_per_scale(shape))
+    eps = _TAG_EPS_BF16 if onehot else (
+        _TAG_EPS_BF16 + _TAG_EPS_BF16_PER_RANK * tag[2])
+    return eps * tag[1] + 1e-30
+
+
+def _checked(outs, segs, tags, modes, onehot: bool) -> list:
+    """Each compressed part of a received sum or broadcast held to its
+    summed tag."""
+    outs = list(outs)
+    for j, mode in enumerate(modes):
+        if mode is not None:
+            bound = _tag_bound(mode, outs[j].shape, tags[j],
+                               segs.get((j, "scale")), onehot)
+            outs[j] = _check_tag(outs[j], tags[j][0], bound)
+    return outs
+
+
+def _checked_shares(shares, seg_list, modes) -> list:
+    """A gather's shares (each ending in its sender's tag rows), each
+    compressed part held over every share, as one gathered payload, to
+    the sum of the shares' tags; a mismatch poisons that part in every
+    share."""
+    k = len(modes)
+    tags = torch.stack([share[k] for share in shares])       # (P, k, 3)
+    shares = [list(share[:k]) for share in shares]
+    for j, mode in enumerate(modes):
+        if mode is None:
+            continue
+        total = sum(share[j].sum().to(torch.float32) for share in shares)
+        if mode == "int8":
+            bound = _int8_sum_bound(
+                torch.cat([segs[(j, "scale")].reshape(-1)
+                           for segs in seg_list]),
+                _int8_elems_per_scale(shares[0][j].shape))
+        else:
+            bound = _TAG_EPS_BF16 * tags[:, j, 1].sum() + 1e-30
+        ok = (total - tags[:, j, 0].sum()).abs() <= bound
+        for share in shares:
+            share[j] = torch.where(ok, share[j],
+                                   torch.full_like(share[j], float("nan")))
+    return shares
 
 
 # -- the census ---------------------------------------------------------------
@@ -367,13 +488,16 @@ class _Layout:
             off += size
         return buf
 
-    def from_bytes(self, buf: torch.Tensor) -> list:
+    def segments(self, buf: torch.Tensor) -> "dict[tuple, torch.Tensor]":
         segs, off = {}, 0
         for j, role, dt, n in self.segs:
             size = n * _itemsize(dt)
             segs[(j, role)] = buf[off:off + size].view(dt)
             off += size
-        return self.decode_parts(segs)
+        return segs
+
+    def from_bytes(self, buf: torch.Tensor) -> list:
+        return self.decode_parts(self.segments(buf))
 
 
 def _itemsize(dtype) -> int:
@@ -433,10 +557,13 @@ def _result(parts, single: bool):
 # -- the legs -----------------------------------------------------------------
 
 def _bcast_leg(parts, src, mesh, comms, leg, crosses, async_op=False):
-    """One broadcast of ``parts`` from mesh rank ``src`` at ``comms``."""
+    """One broadcast of ``parts`` from mesh rank ``src`` at ``comms``; a
+    compressed part carries its sender's integrity tag while the tags are
+    armed."""
     sender = mesh.rank == src
     modes = [_mode(p, comms, onehot=True) for p in parts]
     raw = _nbytes(parts)
+    tags = _tags_of(parts, modes, sender)
     if all(m is None for m in modes) and len({p.dtype for p in parts}) == 1:
         if len(parts) == 1 and parts[0].is_contiguous():
             buf = parts[0]  # in place on every rank
@@ -450,10 +577,17 @@ def _bcast_leg(parts, src, mesh, comms, leg, crosses, async_op=False):
                               zip(buf.split(sizes), shapes)]
         wire, nbytes = _dtype_name(parts[0].dtype), raw
     else:
-        layout = _Layout(parts, modes)
-        buf = layout.to_bytes(parts, mesh.device) if sender else \
+        sent, layout = _tagged_layout(parts, modes, tags)
+        buf = layout.to_bytes(sent, mesh.device) if sender else \
             torch.empty(layout.nbytes, dtype=torch.uint8, device=mesh.device)
-        finish = lambda: layout.from_bytes(buf)  # noqa: E731
+
+        def finish():
+            segs = layout.segments(buf)
+            out = layout.decode_parts(segs)
+            if tags is None:
+                return out
+            return _checked(out[:-1], segs, out[-1], modes, onehot=True)
+
         wire, nbytes = layout.wire(), layout.nbytes
     work = dist.broadcast(buf, mesh.global_rank(src), group=mesh.group,
                           async_op=async_op)
@@ -464,10 +598,12 @@ def _bcast_leg(parts, src, mesh, comms, leg, crosses, async_op=False):
 
 def _psum_leg(parts, mesh, comms, onehot, leg, crosses, async_op=False):
     """One sum over ``mesh`` of each rank's ``parts`` at ``comms`` (one
-    ``all_reduce`` per wire dtype)."""
+    ``all_reduce`` per wire dtype; the integrity tags, when armed, ride
+    the f32 one)."""
+    modes = [_mode(p, comms, onehot) for p in parts]
+    tags = _tags_of(parts, modes)
     if _wire_faults():
         parts = [_inject_collective(p) for p in parts]
-    modes = [_mode(p, comms, onehot) for p in parts]
     raw = _nbytes(parts)
     if len(parts) == 1 and modes[0] is None and parts[0].is_contiguous():
         buf = parts[0]
@@ -476,8 +612,8 @@ def _psum_leg(parts, mesh, comms, onehot, leg, crosses, async_op=False):
         _record("psum", leg, mesh, comms, parts, _dtype_name(buf.dtype), raw,
                 raw, 1, crosses, onehot)
         return _done(works if async_op else [], async_op, lambda: [buf])
-    layout = _Layout(parts, modes)
-    tensors = layout.encode_parts(parts)
+    sent, layout = _tagged_layout(parts, modes, tags)
+    tensors = layout.encode_parts(sent)
     groups: "dict[object, list]" = {}
     for j, role, dt, n in layout.segs:
         groups.setdefault(dt, []).append((j, role, n))
@@ -495,7 +631,10 @@ def _psum_leg(parts, mesh, comms, onehot, leg, crosses, async_op=False):
             for (j, role, _), v in zip(members, bufs[dt].split(
                     [n for _, _, n in members])):
                 segs[(j, role)] = v
-        return layout.decode_parts(segs)
+        out = layout.decode_parts(segs)
+        if tags is None:
+            return out
+        return _checked(out[:-1], segs, out[-1], modes, onehot)
 
     return _done(works if async_op else [], async_op, finish)
 
@@ -503,10 +642,12 @@ def _psum_leg(parts, mesh, comms, onehot, leg, crosses, async_op=False):
 def _gather_leg(parts, mesh, comms, leg, crosses, faults=True,
                 async_op=False):
     """One all-gather over ``mesh`` of each rank's ``parts`` at ``comms``;
-    the result is, per rank in mesh order, its parts."""
+    the result is, per rank in mesh order, its parts. Compressed parts
+    carry their integrity tags while the tags are armed."""
+    modes = [_mode(p, comms, onehot=True) for p in parts]
+    tags = _tags_of(parts, modes)
     if faults and _wire_faults():
         parts = [_inject_collective(p) for p in parts]
-    modes = [_mode(p, comms, onehot=True) for p in parts]
     P = mesh.size
     raw = P * _nbytes(parts)
     if len(parts) == 1 and modes[0] is None:
@@ -517,14 +658,21 @@ def _gather_leg(parts, mesh, comms, leg, crosses, faults=True,
                 raw, raw, 1, crosses)
         return _done([work] if async_op else [], async_op,
                      lambda: [[o] for o in outs])
-    layout = _Layout(parts, modes)
-    buf = layout.to_bytes(parts, mesh.device)
+    sent, layout = _tagged_layout(parts, modes, tags)
+    buf = layout.to_bytes(sent, mesh.device)
     outs = [torch.empty_like(buf) for _ in range(P)]
     work = dist.all_gather(outs, buf, group=mesh.group, async_op=async_op)
     _record("all_gather", leg, mesh, comms, parts, layout.wire(),
             P * layout.nbytes, raw, 1, crosses)
-    return _done([work] if async_op else [], async_op,
-                 lambda: [layout.from_bytes(o) for o in outs])
+
+    def finish():
+        if tags is None:
+            return [layout.from_bytes(o) for o in outs]
+        seg_list = [layout.segments(o) for o in outs]
+        shares = [layout.decode_parts(segs) for segs in seg_list]
+        return _checked_shares(shares, seg_list, modes)
+
+    return _done([work] if async_op else [], async_op, finish)
 
 
 # -- the two-tier schedules ---------------------------------------------------

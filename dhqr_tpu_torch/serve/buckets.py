@@ -34,14 +34,7 @@ import numpy as np
 import torch
 
 from dhqr_tpu_torch.utils.config import ServeConfig
-
-
-def dtype_name(dtype) -> str:
-    """The canonical numpy name (``"float32"``) of a numpy or torch dtype:
-    the spelling of the cache key's dtype field in both packages."""
-    if isinstance(dtype, torch.dtype):
-        return str(dtype).rsplit(".", 1)[-1]
-    return np.dtype(dtype).name
+from dhqr_tpu_torch.utils.device import dtype_name
 
 
 def _align_for(v: int) -> int:

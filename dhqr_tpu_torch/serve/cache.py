@@ -122,28 +122,21 @@ class CacheKey(NamedTuple):
     sketch: "tuple | None" = None
 
 
-def _plan_spelling(key: CacheKey) -> str:
-    """The plan segment of a serve key as the JAX package's
-    ``Plan.describe()`` spells it (the blocked householder engine, and
-    the key's block_size / panel_impl / trailing_precision)."""
-    parts = ["householder", f"nb{key.block_size}"]
-    if key.panel_impl != "loop":
-        parts.append(key.panel_impl)
-    if key.trailing_precision:
-        parts.append(f"tp-{key.trailing_precision}")
-    return "+".join(parts)
-
-
 def canonical_key(key) -> str:
     """The JAX package's cross-process spelling of a cache key
     (``serve.store.canonical_key``), byte for byte: CacheKeys, strings and
-    flat tuples of primitives; anything else raises ``ValueError``."""
+    flat tuples of primitives; anything else raises ``ValueError``. The
+    plan segment is the key's plan's ``Plan.describe()``
+    (``serve.engine.cache_key_plan``)."""
     if isinstance(key, CacheKey):
+        from dhqr_tpu_torch.serve.engine import cache_key_plan
+
+        plan = cache_key_plan(key)
         sketch = "-" if key.sketch is None else \
             ":".join(repr(x) for x in key.sketch)
         return "|".join([
             CANONICAL_VERSION, key.kind, f"b{key.batch}",
-            f"{key.m}x{key.n}", key.dtype, _plan_spelling(key),
+            f"{key.m}x{key.n}", key.dtype, plan.describe(),
             f"p={key.precision}", f"a={key.apply_precision or '-'}",
             f"r={key.refine}", f"norm={key.norm}", f"sk={sketch}",
         ])

@@ -23,7 +23,10 @@ panel kernel is a single-problem tier). Here that is the stacked engine of
 and trailing update, and no Hopper panel kernel. Precision policies and
 refinement compose as on ``lstsq``: the policy's panel/trailing go to the
 factor stage, ``apply`` to the Q^H-apply, ``refine`` into sweeps inside
-the program. ``plan=`` waits for the tuner (ROADMAP Queue A item 14).
+the program. ``plan=`` ("auto", "default" or a
+:class:`~dhqr_tpu_torch.tune.Plan`) resolves once per bucket, on the
+bucket's shape (:func:`_resolve_bucket_plan`), before the key is minted, so
+a tuned dispatch and its prewarm hit the same program.
 """
 
 from __future__ import annotations
@@ -58,9 +61,9 @@ from dhqr_tpu_torch.serve.cache import (
     default_cache,
 )
 from dhqr_tpu_torch.serve.errors import DispatchFailed, ServeError
+from dhqr_tpu_torch.tune.registry import SERVE_PROGRAM_KINDS
 from dhqr_tpu_torch.utils.config import (
     DHQRConfig,
-    NotPortedError,
     ServeConfig,
     SketchConfig,
 )
@@ -70,12 +73,6 @@ from dhqr_tpu_torch.utils.device import as_tensor, resolve_device
 # None), the JAX package's: measured on the CPU there (nb=32 beat 128 by
 # 2.4-4.5x on stacks of 16); the card's best width is not measured.
 SERVE_DEFAULT_BLOCK = 32
-
-#: The program families a serve key can name (the JAX package keeps this
-#: in ``tune/registry``, which the port does not have yet).
-SERVE_PROGRAM_KINDS = ("lstsq", "qr", "sketch")
-
-_PLAN_ITEM = "Queue A item 14 (tune/)"
 
 #: Why a key with the reconstruct panel engine runs eager on the card.
 RECONSTRUCT_EAGER = (
@@ -164,11 +161,68 @@ def _resolve_serve_cfg(config: Optional[DHQRConfig],
     if cfg.refine < 0:
         raise ValueError(f"refine must be >= 0, got {cfg.refine}")
     _check_panel_impl(cfg)
-    if isinstance(cfg.plan, str) and cfg.plan == "default":
-        cfg = dataclasses.replace(cfg, plan=None)
-    if cfg.plan is not None:
-        raise NotPortedError(f"plan={cfg.plan!r}", _PLAN_ITEM)
+    _check_plan_spec(cfg.plan)
     return cfg, pol
+
+
+def _check_plan_spec(spec) -> None:
+    """Refuse a ``plan=`` that is not None, "auto", "default" or a Plan
+    when the request is resolved (the JAX package finds it at the
+    bucket's resolution, with the same message)."""
+    from dhqr_tpu_torch.tune import Plan
+
+    if spec is None or isinstance(spec, Plan) or spec in ("auto",
+                                                          "default"):
+        return
+    raise ValueError(
+        f"plan must be 'auto', 'default', None or a "
+        f"dhqr_tpu_torch.tune.Plan, got {spec!r}"
+    )
+
+
+def _resolve_bucket_plan(kind: str, cfg: DHQRConfig, bucket: Bucket, pol,
+                         device=None) -> DHQRConfig:
+    """Per-bucket twin of ``models.qr_model._resolve_plan_cfg`` (the JAX
+    package's rules and messages): the serve tier's plan key is the
+    BUCKET shape on the dispatch's device, so ``plan="auto"`` resolves
+    once per bucket, and the tuned knobs land on the config before
+    :func:`_plan_key` mints the cache key."""
+    spec = cfg.plan
+    if spec is None:
+        return cfg
+    if isinstance(spec, str) and spec == "default":
+        return dataclasses.replace(cfg, plan=None)
+    from dhqr_tpu_torch.tune import Plan, apply_plan_to_config, resolve_plan
+
+    if cfg.block_size is not None or cfg.panel_impl != "loop":
+        raise ValueError(
+            "pass either plan= or block_size=/panel_impl=, not both "
+            f"(got block_size={cfg.block_size}, "
+            f"panel_impl={cfg.panel_impl!r} with plan={spec!r})"
+        )
+    if isinstance(spec, Plan):
+        plan = spec
+    else:
+        _check_plan_spec(spec)
+        plan = resolve_plan(f"serve_{kind}", bucket.m, bucket.n,
+                            bucket.dtype, policy=pol, device=device)
+        if plan is None:  # DB miss with on_miss="default"
+            return dataclasses.replace(cfg, plan=None)
+    if plan.engine != "householder" or plan.lookahead or plan.agg_panels \
+            or plan.comms:
+        raise ValueError(
+            "serve plans carry block_size/panel_impl/trailing_precision "
+            "only (the serving tier batches the blocked householder "
+            "engine — no schedule levers, and no collectives for a "
+            f"comms wire format to compress); got {plan.describe()!r}"
+        )
+    if plan.trailing_precision and cfg.trailing_precision is not None:
+        raise ValueError(
+            f"the plan carries trailing_precision="
+            f"{plan.trailing_precision!r} but the policy/config already "
+            f"set {cfg.trailing_precision!r} — drop one"
+        )
+    return apply_plan_to_config(cfg, plan)
 
 
 def _sketch_triple(m: int, n: int) -> "tuple[int, int, str]":
@@ -210,10 +264,16 @@ def _plan_key(kind: str, count: int, m: int, n: int, dtype,
 
 
 def cache_key_plan(key: CacheKey):
-    """The tuner's ``Plan`` a serve key carries: waits for the tuner
-    (ROADMAP Queue A item 14); :func:`serve.cache.canonical_key` spells
-    the plan segment without it."""
-    raise NotPortedError(f"cache_key_plan({key!r:.60})", _PLAN_ITEM)
+    """The :class:`~dhqr_tpu_torch.tune.Plan` a serve key carries — the
+    inverse of the plan application in :func:`_resolve_bucket_plan`:
+    serve plans carry only block_size / panel_impl / trailing_precision,
+    so those three round-trip exactly (``serve.cache.canonical_key``
+    spells the plan segment with its ``describe()``)."""
+    from dhqr_tpu_torch.tune import Plan
+
+    return Plan(engine="householder", block_size=key.block_size,
+                panel_impl=key.panel_impl,
+                trailing_precision=key.trailing_precision or None)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -270,6 +330,11 @@ def bucket_program(kind: str, config: Optional[DHQRConfig] = None,
     of the stacked tensors (``fn(A)`` for "qr", ``fn(A, b)`` otherwise),
     on their device."""
     cfg, pol = _resolve_serve_cfg(config, overrides)
+    if cfg.plan is not None:
+        raise ValueError(
+            "bucket_program takes resolved knobs (block_size=, ...): "
+            "plan= is resolved per bucket by the serve entry points"
+        )
     if pol is not None and pol.refine:
         cfg = dataclasses.replace(cfg, refine=pol.refine)
 
@@ -435,7 +500,7 @@ def _group_by_bucket(As: Sequence, scfg: ServeConfig):
 
 
 def _dispatch_groups(kind, As, bs, cfg, scfg, cache, consume, device,
-                     trace_id=None):
+                     trace_id=None, pol=None):
     """The one group -> chunk -> key -> compile -> pad -> dispatch loop of
     every entry point. ``consume(chunk, key, outs)`` gets each dispatched
     chunk's request indices, cache key and stacked outputs.
@@ -445,13 +510,15 @@ def _dispatch_groups(kind, As, bs, cfg, scfg, cache, consume, device,
     / ``serve.dispatch`` fault sites at the launch. ``consume`` is outside
     the wrap. With ``cfg.guards`` armed, non-finite stacked outputs raise
     :class:`Breakdown` before the scatter (a check outside the program:
-    same key, same program)."""
+    same key, same program). ``pol`` (the resolved policy) keys the
+    per-bucket plan resolution."""
     rec = _obs.active() if trace_id is not None else None
     for bucket, idxs in _group_by_bucket(As, scfg).items():
+        cfg_b = _resolve_bucket_plan(kind, cfg, bucket, pol, device)
         for lo in range(0, len(idxs), scfg.max_batch):
             chunk = idxs[lo:lo + scfg.max_batch]
             key, _ = _plan_key(kind, len(chunk), bucket.m, bucket.n,
-                               bucket.dtype, cfg, scfg)
+                               bucket.dtype, cfg_b, scfg)
             was_resident = rec is not None and key in cache
             compile0 = cache.timer.total("aot_compile") \
                 if rec is not None and not was_resident else 0.0
@@ -492,12 +559,12 @@ def _dispatch_groups(kind, As, bs, cfg, scfg, cache, consume, device,
                     outs = _pulse.observed_dispatch(
                         "serve:" + ":".join(str(f) for f in key),
                         launch, contract_families=(), n_devices=1,
-                        on_report=pair)
+                        on_report=pair, device=device)
             except ServeError:
                 raise
             except Exception as e:
                 raise DispatchFailed(key, e) from e
-            if cfg.guards is not None:
+            if cfg_b.guards is not None:
                 bad = (_nguards.any_nonfinite(*outs) if kind == "qr"
                        else _nguards.any_nonfinite(outs))
                 if bad:
@@ -506,7 +573,7 @@ def _dispatch_groups(kind, As, bs, cfg, scfg, cache, consume, device,
                         f"for {key!r}: a request in this batch is "
                         "numerically poisoned (NaN input or breakdown); "
                         "bisect to isolate it",
-                        engine=cfg.engine)
+                        engine=cfg_b.engine)
             consume(chunk, key, outs)
 
 
@@ -545,20 +612,20 @@ def _setup(kind, config, serve_config, cache, device, overrides):
         dev = torch.device("cuda", torch.cuda.current_device())
     cache = cache if cache is not None else default_cache(dev)
     cfg, pol, qr_args = _resolve_dispatch_cfg(kind, config, overrides)
-    return scfg, dev, cache, cfg, qr_args
+    return scfg, dev, cache, cfg, pol, qr_args
 
 
 def _batched_solve(kind, As, bs, config, serve_config, cache, device,
                    overrides) -> List[torch.Tensor]:
-    scfg, dev, cache, cfg, _ = _setup(kind, config, serve_config, cache,
-                                      device, overrides)
+    scfg, dev, cache, cfg, pol, _ = _setup(kind, config, serve_config,
+                                           cache, device, overrides)
     _validate_requests(As, bs)
     rec, tid = _trace_sync_call(kind, len(As))
     out: "list[torch.Tensor | None]" = [None] * len(As)
     consume = _scatter_lstsq(As, lambda i, x: out.__setitem__(i, x))
     with _trace_sync_resolve(rec, tid):
         _dispatch_groups(kind, As, bs, cfg, scfg, cache, consume, dev,
-                         trace_id=tid)
+                         trace_id=tid, pol=pol)
     return out
 
 
@@ -620,7 +687,7 @@ def batched_qr(
     donates the stack; here the stacked H is the stack's storage). A
     ``policy=`` with ``refine > 0`` arms refinement on each returned
     factorization's solves, as ``qr(A, policy=...)`` does."""
-    scfg, dev, cache, cfg, qr_solve_args = _setup(
+    scfg, dev, cache, cfg, pol, qr_solve_args = _setup(
         "qr", config, serve_config, cache, device, overrides)
     _validate_requests(As, None)
     rec, tid = _trace_sync_call("qr", len(As))
@@ -629,7 +696,7 @@ def batched_qr(
                           qr_solve_args, dev)
     with _trace_sync_resolve(rec, tid):
         _dispatch_groups("qr", As, None, cfg, scfg, cache, consume, dev,
-                         trace_id=tid)
+                         trace_id=tid, pol=pol)
     return out
 
 
@@ -651,9 +718,11 @@ def prewarm(
     arrival (chunked past ``max_batch`` as live dispatch chunks) and, for
     specs sharing a bucket, their combined arrival, so a mix served as
     declared — specs separately or together — hits only prewarmed keys.
-    Returns the deduplicated keys in compile order."""
-    scfg, dev, cache, cfg, _ = _setup(kind, config, serve_config, cache,
-                                      device, overrides)
+    Returns the deduplicated keys in compile order. ``plan="auto"``
+    resolves once per bucket here (tuning on a DB miss: prewarm is where
+    that cost belongs), through the resolver live dispatch uses."""
+    scfg, dev, cache, cfg, pol, _ = _setup(kind, config, serve_config,
+                                           cache, device, overrides)
     per_arrival: "list[tuple[Bucket, int]]" = []
     merged: "dict[Bucket, int]" = {}
     for spec in shapes:
@@ -671,11 +740,16 @@ def prewarm(
         per_arrival.append((bucket, int(count)))
         merged[bucket] = merged.get(bucket, 0) + int(count)
     keys: "list[CacheKey]" = []
+    bucket_cfgs: "dict[Bucket, DHQRConfig]" = {}
     for bucket, count in per_arrival + list(merged.items()):
+        if bucket not in bucket_cfgs:
+            bucket_cfgs[bucket] = _resolve_bucket_plan(kind, cfg, bucket,
+                                                       pol, dev)
+        cfg_b = bucket_cfgs[bucket]
         for lo in range(0, count, scfg.max_batch):
             chunk_count = min(scfg.max_batch, count - lo)
             key, _ = _plan_key(kind, chunk_count, bucket.m, bucket.n,
-                               bucket.dtype, cfg, scfg)
+                               bucket.dtype, cfg_b, scfg)
             if key not in keys:
                 keys.append(key)
                 cache.get_or_compile(key, partial(_lower_for_key, key, dev))

@@ -206,7 +206,7 @@ class Router:
                 continue
             except RuntimeError as err:
                 if isinstance(err, NotImplementedError):
-                    raise           # a refused knob (plan=) is the caller's
+                    raise           # a refused knob (NotPortedError) is the caller's
                 # closed under us between the health check and the submit
                 self._mark_dead(idx)
                 continue

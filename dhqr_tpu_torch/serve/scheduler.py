@@ -32,8 +32,10 @@ ONE dispatch path, as in the JAX package: a flush calls the engine's own
 ``_dispatch_groups`` with consumers from the engine's ``_scatter_lstsq`` /
 ``_scatter_qr``, so the scheduler and the sync tier mint the same
 ``CacheKey``\\ s and a cache prewarmed for the sync tier serves the queue
-with no capture. ``plan=`` waits for the tuner (ROADMAP Queue A item 14)
-and is refused by the engine's resolver, as on the sync tier.
+with no capture. ``plan=`` (per request, or in the scheduler's config)
+resolves per bucket at the flush, through the engine's resolver, so a
+scheduler prewarmed with ``prewarm(..., plan="auto")`` replays only tuned
+keys.
 
 On the card: the scheduler runs on one device (``device=None``: the
 card; without CUDA it raises, ``device="cpu"`` runs the plain path), each
@@ -600,7 +602,7 @@ class AsyncScheduler:
         try:
             _engine._dispatch_groups(
                 group.kind, As, bs, group.cfg, self._scfg, self._cache,
-                consume, self._device)
+                consume, self._device, pol=group.pol)
         except Exception:
             # finished chunks of a multi-chunk batch resolve now; only the
             # failed remainder retries

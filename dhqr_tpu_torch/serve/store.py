@@ -28,10 +28,9 @@ Two cross-process tiers, as in the JAX package:
 * **Fleet state** (:func:`save_fleet_state` / :func:`load_fleet_state`) —
   the verdicts a replica learns against live traffic, merged
   last-write-wins under an advisory file lock: compile quarantines (the
-  serve cache's cooldowns, spelled canonically) work fully. The JAX
-  package's plan-gate failure counts and armor wire trips keep their
-  sections, empty, until the tuner (ROADMAP Queue A item 14) and armor
-  (item 15) land; a file written by either package reads in the other.
+  serve cache's cooldowns, spelled canonically), the tuner's plan-gate
+  failure counts and the armor seam's wire trips, in the JAX package's
+  spelling, so a file written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -63,12 +62,6 @@ STATE_VERSION = 1
 #: The reason :meth:`ExecutableStore.load` gives for a key it holds.
 NOT_A_PROGRAM = ("recorded by an earlier process, but a CUDA graph does "
                  "not outlive its process: recapture")
-
-#: The fleet-state sections whose producers wait for later ROADMAP items.
-_UNPORTED_SECTIONS = {
-    "gate_failures": "Queue A item 14 (tune/: the plan numeric gate)",
-    "wire_trips": "Queue A item 15 (armor/: the wire tags)",
-}
 
 
 def _env_fingerprint() -> str:
@@ -379,22 +372,33 @@ def _warn_once(path: str, reason: str, detail: str) -> None:
 
 def export_fleet_state(cache=None, wall=time.time) -> dict:
     """This process's serving verdicts in the shared JSON spelling:
-    active compile quarantines (canonical key -> wall-clock expiry). The
-    plan-gate and wire-trip sections stay empty until their producers
-    land (:data:`_UNPORTED_SECTIONS`)."""
+    active compile quarantines (canonical key -> wall-clock expiry), the
+    plan numeric-gate failure counts (tune plan key -> count) and the
+    armor wire-trip counts."""
+    from dhqr_tpu_torch import armor as _armor
+    from dhqr_tpu_torch.tune.search import plan_gate_stats
+
     cache = default_cache() if cache is None else cache
-    out = {"quarantines": cache.export_quarantines(wall=wall)}
-    out.update({section: {} for section in _UNPORTED_SECTIONS})
-    return out
+    return {
+        "quarantines": cache.export_quarantines(wall=wall),
+        "gate_failures": {
+            k: int(v) for k, v in
+            plan_gate_stats().get("failures", {}).items()},
+        "wire_trips": _armor.export_wire_trips(),
+    }
 
 
 def adopt_fleet_state(state: dict, cache=None, wall=time.time) -> None:
     """Inherit another replica's verdicts: quarantines land in the cache's
-    adopted-cooldown map. The plan-gate and wire-trip counts have no
-    reader in the port yet (:data:`_UNPORTED_SECTIONS`); they stay in the
-    file for the replicas that read them."""
+    adopted-cooldown map, gate failures and wire trips merge by MAX into
+    the tuner and the armor seam (a count is monotone evidence)."""
+    from dhqr_tpu_torch import armor as _armor
+    from dhqr_tpu_torch.tune.search import adopt_gate_failures
+
     cache = default_cache() if cache is None else cache
     cache.adopt_quarantines(state.get("quarantines") or {}, wall=wall)
+    adopt_gate_failures(state.get("gate_failures") or {})
+    _armor.adopt_wire_trips(state.get("wire_trips") or {})
 
 
 def _merge_state(disk: dict, ours: dict, wall_now: float) -> dict:

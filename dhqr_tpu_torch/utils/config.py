@@ -1,12 +1,10 @@
 """Configuration for the PyTorch port: the same ``DHQRConfig`` fields and
-defaults as ``dhqr_tpu/utils/config.py``, plus the refusals of what this
-port does not run yet.
-
-Every field of the JAX config is accepted, so a config built from the JAX
-one's field values (:func:`dhqr_tpu_torch.interop.config_from_fields`)
-always constructs. The entry points then refuse each knob the port has not
-brought over with a :class:`NotPortedError` that names the ROADMAP item
-that will bring it — never a silent fallback to a different schedule.
+defaults as ``dhqr_tpu/utils/config.py``, the same knob dataclasses
+(``SketchConfig``, ``ServeConfig``, ``SchedulerConfig``, ``FleetConfig``,
+``FaultConfig``, ``ObsConfig``, ``TuneConfig``, ``ArmorConfig``) with their
+``DHQR_*`` variables, and :class:`NotPortedError` for the paths the port
+refuses, each naming its ROADMAP item — never a silent fallback to a
+different schedule.
 """
 
 from __future__ import annotations
@@ -72,14 +70,16 @@ class DHQRConfig:
     "recursive", "reconstruct", "reconstruct:<chunk>"), ``refine``
     (lstsq), ``lookahead``, ``agg_panels`` and ``guards`` (None, or
     "screen" / "fallback" / "full": the entry points route through
-    :mod:`dhqr_tpu_torch.numeric.ladder`). ``mesh_axis`` and ``layout``
+    :mod:`dhqr_tpu_torch.numeric.ladder`) and ``plan`` (None, "auto",
+    "default" or a :class:`dhqr_tpu_torch.tune.Plan`: the tuned
+    engine-selection knobs, ``models.qr_model._resolve_plan_cfg``;
+    ``DHQR_TUNE_PLAN``). ``mesh_axis`` and ``layout``
     steer the mesh tier (``mesh=``, :mod:`dhqr_tpu_torch.parallel`) and
     are ignored on a single device, as in the JAX package, and so is
     ``comms``, the mesh's wire format (``"bf16"`` / ``"int8"`` /
     ``"dcn:bf16"`` / ``"dcn:int8"``; "f32"/"none" mean None);
     ``overlap_depth`` is mesh-only, a ``ValueError`` on a single device as
-    in the JAX package. ``plan`` must stay at its default: the entry
-    points refuse it (:func:`refuse_unported`).
+    in the JAX package.
     """
 
     block_size: "int | None" = None
@@ -129,6 +129,13 @@ class DHQRConfig:
             raw = os.environ["DHQR_GUARDS"].strip().lower()
             env["guards"] = None if raw in (
                 "", "0", "off", "none", "false", "no") else raw
+        if "DHQR_TUNE_PLAN" in os.environ:
+            raw = os.environ["DHQR_TUNE_PLAN"].strip().lower()
+            if raw not in ("", "auto", "default"):
+                raise ValueError(
+                    f"DHQR_TUNE_PLAN must be 'auto' or 'default', got {raw!r}"
+                )
+            env["plan"] = raw or None
         env.update(overrides)
         return DHQRConfig(**env)
 
@@ -139,11 +146,6 @@ def check_precision(precision: str) -> None:
         raise ValueError(f"precision must be one of {sorted(MXU_PASSES)}, "
                          f"got {precision!r}")
 
-
-# (field, ROADMAP item that brings it). Each must stay at its default.
-_UNPORTED_FIELDS = (
-    ("plan", "Queue A item 14 (tune/)"),
-)
 
 ENGINES = ("householder", "tsqr", "cholqr2", "cholqr3", "sketch")
 
@@ -191,12 +193,8 @@ def check_sched_knobs(cfg: DHQRConfig, mesh=None) -> None:
 
 
 def refuse_unported(cfg: DHQRConfig, mesh=None) -> None:
-    """Raise :class:`NotPortedError` for every knob this port does not run,
-    and ``ValueError`` for values the JAX package itself rejects."""
-    defaults = DHQRConfig()
-    for field, item in _UNPORTED_FIELDS:
-        if getattr(cfg, field) != getattr(defaults, field):
-            raise NotPortedError(f"{field}={getattr(cfg, field)!r}", item)
+    """Raise ``ValueError`` for the knob values the JAX package itself
+    rejects (every knob of the JAX config runs in the port)."""
     if cfg.engine not in ENGINES:
         raise ValueError(
             f"unknown engine {cfg.engine!r}: expected one of {ENGINES}")
@@ -237,8 +235,8 @@ class SketchConfig:
     on the ``O(n log n)`` sketch-size rule. ``refine``
     (``DHQR_SKETCH_REFINE``): baseline R-preconditioned CGLS iterations
     against the true A; a caller's ``refine`` adds to it. ``min_aspect``
-    (``DHQR_SKETCH_MIN_ASPECT``): the m/n gate of the JAX package's tuner,
-    carried for parity (the port has no tuner yet).
+    (``DHQR_SKETCH_MIN_ASPECT``): the m/n gate of the tuner's sketch
+    candidate (``tune.search.candidate_plans``, rule 5).
     """
 
     seed: int = 0
@@ -603,6 +601,121 @@ class FaultConfig:
             env["latency_ms"] = float(os.environ["DHQR_FAULTS_LATENCY_MS"])
         env.update(overrides)
         return FaultConfig(**env)
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneConfig:
+    """Knobs for the autotuner (:mod:`dhqr_tpu_torch.tune`): fields,
+    defaults, checks and ``DHQR_TUNE_*`` variables as the JAX package's
+    ``TuneConfig``. They shape the search and the persistence, never the
+    numerics (a plan names only engine-selection knobs).
+
+    Attributes:
+      db_path: the writable plan database (``DHQR_TUNE_DB``), loaded
+        tolerantly and written merge-atomically. The default is the
+        port's own file beside the JAX package's (the keys' platform
+        segments differ too: ``torch-cuda`` / ``torch-cpu``).
+      use_seeds: layer the packaged ``tune/default_plans.json`` under the
+        local DB (``DHQR_TUNE_SEEDS``, default on; the port's file ships
+        no entries).
+      budget: most candidates one ``tune()`` times (``DHQR_TUNE_BUDGET``);
+        the pruned grid is truncated from its end, never sampled.
+      repeats: timed runs per candidate after the warm-up
+        (``DHQR_TUNE_REPEATS``); the minimum is kept.
+      on_miss: what ``plan="auto"`` does on a DB miss: "tune" (measure,
+        record, persist) or "default" (the static plan, no measurement;
+        ``DHQR_TUNE_ON_MISS``).
+    """
+
+    db_path: str = os.path.join("~", ".cache", "dhqr_tpu_torch",
+                                "plans.json")
+    use_seeds: bool = True
+    budget: int = 16
+    repeats: int = 3
+    on_miss: str = "tune"
+
+    def __post_init__(self):
+        object.__setattr__(self, "db_path",
+                           os.path.expanduser(self.db_path))
+        if self.budget < 1:
+            raise ValueError(f"budget must be >= 1, got {self.budget}")
+        if self.repeats < 1:
+            raise ValueError(f"repeats must be >= 1, got {self.repeats}")
+        if self.on_miss not in ("tune", "default"):
+            raise ValueError(
+                f"on_miss must be 'tune' or 'default', got {self.on_miss!r}"
+            )
+
+    @staticmethod
+    def from_env(**overrides) -> "TuneConfig":
+        """Build a tune config from ``DHQR_TUNE_*`` variables + overrides."""
+        env = {}
+        if "DHQR_TUNE_DB" in os.environ:
+            env["db_path"] = os.environ["DHQR_TUNE_DB"]
+        if "DHQR_TUNE_SEEDS" in os.environ:
+            env["use_seeds"] = os.environ["DHQR_TUNE_SEEDS"].strip().lower() \
+                not in _FALSY
+        if "DHQR_TUNE_BUDGET" in os.environ:
+            env["budget"] = int(os.environ["DHQR_TUNE_BUDGET"])
+        if "DHQR_TUNE_REPEATS" in os.environ:
+            env["repeats"] = int(os.environ["DHQR_TUNE_REPEATS"])
+        if "DHQR_TUNE_ON_MISS" in os.environ:
+            env["on_miss"] = os.environ["DHQR_TUNE_ON_MISS"].strip().lower()
+        env.update(overrides)
+        return TuneConfig(**env)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArmorConfig:
+    """Knobs for the verification seam of the sharded tier
+    (:mod:`dhqr_tpu_torch.armor`): fields, defaults, checks and
+    ``DHQR_ARMOR*`` variables as the JAX package's ``ArmorConfig``. The
+    variables configure; only :func:`dhqr_tpu_torch.armor.arm` (or the
+    ``armored`` scope) arms.
+
+    Attributes:
+      enabled: whether ``armor.arm`` with this config installs the seam
+        (``DHQR_ARMOR``).
+      rtol: relative tolerance of the checksum invariants on the
+        uncompressed wire (``DHQR_ARMOR_RTOL``); a compressed dispatch
+        verifies against ``max(rtol, armor.WIRE_RTOL)``.
+      redispatch: re-dispatches after a detection before the wire is
+        degraded or the call refused typed (``DHQR_ARMOR_REDISPATCH``).
+      wire_tags: the integrity tags on compressed collectives
+        (``parallel/wire.py``; ``DHQR_ARMOR_TAGS``, on by default): a
+        payload whose checksum disagrees with its sender's tag arrives
+        all NaN.
+    """
+
+    enabled: bool = False
+    rtol: float = 1e-4
+    redispatch: int = 1
+    wire_tags: bool = True
+
+    def __post_init__(self):
+        if not self.rtol > 0:
+            raise ValueError(f"rtol must be > 0, got {self.rtol}")
+        if self.redispatch < 0:
+            raise ValueError(
+                f"redispatch must be >= 0, got {self.redispatch}")
+
+    @staticmethod
+    def from_env(**overrides) -> "ArmorConfig":
+        """Build an armor config from ``DHQR_ARMOR*`` variables +
+        overrides."""
+        env = {}
+        if "DHQR_ARMOR" in os.environ:
+            env["enabled"] = os.environ["DHQR_ARMOR"].strip().lower() \
+                not in _FALSY
+        if "DHQR_ARMOR_RTOL" in os.environ:
+            env["rtol"] = float(os.environ["DHQR_ARMOR_RTOL"])
+        if "DHQR_ARMOR_REDISPATCH" in os.environ:
+            env["redispatch"] = int(os.environ["DHQR_ARMOR_REDISPATCH"])
+        if "DHQR_ARMOR_TAGS" in os.environ:
+            env["wire_tags"] = os.environ["DHQR_ARMOR_TAGS"].strip() \
+                .lower() not in _FALSY
+        env.update(overrides)
+        return ArmorConfig(**env)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,6 +24,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def dtype_name(dtype) -> str:
+    """The canonical numpy name (``"float32"``) of a numpy, torch or string
+    dtype: the spelling of the serve cache key's and the plan key's dtype
+    field in both packages."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    return np.dtype(dtype).name
+
+
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a tensor on the resolved device.
 

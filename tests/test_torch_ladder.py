@@ -371,11 +371,35 @@ def test_guarded_qr_rejects_donate():
 
 
 def test_plan_stays_refused_under_guards():
-    A, b = _problem()
-    with pytest.raises(dt.NotPortedError, match="item 14"):
-        dt.lstsq(A, b, guards="fallback", plan="auto", device="cpu")
-    with pytest.raises(dt.NotPortedError, match="item 14"):
-        tladder._note_plan_failure(A, None, None)
+    """plan= under guards: rung 0 runs the plan, as in the JAX package,
+    and an injected rung-0 breakdown under the plan is one gate failure
+    against the call's torch-cpu key (a static-default call records
+    none)."""
+    from dhqr_tpu.tune import Plan as JPlan
+    from dhqr_tpu_torch.tune import Plan, plan_gate_stats, plan_key
+    from dhqr_tpu_torch.tune import reset_gate_failures
+
+    A, b = _problem(m=96, n=24, dtype=np.float64)
+    x = to_numpy(dt.lstsq(A, b, guards="fallback", device="cpu",
+                          plan=Plan(block_size=8)))
+    xj = np.asarray(dhqr_tpu.lstsq(jnp.asarray(A), jnp.asarray(b),
+                                   guards="fallback",
+                                   plan=JPlan(block_size=8)))
+    assert np.linalg.norm(x - xj) <= 1e-10 * np.linalg.norm(xj)
+    reset_gate_failures()
+    try:
+        sites = tconfig.FaultConfig(sites=(("numeric.breakdown", 1.0, 1),))
+        with faults.injected(sites):
+            res = dt.guarded_lstsq(A, b, device="cpu",
+                                   plan=Plan(block_size=8))
+        assert [a.outcome for a in res.attempts][0] == "breakdown"
+        key = plan_key("lstsq", 96, 24, "float64", device="cpu")
+        assert plan_gate_stats()["failures"] == {key: 1}
+        with faults.injected(sites):
+            dt.guarded_lstsq(A, b, device="cpu")
+        assert plan_gate_stats()["failures"] == {key: 1}
+    finally:
+        reset_gate_failures()
 
 
 # ------------------------------------------- the kernel is never a rung

@@ -154,15 +154,12 @@ def test_solve_refine_needs_the_matrix():
     _criterion(A, x, b, np.float64)
 
 
-UNPORTED = [
-    {"plan": "auto"},
-]
-
 # Knobs that raised NotPortedError until the precision policies, the
 # tall-skinny engines, the schedules, the reconstruct panel engine, the
-# sketched solver, the guarded ladder and the compressed wire were ported;
-# each now runs (a wire format is the mesh's: one device ignores it, as
-# the JAX package does).
+# sketched solver, the guarded ladder, the compressed wire and the tuner
+# were ported; each now runs (a wire format is the mesh's: one device
+# ignores it, as the JAX package does; plan="auto" runs in
+# tests/test_torch_tune.py against a DB of its own).
 PORTED = [
     {"policy": "accurate"}, {"engine": "tsqr"}, {"engine": "cholqr2"},
     {"precision": "default"}, {"precision": "high"},
@@ -170,7 +167,7 @@ PORTED = [
     {"engine": "sketch"}, {"lookahead": True}, {"agg_panels": 2},
     {"panel_impl": "reconstruct"}, {"panel_impl": "reconstruct:64"},
     {"guards": "screen"}, {"guards": "fallback"}, {"guards": "full"},
-    {"comms": "bf16"},
+    {"comms": "bf16"}, {"plan": "default"},
 ]
 
 
@@ -201,19 +198,6 @@ def test_ported_knobs_run_and_match_jax(entry, knob):
         # sketch stop short of f64 LAPACK on both sides; its 8x bar is
         # held in float32 (tests/test_torch_sketch.py)
         _criterion(A, x, b, np.float64)
-
-
-@pytest.mark.parametrize("entry", ["qr", "lstsq"])
-@pytest.mark.parametrize("knob", UNPORTED, ids=lambda d: "-".join(
-    f"{k}={v}" for k, v in d.items()))
-def test_unported_knobs_raise_not_implemented(entry, knob):
-    A, b = random_problem(40, 30, np.float32, seed=28)
-    call = (lambda **kw: dt.qr(A, device="cpu", **kw)) if entry == "qr" \
-        else (lambda **kw: dt.lstsq(A, b, device="cpu", **kw))
-    with pytest.raises(NotImplementedError) as info:
-        call(**knob)
-    assert "ROADMAP.md" in str(info.value)
-    assert isinstance(info.value, dt.NotPortedError)
 
 
 def test_mesh_and_bad_values():

@@ -159,7 +159,7 @@ def test_measure_warm_run_suspends_the_fault_harness():
 
     with faults.injected(FaultConfig(
             sites=(("parallel.collective.corrupt", 1.0, 1, 3),))) as h:
-        out, report = pulse.measure("unit", thunk)
+        out, report = pulse.measure("unit", thunk, device="cpu")
     assert out == 7 and seen == [None, h]
     assert report.analytic is None and report.analytic_unavailable
     assert report.dhqr306["status"] == "skip"

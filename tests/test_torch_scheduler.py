@@ -15,7 +15,7 @@ against ``dhqr_tpu.serve.scheduler``, on the CPU.
   key-parity pin), plus the fault paths: a transient ``serve.dispatch``
   retried, a NaN request under ``guards=`` isolated by bisection, a
   crashed worker respawned, a failed capture typed ``CompileFailed``
-  through the future, ``plan=`` refused.
+  through the future, a malformed ``plan=`` refused.
 * **The device lanes** (the concurrent-replay fix of ``serve/cache.py``):
   programs are pinned round-robin to a device's lanes, and replays of two
   programs of one lane from two threads never overlap (a stand-in graph:
@@ -82,7 +82,7 @@ def stub(monkeypatch):
     calls = []
 
     def fake_dispatch(kind, As, bs, cfg, scfg, cache, consume, device,
-                      trace_id=None):
+                      trace_id=None, pol=None):
         calls.append(list(As))
         maxn = max(A.shape[1] for A in As)
         consume(list(range(len(As))), ("stub", len(As)),
@@ -494,8 +494,8 @@ def test_submit_rejections(stub):
     s_refine = _sched(clock, refine=1)
     with pytest.raises(ValueError, match="batched_lstsq only"):
         s_refine.submit("qr", A)
-    # the tuner's plan= waits for its ROADMAP item, as on the sync tier
-    with pytest.raises(dt.NotPortedError, match="item 14"):
+    # plan= takes "auto", "default", None or a Plan, as on the sync tier
+    with pytest.raises(ValueError, match="plan must be"):
         s.submit("lstsq", A, b, plan="fast-plan")
     # the card is the default device, and refused without one
     if not torch.cuda.is_available():
@@ -527,7 +527,7 @@ def test_drain_shutdown_and_thread_lifecycle(stub):
 
 def test_dispatch_failure_fails_futures(monkeypatch):
     def boom(kind, As, bs, cfg, scfg, cache, consume, device,
-             trace_id=None):
+             trace_id=None, pol=None):
         raise RuntimeError("boom")
 
     monkeypatch.setattr(tengine, "_dispatch_groups", boom)

@@ -201,8 +201,10 @@ def test_config_refusals_match_jax():
         with pytest.raises(ValueError) as je:
             jengine._resolve_dispatch_cfg(kind, None, over)
         assert str(te.value) == str(je.value), (kind, over)
-    with pytest.raises(dt.NotPortedError, match="item 14"):
-        tengine._resolve_dispatch_cfg("lstsq", None, {"plan": "auto"})
+    # plan= passes resolution untouched: it resolves per bucket
+    tcfg = tengine._resolve_dispatch_cfg("lstsq", None, {"plan": "auto"})[0]
+    jcfg = jengine._resolve_dispatch_cfg("lstsq", None, {"plan": "auto"})[0]
+    assert tcfg.plan == jcfg.plan == "auto"
 
 
 # ------------------------------------------------------- against the JAX
@@ -437,7 +439,7 @@ def test_quarantine_export_adopt_in_jax_spelling():
 
 def test_unported_store_and_plan_refuse(monkeypatch, tmp_path):
     # the key store is ported (serve/store.py): store= and
-    # DHQR_FLEET_STORE attach it; the tuner's plan still refuses
+    # DHQR_FLEET_STORE attach it; a key's plan is the JAX package's
     from dhqr_tpu_torch.serve import store as tstore
 
     store = tstore.ExecutableStore(str(tmp_path / "a"))
@@ -449,10 +451,11 @@ def test_unported_store_and_plan_refuse(monkeypatch, tmp_path):
         assert tstore.default_store().root == str(tmp_path / "b")
     finally:
         tstore.reset_default_store()
-    key = tcache.CacheKey("qr", 2, 64, 16, "float32", 16, "highest", None,
-                          None, 0, "accurate", "loop")
-    with pytest.raises(dt.NotPortedError, match="item 14"):
-        tengine.cache_key_plan(key)
+    key = tcache.CacheKey("qr", 2, 64, 16, "float32", 16, "highest", "high",
+                          None, 0, "accurate", "recursive")
+    plan = tengine.cache_key_plan(key)
+    assert plan.to_dict() == jengine.cache_key_plan(key).to_dict()
+    assert plan.describe() == "householder+nb16+recursive+tp-high"
 
 
 def test_cache_is_per_device_and_refuses_a_mismatch():
