@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,...,18,19]
+                          [--phases 0,1,2,...,19,20]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-19 run by default, 7 on request):
+on any error (0-6 and 8-20 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -211,7 +211,18 @@ on any error (0-6 and 8-19 run by default, 7 on request):
    (re-dispatch, then the f32 degrade), and the three trips stripping
    ``comms`` from a stored plan in ``resolve_plan``; 2 gloo ranks at 8192
    x 4096 c64 armed, bit-identical to disarmed; (f) a mesh-less
-   ``obs.pulse.measure`` of a card ``lstsq`` records CUDA events.
+   ``obs.pulse.measure`` of a card ``lstsq`` records CUDA events;
+20. harness: the port's CLI entry points on the card: (a) the reference's
+   sweep, ``harness.main(["1", "--sizes", "110x100,1100x1000,4400x4000",
+   "--dtypes", "float32,complex64", "--bench"])`` in this process, every
+   row ``ok`` under 8x numpy LAPACK's residual, each slowdown ratio
+   printed; (b) ``harness 4 --sizes 4400x4000 --dtypes float32`` on four
+   gloo ranks sharing the card, their launches added to this process's;
+   (c) ``graft_entry.dryrun_multichip(4)`` with ``DHQR_DRYRUN_FULL=1`` in
+   a child process, ``dryrun: all paths ok`` and each stage's seconds;
+   (d) ``graft_entry.entry()``'s step twice against
+   ``torch.linalg.lstsq`` under 8x, exactly 4 ``panel_qr_f32`` launches
+   per call (128 columns at nb 32).
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -229,8 +240,10 @@ the parent's, and the serve path (17), which must launch no panel kernel
 the async serve path (18), whose batched dispatches launch no panel
 kernel and whose ``"update"`` kind launches 4 per factorization (its
 direct yardstick stream, when phase 15 did not run, and the sticky
-session's construction are taken back out), and the tune_armor path (19),
+session's construction are taken back out), the tune_armor path (19),
 whose ranks' counts are added to the parent's and on which both kernels
+must launch, and the harness path (20 (a), (b), (d); the dry run of (c)
+runs in a child process of its own, uncounted), on which both kernels
 must launch. The ``kernels`` line sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
@@ -243,6 +256,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -4307,11 +4321,124 @@ def phase_tune_armor(dt, hp, seed, card):
             tune.reset_default_db()
 
 
+HARNESS_SWEEP = ["1", "--sizes", "110x100,1100x1000,4400x4000",
+                 "--dtypes", "float32,complex64", "--bench"]
+HARNESS_MESH = ["4", "--sizes", "4400x4000", "--dtypes", "float32"]
+DRYRUN_TIMEOUT_S = 480
+
+
+def _harness_rows(argv):
+    """``harness.main(argv)`` in this process: (exit code, its output, the
+    sweep's rows parsed from it, seconds)."""
+    from dhqr_tpu_torch import harness
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = harness.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    rows = []
+    for line in out.splitlines():
+        head = line.split()
+        if head and head[0] in ("ok", "FAIL") and "residual" in head:
+            rows.append({"status": head[0], "shape": head[1],
+                         "dtype": head[2],
+                         "residual": float(head[head.index("residual")
+                                                 + 1]),
+                         "lapack": float(head[head.index("(LAPACK") + 1]
+                                         .rstrip(",")),
+                         "t_s": float(line.rsplit("t=", 1)[1].rstrip("s"))})
+        elif line.strip().startswith("slowdown vs LAPACK") and rows:
+            rows[-1]["slowdown"] = float(line.rsplit(":", 1)[1].strip()
+                                         .rstrip("x"))
+    return rc, out, rows, secs
+
+
+def phase_harness(dt, hp, seed, card):
+    """Phase 20: the harness sweep in process (a) and on four gloo ranks
+    sharing the card (b), the dry run in a child process (c), and the
+    graft entry's step (d)."""
+    from dhqr_tpu_torch import graft_entry
+
+    torch.cuda.empty_cache()  # (b) and (c) share the card with this process
+    rc, out, rows, secs = _harness_rows(HARNESS_SWEEP)
+    devices = [ln for ln in out.splitlines() if ln.startswith("# devices")]
+    row = {"phase": 20, "name": "harness_sweep", "argv": HARNESS_SWEEP,
+           "card": card, "devices": devices, "rc": rc, "rows": rows,
+           "s": secs}
+    row["ok"] = rc == 0 and len(rows) == 6 and all(
+        r["status"] == "ok" and r["residual"] < CRITERION * r["lapack"]
+        and "slowdown" in r for r in rows)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 20 (a) harness sweep failed:\n{out}")
+    l0 = dict(hp.LAUNCHES)
+    rc, out, rows, secs = _harness_rows(HARNESS_MESH)
+    devices = [ln for ln in out.splitlines() if ln.startswith("# devices")]
+    row = {"phase": 20, "name": "harness_mesh", "argv": HARNESS_MESH,
+           "card": card, "devices": devices, "rc": rc, "rows": rows,
+           "s": secs, "launches": {k: hp.LAUNCHES[k] - l0[k] for k in l0},
+           "expected": sharded_plan(4400, 4000, torch.float32, 4)}
+    row["ok"] = rc == 0 and len(rows) == 1 and rows[0]["status"] == "ok" \
+        and "backend: gloo, ranks per card: 4" in out \
+        and row["launches"]["panel_qr_f32"] == row["expected"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 20 (b) harness mesh failed: {row}\n"
+                             f"{out}")
+    saved = {k: os.environ.get(k) for k in ("DHQR_DRYRUN_FULL",
+                                            "DHQR_DRYRUN_TIMEOUT")}
+    os.environ["DHQR_DRYRUN_FULL"] = "1"
+    os.environ["DHQR_DRYRUN_TIMEOUT"] = str(DRYRUN_TIMEOUT_S)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            graft_entry.dryrun_multichip(4)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    stage_s = json.loads(next(
+        ln for ln in out.splitlines()
+        if ln.startswith("dryrun: stage seconds ")).split(" ", 3)[3])
+    row = {"phase": 20, "name": "dryrun", "ranks": 4, "card": card,
+           "full": True, "s": time.perf_counter() - t0,
+           "stage_s": stage_s,
+           "skipped": [ln for ln in out.splitlines() if "SKIPPED" in ln]}
+    row["ok"] = out.rstrip().endswith("dryrun: all paths ok") \
+        and not row["skipped"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 20 (c) dry run failed: {row}")
+    fn, (A, b) = graft_entry.entry()
+    x_ref = _torch_lstsq(A, b)
+    ne_ref = _ne_in(A, x_ref, b)
+    for call in range(2):
+        x, launched, t = _launches_of(hp, lambda: fn(A, b))
+        ratio = _ne_in(A, x, b) / ne_ref
+        row = {"phase": 20, "name": "entry", "call": call,
+               "shape": list(A.shape), "dtype": "float32", "s": t,
+               "launches": launched, "ratio_to_torch_lstsq": ratio,
+               "criterion": CRITERION}
+        row["ok"] = launched == {"panel_qr_f32": 4, "panel_qr_c64": 0} \
+            and bool(torch.isfinite(x).all()) and ratio < CRITERION
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"phase 20 (d) entry failed: {row}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19",
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19,"
+                            "20",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -4399,6 +4526,8 @@ def main(argv=None) -> int:
     if 19 in phases:
         counted("tune_armor", lambda: phase_tune_armor(dt, hp, args.seed,
                                                         smi))
+    if 20 in phases:
+        counted("harness", lambda: phase_harness(dt, hp, args.seed, smi))
     emit({"launches_by_path": paths})
     # paths with no panel kernel on them
     for key in ("reconstruct", "sketch", "serve"):
@@ -4407,7 +4536,7 @@ def main(argv=None) -> int:
                                  f"{paths[key]}")
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
-                "guarded", "wire", "tune_armor")
+                "guarded", "wire", "tune_armor", "harness")
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
         for key in on_paths + (("update", "serve_async")

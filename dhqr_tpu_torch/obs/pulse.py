@@ -61,6 +61,20 @@ __all__ = [
 DEFAULT_SLACK = 8.0
 
 
+def parse_trace_dir(logdir: str) -> "list[dict]":
+    """Raises :class:`~dhqr_tpu_torch.utils.config.NotPortedError`: the
+    JAX package reads the files a ``jax.profiler`` session wrote; the port
+    reads its ``torch.profiler`` events in process (:func:`measure`)."""
+    from dhqr_tpu_torch.utils.config import NotPortedError
+
+    del logdir
+    raise NotPortedError(
+        "obs.pulse.parse_trace_dir()", "Queue A, Not ported by design",
+        reason="the port's profiler events never go through a trace "
+               "directory: measure() reads them from the torch.profiler "
+               "session it ran")
+
+
 def collective_census(events: "list[dict]") -> dict:
     """Per-family timing and per-lane busy time of profiler events
     (``{"name", "dur" (us), "lane", "device"}`` dicts), read from the

@@ -57,6 +57,17 @@ def sumsq(x: torch.Tensor, mode: str = "accurate") -> torch.Tensor:
     return tree_sum(y)
 
 
+def accurate_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """sum(|x|^2) to ~1 ulp (real result, for real and complex x)."""
+    return sumsq(x, "accurate")
+
+
+def accurate_norm(x: torch.Tensor) -> torch.Tensor:
+    """||x||_2 to ~1 ulp: the reference's ``norm(view(Hl, j:m, j))``
+    (src:129)."""
+    return torch.sqrt(accurate_sumsq(x))
+
+
 def norm2(x: torch.Tensor, mode: str = "accurate") -> torch.Tensor:
     """||x||_2 with selectable accumulation (see :func:`sumsq`)."""
     return torch.sqrt(sumsq(x, mode))

@@ -21,7 +21,9 @@ from dhqr_tpu_torch.parallel.mesh import (
     ColumnMesh,
     PodMesh,
     column_mesh,
+    column_sharding,
     pod_mesh,
+    replicated_sharding,
     row_mesh,
 )
 from dhqr_tpu_torch.parallel.multihost import (

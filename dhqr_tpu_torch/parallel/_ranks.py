@@ -124,6 +124,15 @@ def run_ranks(fn, size: int, backend: str = "gloo", device=None,
     return out
 
 
+def rank_backend(device, size: int) -> "tuple[str, bool]":
+    """``(backend, per_card)`` for ``size`` ranks on ``device`` (a
+    resolved ``torch.device``): NCCL with a card per rank when there are
+    that many cards, else gloo (the CPU, or ranks sharing the card)."""
+    per_card = device.type == "cuda" and size > 1 \
+        and torch.cuda.device_count() >= size
+    return ("nccl" if per_card else "gloo"), per_card
+
+
 class Placeholder:
     """An argument of a :func:`run_calls` case that the rank fills in: its
     column mesh, its row mesh, a pod mesh, or the previous step's

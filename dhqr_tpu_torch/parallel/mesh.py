@@ -202,3 +202,31 @@ def row_mesh(group=None, device=None, axis_name: str = ROW_AXIS
              ) -> ColumnMesh:
     """1-D mesh over the row axis (the TSQR / CholeskyQR worker pool)."""
     return column_mesh(group, device, axis_name)
+
+
+_NO_SHARDING = (
+    "a jax NamedSharding places one array over a device mesh; here each "
+    "rank holds its own tensors and the engines slice its block "
+    "themselves, so there is no placement object to build")
+
+
+def column_sharding(mesh, axis_name=DEFAULT_AXIS):
+    """Raises :class:`~dhqr_tpu_torch.utils.config.NotPortedError`: the
+    JAX package's ``NamedSharding`` of a column-split matrix."""
+    from dhqr_tpu_torch.utils.config import NotPortedError
+
+    del mesh, axis_name
+    raise NotPortedError("parallel.column_sharding()",
+                         "Queue A, Not ported by design",
+                         reason=_NO_SHARDING)
+
+
+def replicated_sharding(mesh):
+    """Raises :class:`~dhqr_tpu_torch.utils.config.NotPortedError`: the
+    JAX package's replicated ``NamedSharding``."""
+    from dhqr_tpu_torch.utils.config import NotPortedError
+
+    del mesh
+    raise NotPortedError("parallel.replicated_sharding()",
+                         "Queue A, Not ported by design",
+                         reason=_NO_SHARDING)

@@ -28,7 +28,7 @@ from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.solve import _back_substitute, as_matrix_rhs, r_matrix
 from dhqr_tpu_torch.ops.tsqr import _combine_factor, _leaf_factor
 from dhqr_tpu_torch.parallel import wire
-from dhqr_tpu_torch.parallel.mesh import ROW_AXIS, check_mesh
+from dhqr_tpu_torch.parallel.mesh import ROW_AXIS, check_mesh, row_mesh
 from dhqr_tpu_torch.parallel.topology import (
     axis_label,
     axis_size,

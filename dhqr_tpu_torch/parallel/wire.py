@@ -125,6 +125,14 @@ _DCN_TIERED = {"dcn:bf16": "bf16", "dcn:int8": "int8"}
 INT8_BLOCK_ROWS = 32
 
 
+def seam_token(comms: "str | None" = None):
+    """The armor seam's build-cache key material, re-exported at the JAX
+    package's path (:func:`dhqr_tpu_torch.armor.seam_token`)."""
+    from dhqr_tpu_torch import armor as _armor
+
+    return _armor.seam_token(comms)
+
+
 def _leg_comms(comms):
     """The wire formats ``(ici leg, dcn leg)`` of one collective: the flat
     formats compress both legs, the ``dcn:*`` ones only the crossing."""

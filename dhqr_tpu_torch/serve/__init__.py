@@ -38,7 +38,12 @@ from dhqr_tpu_torch.serve.engine import (
 )
 from dhqr_tpu_torch.serve.router import Router
 from dhqr_tpu_torch.serve.scheduler import AsyncScheduler
-from dhqr_tpu_torch.serve.store import ExecutableStore
+from dhqr_tpu_torch.serve.store import (
+    ExecutableStore,
+    default_store,
+    load_fleet_state,
+    save_fleet_state,
+)
 from dhqr_tpu_torch.serve.errors import (
     BackpressureError,
     CompileFailed,
@@ -73,6 +78,9 @@ __all__ = [
     "canonical_key",
     "clear_cache",
     "default_cache",
+    "default_store",
+    "load_fleet_state",
+    "save_fleet_state",
     "pad_group",
     "plan_bucket",
     "prewarm",

@@ -76,14 +76,15 @@ class ExecutableStore:
     """The disk tier under the serve cache: one directory of atomically
     written, checksummed key records shared by every replica on the host.
 
-    ``load(key)`` returns ``(None, reason)`` and ``save(key, program)``
+    ``load(key)`` returns ``(None, reason)`` and ``save(key, compiled)``
     ``None`` or the reason it could not write; neither raises on the
     serving path. Layout as in the JAX package: one ``<sha256>.dhqrx`` file
     per key, the digest over the canonical spelling and the environment
     fingerprint, each file one JSON header line (schema, key, fingerprint,
     payload sha256) and the payload, here the key's JSON record."""
 
-    def __init__(self, root: "str | None" = None) -> None:
+    def __init__(self, root: "str | None" = None,
+                 clock=time.monotonic) -> None:
         if root is None:
             root = FleetConfig.from_env().store_dir
         if not root:
@@ -92,6 +93,7 @@ class ExecutableStore:
                 "DHQR_FLEET_STORE")
         self.root = str(root)
         os.makedirs(self.root, exist_ok=True)
+        self._clock = clock  # as the JAX package's: kept, read nowhere
         self._lock = _lockwitness.make_lock("ExecutableStore._lock")
         self.counters = Counters()
         self.last_reason: "str | None" = None  # guarded by: _lock
@@ -163,7 +165,7 @@ class ExecutableStore:
         return None, reason
 
     # -- write -------------------------------------------------------------
-    def save(self, key, program) -> "str | None":
+    def save(self, key, compiled) -> "str | None":
         """Record one compiled key; ``None`` on success, else the reason
         (counted ``serialize_failures``). Single-writer atomic: the record
         goes to a tempfile in the store directory, then ``os.replace``, so
@@ -176,8 +178,8 @@ class ExecutableStore:
             return str(e)
         record = {
             "fields": list(key) if isinstance(key, CacheKey) else None,
-            "program": getattr(program, "mode", type(program).__name__),
-            "device": str(getattr(program, "device", "")),
+            "program": getattr(compiled, "mode", type(compiled).__name__),
+            "device": str(getattr(compiled, "device", "")),
         }
         payload = json.dumps(record, sort_keys=True).encode("utf-8")
         header = json.dumps({

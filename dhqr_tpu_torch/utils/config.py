@@ -15,7 +15,7 @@ import os
 
 import torch
 
-from dhqr_tpu_torch.precision import MXU_PASSES
+from dhqr_tpu_torch.precision import MXU_PASSES, resolve_comms
 
 # The default matmul precision: full FP32 (and FP64) matmuls, i.e.
 # torch.matmul with torch.backends.cuda.matmul.allow_tf32 == False. The
@@ -104,16 +104,20 @@ class DHQRConfig:
 
     @staticmethod
     def from_env(**overrides) -> "DHQRConfig":
-        """Build a config from the ported ``DHQR_*`` variables + overrides."""
+        """Build a config from the ``DHQR_*`` variables + overrides, each
+        parsed as in the JAX package."""
         env = {}
         if "DHQR_BLOCK_SIZE" in os.environ:
             env["block_size"] = int(os.environ["DHQR_BLOCK_SIZE"])
+        if "DHQR_MESH_AXIS" in os.environ:
+            env["mesh_axis"] = os.environ["DHQR_MESH_AXIS"]
         if "DHQR_BLOCKED" in os.environ:
             env["blocked"] = os.environ["DHQR_BLOCKED"].strip().lower() not in (
                 "0", "false", "no", "off", "n", "",
             )
         for var, field in (("DHQR_USE_PALLAS", "use_pallas"),
                            ("DHQR_PRECISION", "precision"),
+                           ("DHQR_LAYOUT", "layout"),
                            ("DHQR_ENGINE", "engine"),
                            ("DHQR_NORM", "norm"),
                            ("DHQR_PANEL_IMPL", "panel_impl"),
@@ -123,6 +127,19 @@ class DHQRConfig:
                 env[field] = os.environ[var]
         if "DHQR_REFINE" in os.environ:
             env["refine"] = int(os.environ["DHQR_REFINE"])
+        if "DHQR_LOOKAHEAD" in os.environ:
+            env["lookahead"] = os.environ["DHQR_LOOKAHEAD"].strip().lower() \
+                not in ("0", "false", "no", "off", "n", "")
+        for var, field in (("DHQR_AGG_PANELS", "agg_panels"),
+                           ("DHQR_OVERLAP_DEPTH", "overlap_depth")):
+            if var in os.environ:  # "0" or empty: off
+                raw = os.environ[var].strip()
+                env[field] = int(raw) if raw and raw != "0" else None
+        if "DHQR_COMMS" in os.environ:
+            raw = os.environ["DHQR_COMMS"].strip().lower()
+            # normalized here, as in the JAX package: "f32"/"none" are
+            # None and a typo refuses at config build
+            env["comms"] = resolve_comms(raw) if raw else None
         if "DHQR_POLICY" in os.environ:
             env["policy"] = os.environ["DHQR_POLICY"].strip() or None
         if "DHQR_GUARDS" in os.environ:
@@ -739,8 +756,9 @@ class ObsConfig:
         the serve cache's compiles (:mod:`dhqr_tpu_torch.obs.xray`;
         ``DHQR_OBS_XRAY``) and its report capacity
         (``DHQR_OBS_XRAY_REPORTS``).
-      profile_dir: ``DHQR_OBS_PROFILE``, parsed as in the JAX package and
-        read by no port code yet.
+      profile_dir: ``DHQR_OBS_PROFILE``, parsed as in the JAX package:
+        the directory :func:`dhqr_tpu_torch.utils.profiling.trace` writes
+        to when it is given none.
     """
 
     enabled: bool = False

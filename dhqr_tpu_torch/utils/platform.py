@@ -116,6 +116,15 @@ def ensure_complex_supported(dtype) -> None:
     del dtype
 
 
+def cpu_requested() -> bool:
+    """Raises :class:`NotPortedError`: the JAX package reads
+    ``JAX_PLATFORMS`` here; the port asks each call (``device=``)."""
+    from dhqr_tpu_torch.utils.config import NotPortedError
+
+    raise NotPortedError("cpu_requested()", "Queue A, Not ported by design",
+                         reason=_NO_PLATFORM_PIN)
+
+
 def force_cpu_platform() -> None:
     """Raises :class:`NotPortedError`: see the module docstring."""
     from dhqr_tpu_torch.utils.config import NotPortedError

@@ -9,16 +9,17 @@
   tensors the body registered;
 * :class:`Counters`, :class:`Ewma`, :class:`LatencyHistogram` — the
   serving tier's thread-safe accounting (the executable cache's counters
-  and compile seconds, per-bucket dispatch time, latency percentiles).
-
-The JAX module's ``trace`` (a ``jax.profiler`` session) has no caller in
-the port: ``torch.profiler`` is used where a trace is taken.
+  and compile seconds, per-bucket dispatch time, latency percentiles);
+* :func:`trace` — a ``torch.profiler`` session over a region that writes
+  a Chrome trace into a directory (the JAX module's ``jax.profiler``
+  session), the reader of ``ObsConfig.profile_dir``.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import os
 import threading
 import time
 from typing import Dict, Iterator, List, Tuple
@@ -230,3 +231,33 @@ class LatencyHistogram:
                 "p99_ms": round(self._percentile_locked(0.99) * 1e3, 3),
             }
 
+
+
+@contextlib.contextmanager
+def trace(log_dir: "str | None" = None) -> Iterator[None]:
+    """Profile the region with ``torch.profiler`` (the CPU, and the card
+    when CUDA is present) and write its Chrome trace to
+    ``<log_dir>/dhqr_trace_<pid>_<ns>.json`` — the ``@profilehtml``
+    analogue. ``log_dir=None`` reads ``ObsConfig.profile_dir``
+    (``DHQR_OBS_PROFILE``). View the file in perfetto or
+    ``chrome://tracing``.
+
+    >>> with trace("/tmp/dhqr_trace"):
+    ...     x = lstsq(A, b)
+    ...     sync(x)
+    """
+    if log_dir is None:
+        from dhqr_tpu_torch.utils.config import ObsConfig
+
+        log_dir = ObsConfig.from_env().profile_dir
+        if log_dir is None:
+            raise ValueError("trace() needs a directory: pass log_dir or "
+                             "set DHQR_OBS_PROFILE")
+    os.makedirs(str(log_dir), exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        str(log_dir), f"dhqr_trace_{os.getpid()}_{time.time_ns()}.json"))

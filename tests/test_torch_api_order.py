@@ -139,3 +139,93 @@ def test_run_ranks_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _ranks.run_ranks(_ranks.run_calls, 2, cases=[])
+
+
+# --------------------------------- public methods of exported classes (item 5)
+
+
+def _exported_classes():
+    """(path, JAX class, port class) for every class in the ``__all__`` of
+    the top level and of each sub-package both packages share."""
+    import importlib
+
+    out, seen = [], set()
+    for sub in ("", ".ops", ".parallel", ".serve", ".solvers", ".utils",
+                ".obs", ".tune", ".armor", ".numeric", ".faults",
+                ".models"):
+        theirs = importlib.import_module("dhqr_tpu" + sub)
+        mine = importlib.import_module("dhqr_tpu_torch" + sub)
+        for name in getattr(theirs, "__all__", ()):
+            cls = getattr(theirs, name)
+            if inspect.isclass(cls) and cls not in seen \
+                    and hasattr(mine, name):
+                seen.add(cls)
+                out.append((f"dhqr_tpu{sub}.{name}", cls, getattr(mine, name)))
+    return out
+
+
+_CLASSES = _exported_classes()
+
+# What the port's classes leave out of the JAX package's, each with why.
+_METHODS_NOT_TWINNED = {
+    # jax pytree hooks: a tensor dataclass is no pytree
+    ("dhqr_tpu.QRFactorization", "tree_flatten"),
+    ("dhqr_tpu.QRFactorization", "tree_unflatten"),
+}
+# The tune registry's analysis fields wait for ROADMAP Queue A item 18.
+_ROUTE_ANALYSIS_FIELDS = ["contract", "jaxpr", "comms_trace", "serve",
+                          "donation"]
+
+
+def _params(fn):
+    return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("path,theirs,mine", _CLASSES,
+                         ids=[c[0] for c in _CLASSES])
+def test_public_methods_take_the_reference_parameters(path, theirs, mine):
+    """Every public method (and ``__init__``) of an exported class takes the
+    JAX package's parameters, in order and kind; the one allowed addition
+    is a ``device`` parameter after them (before a ``**kwargs``)."""
+    for attr, value in vars(theirs).items():
+        if attr.startswith("_") and attr != "__init__":
+            continue
+        if not (callable(value) or isinstance(value, (staticmethod,
+                                                      classmethod))):
+            continue
+        if (path, attr) in _METHODS_NOT_TWINNED:
+            continue
+        assert inspect.getattr_static(mine, attr, None) is not None, \
+            f"{path}.{attr} has no twin"
+        try:
+            ref = _params(getattr(theirs, attr))
+        except (TypeError, ValueError):
+            continue  # a builtin slot with no signature
+        got = _params(getattr(mine, attr))
+        if path == "dhqr_tpu.tune.Route" and attr == "__init__":
+            ref = [p for p in ref if p[0] not in _ROUTE_ANALYSIS_FIELDS]
+        if got == ref:
+            continue
+        var_kw = [p for p in ref if p[1] is inspect.Parameter.VAR_KEYWORD]
+        head = [p for p in ref if p not in var_kw]
+        assert got[:len(head)] == head and [p[0] for p in got[len(head):]] \
+            == ["device"] + [p[0] for p in var_kw], \
+            f"{path}.{attr}: {got} is not the reference's {ref} (+ device)"
+
+
+def test_executable_store_takes_the_reference_clock_and_save_keyword(
+        tmp_path):
+    """Queue C item 5: ``ExecutableStore(root, clock=)`` and
+    ``save(key, compiled=)``, as in the JAX package."""
+    from dhqr_tpu_torch.serve.cache import CacheKey
+    from dhqr_tpu_torch.serve.store import ExecutableStore
+
+    ticks = iter(range(100))
+    store = ExecutableStore(str(tmp_path), clock=lambda: next(ticks))
+    assert store._clock() == 0
+    key = CacheKey("lstsq", 4, 64, 16, "float32", 8, "highest", None,
+                   None, 0, "accurate", "loop")
+    assert store.save(key, compiled=object()) is None
+    assert store.stats()["puts"] == 1
+    record, reason = store.read_record(key)
+    assert reason is None and record["program"] == "object"
