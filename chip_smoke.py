@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,...,19,20]
+                          [--phases 0,1,2,...,20,21]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-20 run by default, 7 on request):
+on any error (0-6 and 8-21 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -222,7 +222,19 @@ on any error (0-6 and 8-20 run by default, 7 on request):
    a child process, ``dryrun: all paths ok`` and each stage's seconds;
    (d) ``graft_entry.entry()``'s step twice against
    ``torch.linalg.lstsq`` under 8x, exactly 4 ``panel_qr_f32`` launches
-   per call (128 columns at nb 32).
+   per call (128 columns at nb 32);
+21. analysis: the port's lint on the card: (a) the self-scan of
+   ``dhqr_tpu_torch``, ``chip_smoke.py`` and ``tests/test_torch_*.py``
+   (the AST rules and the API check) with 0 unsuppressed findings, the
+   suppressions counted by rule; (b) the concurrency pass with its
+   lock-witness burst on the card, where the lanes capture and replay
+   CUDA graphs: 0 findings, the witnessed edges (those through a lane lock
+   counted apart), 0 held-set violations and the captures; (c) the count
+   sketch's repeat: ``sketched_lstsq`` twice at 768 x 12 and at 65536 x
+   256 f32 bit for bit (``torch.equal``), and at 65536 x 256 the bucket
+   sum's time beside the ``index_add_`` sum it replaced (a yardstick the
+   port no longer calls), their relative distance, and the bound of the
+   bucket sum's bytes.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -244,7 +256,9 @@ session's construction are taken back out), the tune_armor path (19),
 whose ranks' counts are added to the parent's and on which both kernels
 must launch, and the harness path (20 (a), (b), (d); the dry run of (c)
 runs in a child process of its own, uncounted), on which both kernels
-must launch. The ``kernels`` line sums the paths.
+must launch, and the analysis path (21), whose witness burst goes through
+the serve tier's column loop and may launch none. The ``kernels`` line
+sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -4433,12 +4447,132 @@ def phase_harness(dt, hp, seed, card):
             raise AssertionError(f"phase 20 (d) entry failed: {row}")
 
 
+# -- phase 21: the port's lint on the card ------------------------------------
+
+SKETCH_REPEATS = ((768, 12), (65536, 256))   # f32, the count sketch
+
+
+def index_add_sketch(A, b, rows, signs, s):
+    """The count sketch as ``index_add_`` sums it (its CUDA adds are atomic,
+    so their order varies): the version the bucket table replaced, kept
+    here as a yardstick only."""
+    rows = rows.long()
+    SA = A.new_zeros((s, A.shape[-1])).index_add_(0, rows, signs[:, None] * A)
+    Sb = b.new_zeros((s,)).index_add_(0, rows, signs * b)
+    return SA, Sb
+
+
+def phase_analysis(seed, card):
+    """Phase 21: (a) the self-scan, (b) the concurrency pass with its
+    witness burst on the card, (c) the count sketch's repeat bit for bit
+    and its bucket sum's time beside ``index_add_``'s."""
+    from dhqr_tpu_torch.analysis import api_check, cli
+    from dhqr_tpu_torch.analysis.ast_rules import (
+        iter_python_files,
+        scan_paths,
+    )
+    from dhqr_tpu_torch.analysis.concurrency_pass import (
+        run_concurrency_pass,
+    )
+    from dhqr_tpu_torch.solvers import sketch
+
+    t_phase = t0 = time.perf_counter()
+    paths = cli.default_paths()
+    findings = scan_paths(paths, rel_to=cli._repo_root())
+    findings += api_check.check_api()
+    active = [f for f in findings if not f.suppressed]
+    by_rule: "dict[str, int]" = {}
+    for f in findings:
+        if f.suppressed:
+            by_rule[f.rule] = by_rule.get(f.rule, 0) + 1
+    row = {"phase": 21, "name": "self_scan",
+           "files": len(list(iter_python_files(paths))),
+           "active": len(active),
+           "active_rules": sorted({f.rule for f in active}),
+           "suppressed_by_rule": dict(sorted(by_rule.items())),
+           "s": time.perf_counter() - t0}
+    row["ok"] = not active
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("phase 21 (a) self-scan findings:\n"
+                             + "\n".join(f.render() for f in active))
+
+    t0 = time.perf_counter()
+    stats: dict = {}
+    every = run_concurrency_pass(witness=True, device="cuda", stats=stats)
+    conc = [f for f in every if not f.suppressed]
+    row = {"phase": 21, "name": "concurrency", "card": card,
+           "findings": [f.render() for f in conc],
+           "suppressed": sum(f.suppressed for f in every),
+           "witnessed_edges": [list(e) for e in stats["edges"]],
+           "lane_edges": [list(e) for e in stats["lane_edges"]],
+           "violations": stats["violations"],
+           "requests": stats["requests"], "captures": stats["captures"],
+           "programs": stats["programs"], "s": time.perf_counter() - t0}
+    row["ok"] = not conc and stats["violations"] == 0 \
+        and bool(stats["lane_edges"]) \
+        and stats["programs"].get("cuda_graph", 0) >= 1
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 21 (b) concurrency pass failed: {row}")
+
+    for i, (m, n) in enumerate(SKETCH_REPEATS):
+        g = torch.Generator(device="cuda").manual_seed(seed + 21 + i)
+        A = torch.rand((m, n), generator=g, device="cuda")
+        b = torch.rand((m,), generator=g, device="cuda")
+        x1 = sketch.sketched_lstsq(A, b, operator="countsketch")
+        x2 = sketch.sketched_lstsq(A, b, operator="countsketch")
+        wide_A, wide_b = A.double(), b.double()
+        res = float(torch.linalg.vector_norm(
+            wide_A.mT @ (wide_A @ x2.double() - wide_b)))
+        x_ref = _torch_lstsq(A, b)
+        res_ref = float(torch.linalg.vector_norm(
+            wide_A.mT @ (wide_A @ x_ref.double() - wide_b)))
+        row = {"phase": 21, "name": "sketch_repeat", "shape": [m, n],
+               "dtype": "float32", "operator": "countsketch",
+               "equal": bool(torch.equal(x1, x2)),
+               "ratio_to_torch_lstsq": res / res_ref,
+               "criterion": CRITERION}
+        if (m, n) == SKETCH_REPEATS[-1]:
+            s = sketch.sketch_dim(m, n)
+            rows, _ = sketch.count_sketch_operator(m, s, 0)
+            signs_np, table_np = sketch._operator_arrays(
+                "countsketch", m, s, 0, torch.float32)
+            signs = torch.from_numpy(signs_np).cuda()
+            table = torch.from_numpy(table_np).cuda()
+            rows_t = torch.from_numpy(rows).cuda()
+            new = lambda: sketch._count_sketch(A, b, signs, table)  # noqa: E731
+            old = lambda: index_add_sketch(A, b, rows_t, signs, s)  # noqa: E731
+            SA, _ = new()
+            SA_old, _ = old()
+            c_max = table.shape[1]
+            # A, b and the signs read, the table read, (S A, S b) written
+            moved = 4 * (m * n + 2 * m + s * n + s) + 8 * s * c_max
+            row.update(
+                s_rows=s, c_max=c_max,
+                bucket_ms=cuda_ms(new, 20), index_add_ms=cuda_ms(old, 20),
+                bound_ms=1e3 * moved / HBM_BYTES_PER_S,
+                rel_to_index_add=float(torch.linalg.vector_norm(SA - SA_old)
+                                       / torch.linalg.vector_norm(SA_old)),
+                bucket_equal=bool(torch.equal(new()[0], SA)))
+        row["ok"] = row["equal"] and row.get("bucket_equal", True) \
+            and row["ratio_to_torch_lstsq"] < CRITERION \
+            and row.get("rel_to_index_add", 0.0) <= 1e-6
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"phase 21 (c) sketch repeat failed: {row}")
+        del A, b
+    torch.cuda.empty_cache()
+    emit({"phase": 21, "name": "phase", "s": time.perf_counter() - t_phase,
+          "ok": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19,"
-                            "20",
+                            "20,21",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -4528,6 +4662,8 @@ def main(argv=None) -> int:
                                                         smi))
     if 20 in phases:
         counted("harness", lambda: phase_harness(dt, hp, args.seed, smi))
+    if 21 in phases:
+        counted("analysis", lambda: phase_analysis(args.seed, smi))
     emit({"launches_by_path": paths})
     # paths with no panel kernel on them
     for key in ("reconstruct", "sketch", "serve"):

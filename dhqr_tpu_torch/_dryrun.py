@@ -9,8 +9,9 @@ compressed wire, armor, the two-tier pod mesh, row-sharded TSQR and
 CholeskyQR, and the realistic panel widths against LAPACK), then the
 single-process tiers (serving, async scheduling, faults, the fleet's key
 store, the numeric ladder, tracing, xray, the tuner, the sketch and the
-updatable QR), each with the JAX dry run's sizes, assertions and
-``dryrun: ... ok`` lines. It ends with ``dryrun: all paths ok``.
+updatable QR, and the lock discipline), each with the JAX dry run's
+sizes, assertions and ``dryrun: ... ok`` lines. It ends with ``dryrun:
+all paths ok``.
 
 The ranks are spawned once per :func:`run`: one ``run_ranks`` call whose
 worker runs every mesh stage in order (NCCL when every rank has a card of
@@ -24,14 +25,14 @@ eagerly, so "warm repeat 0 recompiles" reads "0 captures" on the serve
 tier (the bucket cache's misses) and "bit-identical repeat" on the eager
 engines; the fleet stage's child leaves key records, not programs (a CUDA
 graph does not outlive its process), so the parent's first call is a
-counted ``NOT_A_PROGRAM`` miss and one recapture; the stages that read
-``analysis/`` (the pipeline's traced order audit, the pod contract, the
-comms audit, the atlas and the lock-discipline pass) wait for ROADMAP
-item 18; the serve stage prints the batched ``policy="fast"`` ratio
-instead of holding it to 8x, because the port runs its bf16 passes on the
-CPU as on the card while the JAX package's CPU matmul ignores the
-precision; and the sketch stage's repeat is bit for bit on the CPU but
-within 1e-4 on the card, where the count sketch sums in atomic order.
+counted ``NOT_A_PROGRAM`` miss and one recapture; the checks that read
+the graph passes of ``analysis/`` (the pipeline's traced order audit, the
+pod contract, the comms audit and the atlas) wait for ROADMAP item 18b;
+and the serve stage prints the batched ``policy="fast"`` ratio instead of
+holding it to 8x, because the port runs its bf16 passes on the CPU as on
+the card while the JAX package's CPU matmul ignores the precision. The
+lock-discipline stage (``concurrency``) runs its witness burst on the run's
+device, so on the card it also witnesses the lanes' graph captures.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import time
 MESH_STAGES = ("layouts", "pipeline", "awkward", "refine", "policy",
                "pulse", "wire", "armor", "pod", "rows", "realistic")
 LOCAL_STAGES = ("serve", "async", "faults", "fleet", "numeric", "obs",
-                "xray", "tune", "sketch")
+                "xray", "tune", "sketch", "concurrency")
 STAGES = MESH_STAGES + LOCAL_STAGES
 
 #: The mesh stages' time limit (the spawn and every stage).
@@ -246,7 +247,7 @@ def _stage_pulse(c: _Mesh) -> None:
         # why when it has fewer than two).
         assert prep.skew is not None or prep.skew_unavailable, prep
         walls = [None] * c.P
-        dist.all_gather_object(walls, prep.wall_s)
+        dist.all_gather_object(walls, prep.wall_s, group=c.cmesh.group)
         skew = max(walls) / sorted(walls)[len(walls) // 2]
         assert len(walls) == c.P >= 2 and skew >= 1.0, walls
         assert prep.dhqr306_pass, ("DHQR306 red on the dry run",
@@ -483,12 +484,14 @@ def _mesh_worker(device, stages, sizes, per_card):
     c = _Mesh(device)
     seconds = {}
     for stage in stages:
+        # dhqr: ignore[DHQR008] the dry run reports each stage's real wall seconds — wall time is the measurement
         t0 = time.perf_counter()
         if stage == "realistic":
             for n, nb in sizes:
                 _realistic_stage(c, n, nb)
         else:
             _MESH[stage](c)
+        # dhqr: ignore[DHQR008] same measurement, closing read
         seconds[stage] = time.perf_counter() - t0
     return seconds
 
@@ -560,9 +563,11 @@ class _Local:
 
 
 def _poll_until(sched, futs, what: str, limit_s: float = 120.0) -> None:
+    # dhqr: ignore[DHQR008] hang bound on a REAL poll loop — wall time is the point
     t0 = time.monotonic()
     while not all(f.done() for f in futs):
         sched.poll()
+        # dhqr: ignore[DHQR008] same hang bound, closing read
         if time.monotonic() - t0 > limit_s:
             raise RuntimeError(f"{what}: futures did not resolve in "
                                f"{limit_s} s (stats: {sched.stats()})")
@@ -937,25 +942,41 @@ def _stage_sketch(s: _Local) -> None:
     fact.downdate(u, v)
     assert _ratio(to_numpy(fact.matrix), fact.solve(ub), ub) < 8, \
         "round trip"
-    # 768 rows take the count sketch, whose index_add_ sums in atomic
-    # order on the card (ROADMAP item 28): bit for bit on the CPU, within
-    # 1e-4 relative and 8x there.
+    # 768 rows take the count sketch, whose bucket sum runs in the order
+    # of the operator's bucket table: bit for bit on every device.
     x2 = sketched_lstsq(A, b, device=s.dev)
     x3 = sketched_lstsq(A, b, device=s.dev)
-    gap = float(torch.linalg.vector_norm(x3 - x2)
-                / torch.linalg.vector_norm(x2))
-    if s.dev.type == "cpu":
-        assert torch.equal(x2, x3), "sketched repeat diverged"
-    assert gap <= 1e-4 and _ratio(A, x3, b) < 8, ("sketched repeat", gap)
+    assert torch.equal(x2, x3), "sketched repeat diverged"
+    assert _ratio(A, x3, b) < 8, "sketched repeat"
     _say(f"dryrun: sketch ok (768x12 within 8x on both operators, worst "
          f"{worst:.2f}x of oracle; update/downdate round trip within 8x, "
-         f"repeat within {gap:.1e} relative)")
+         "repeat bit-identical)")
+
+
+def _stage_concurrency(s: _Local) -> None:
+    """Lock discipline (dhqr-warden): the DHQR6xx static self-scan plus one
+    armed lock-witness burst over a tiny scheduler/router stream on the
+    run's device — the witnessed acquisition-order edges must be a subset
+    of the committed graph with zero held-set violations."""
+    from dhqr_tpu_torch.analysis.concurrency_pass import run_concurrency_pass
+
+    stats: dict = {}
+    findings = [f for f in run_concurrency_pass(witness=True, device=s.dev,
+                                                stats=stats)
+                if not f.suppressed]
+    assert not findings, "concurrency findings:\n" + "\n".join(
+        f.render() for f in findings)
+    _say(f"dryrun: concurrency ok (DHQR601-604 static scan green, "
+         f"lock-witness burst: {len(stats['edges'])} witnessed edges "
+         f"within the committed lock_order.json graph, "
+         f"{stats['violations']} held-set violations)")
 
 
 _LOCAL = {"serve": _stage_serve, "async": _stage_async,
           "faults": _stage_faults, "fleet": _stage_fleet,
           "numeric": _stage_numeric, "obs": _stage_obs,
-          "xray": _stage_xray, "tune": _stage_tune, "sketch": _stage_sketch}
+          "xray": _stage_xray, "tune": _stage_tune, "sketch": _stage_sketch,
+          "concurrency": _stage_concurrency}
 
 
 # ------------------------------------------------------------ entry points
@@ -989,14 +1010,18 @@ def run(n_ranks: int, device=None, stages=None) -> dict:
         sizes = [(512, 64)]
         if os.environ.get("DHQR_DRYRUN_FULL") == "1":
             sizes.append((1024, 128))
+        # dhqr: ignore[DHQR008] the dry run reports each stage's real wall seconds — wall time is the measurement
         t0 = time.perf_counter()
         seconds.update(_spawn(n_ranks, dev, mesh, sizes))
+        # dhqr: ignore[DHQR008] same measurement, closing read
         seconds["spawn"] = time.perf_counter() - t0 - sum(seconds.values())
     local = _Local(dev)
     for stage in LOCAL_STAGES:
         if stage in chosen:
+            # dhqr: ignore[DHQR008] same measurement, per local stage
             t0 = time.perf_counter()
             _LOCAL[stage](local)
+            # dhqr: ignore[DHQR008] same measurement, closing read
             seconds[stage] = time.perf_counter() - t0
     _say("dryrun: stage seconds " + json.dumps(
         {k: round(v, 3) for k, v in seconds.items()}))

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from dhqr_tpu_torch.ops import gemm
+
 #: Additive floor inside relative denominators.
 _TINY = 1e-30
 
@@ -43,10 +45,10 @@ def _qr_gap_impl(H, alpha, A, block_size: int, precision: str = "highest"):
 
     m, n = A.shape
     u = _weights(m, A.dtype, A.device)
-    s_in = u.conj() @ A                                           # (n,)
+    s_in = gemm.matmul(u.conj(), A, "highest")                    # (n,)
     c = _blocked._apply_qt_impl(H, u, block_size, precision)
     R = torch.triu(H[:n, :n], 1) + torch.diag(alpha[:n])
-    s_fact = c[:n].conj() @ R                                     # (n,)
+    s_fact = gemm.matmul(c[:n].conj(), R, "highest")              # (n,)
     unorm = torch.linalg.vector_norm(u)
     colnorm = torch.sqrt(torch.sum(A.abs() ** 2, dim=0))
     gap = (s_in - s_fact).abs() / (unorm * colnorm + _TINY)
@@ -64,8 +66,8 @@ def _lstsq_gap_impl(A, b, x):
     ``||A^H (b - A x)|| / (||A||_F (||A||_F ||x|| + ||b||))``."""
     B = b if b.ndim == 2 else b[:, None]
     X = x if x.ndim == 2 else x[:, None]
-    r = B - A @ X
-    g = A.mH @ r
+    r = B - gemm.matmul(A, X, "highest")
+    g = gemm.matmul(A.mH, r, "highest")
     anorm = torch.linalg.vector_norm(A)
     gap = torch.linalg.vector_norm(g) / (
         anorm * (anorm * torch.linalg.vector_norm(X)

@@ -207,7 +207,8 @@ class QRFactorization:
                 return _csne_refine(self.matrix, self.r_matrix(), x, b,
                                     steps)
             for _ in range(steps):
-                x = x + self._solve_once(b - torch.matmul(self.matrix, x))
+                x = x + self._solve_once(
+                    b - _gemm.matmul(self.matrix, x, "highest"))
         return x
 
     def matmul_q(self, b) -> torch.Tensor:
@@ -638,7 +639,7 @@ def _lstsq_impl(A, b, cfg: DHQRConfig):
 
     x = qr_solve(b)
     for _ in range(cfg.refine):
-        x = x + qr_solve(b - torch.matmul(A, x))
+        x = x + qr_solve(b - _gemm.matmul(A, x, "highest"))
     return x
 
 
@@ -821,5 +822,5 @@ def _lstsq_mesh(A, b, cfg: DHQRConfig, mesh):
     if cfg.comms is not None:
         return _csne_refine(A, fact.r_matrix(), x, b, cfg.refine)
     for _ in range(cfg.refine):
-        x = x + fact.solve(b - torch.matmul(A, x))
+        x = x + fact.solve(b - _gemm.matmul(A, x, "highest"))
     return x

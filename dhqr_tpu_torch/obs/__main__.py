@@ -105,7 +105,8 @@ def _parse_records(path: str) -> "list[dict]":
     try:
         whole = json.loads(text)
         return whole if isinstance(whole, list) else [whole]
-    except ValueError:  # not one JSON document: parsed as JSONL below
+    # dhqr: ignore[DHQR006] format sniffing, not error handling: a file that is not ONE json document is parsed as JSONL below
+    except ValueError:
         pass
     for line in text.splitlines():
         line = line.strip()

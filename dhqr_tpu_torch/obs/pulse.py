@@ -355,11 +355,13 @@ def measure(label: str, thunk: Callable[[], object], *, mesh=None,
         reason = (f"profiler capture failed: {type(e).__name__}: {e}")
         prof = None
     with _wire.census() as cen:
+        # dhqr: ignore[DHQR008] the dispatch wall clock IS the measurement (profiler event time is cross-checked against it)
         t0 = time.perf_counter()
         try:
             out = thunk()
             sync()
         finally:
+            # dhqr: ignore[DHQR008] closing read of the dispatch wall clock
             wall_s = time.perf_counter() - t0
             if prof is not None:
                 prof.__exit__(None, None, None)
@@ -370,6 +372,7 @@ def measure(label: str, thunk: Callable[[], object], *, mesh=None,
             os.makedirs(keep_trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(
                 keep_trace_dir,
+                # dhqr: ignore[DHQR008] a unique trace file name, not a timing decision
                 f"pulse_{os.getpid()}_{time.time_ns()}.json"))
         if not events:
             reason = "profiler trace contained no events"
@@ -580,7 +583,8 @@ def observed_dispatch(label: str, thunk: Callable[[], object], *,
     if on_report is not None:
         try:
             on_report(report)
-        except Exception:  # best-effort pairing, never the dispatch
+        # dhqr: ignore[DHQR006] pairing is best-effort evidence: a callback bug must cost the pairing, never the dispatch
+        except Exception:
             pass
     return out
 

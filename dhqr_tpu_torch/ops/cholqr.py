@@ -130,7 +130,7 @@ def _cholqr_lstsq_impl(A, b, precision, shift, refine=0, gram_precision=None):
     for _ in range(refine):
         # One refinement step reuses Q, R: r = b - A x, x += solve(r).
         # Residual matvec at full precision: its accuracy is the point.
-        X = X + qr_solve(B - torch.matmul(A, X))
+        X = X + qr_solve(B - gemm.matmul(A, X, "highest"))
     return restore(X)
 
 

@@ -59,7 +59,7 @@ def _lstsq_fwd(A, b, block_size, kernel=False, norm="accurate",
 
     x = qr_solve(b)
     for _ in range(refine):
-        x = x + qr_solve(b - torch.matmul(A, x))
+        x = x + qr_solve(b - gemm.matmul(A, x, "highest"))
     return x, H, alpha
 
 

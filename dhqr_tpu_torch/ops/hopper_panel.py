@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dhqr_tpu_torch.ops import _build
+from dhqr_tpu_torch.ops import _build, gemm
 from dhqr_tpu_torch.utils.config import refuse_grad
 
 # Widest panel one launch takes (csrc/panel_qr.cu kMaxWidth), and the leaf
@@ -202,7 +202,7 @@ def _panel_qr_plain(at: torch.Tensor, offset: int) -> torch.Tensor:
         alpha_j = torch.where(a_jj >= 0, -s, s)
         f = _inv_scale(s, a_jj.abs())
         v = (rowm - alpha_j * (lane == j).to(at.dtype)) * f
-        W = torch.matmul(at[jl + 1:], v)  # partial dots, full FP32
+        W = gemm.matmul(at[jl + 1:], v, "highest")  # partial dots
         at[jl + 1:] -= W[:, None] * v[None, :]
         at[jl] = torch.where(rmask, v, row)
         alpha[jl] = alpha_j
@@ -235,8 +235,10 @@ def _panel_qr_plain_c64(at: torch.Tensor, offset: int) -> torch.Tensor:
         vr = (rowmr - alr * ej) * f
         vi = (rowmi - ali * ej) * f
         tr, ti = ar[jl + 1:], ai[jl + 1:]
-        Wr = (torch.matmul(tr, vr) + torch.matmul(ti, vi))[:, None]
-        Wi = (torch.matmul(ti, vr) - torch.matmul(tr, vi))[:, None]
+        Wr = (gemm.matmul(tr, vr, "highest")
+              + gemm.matmul(ti, vi, "highest"))[:, None]
+        Wi = (gemm.matmul(ti, vr, "highest")
+              - gemm.matmul(tr, vi, "highest"))[:, None]
         new_r = tr - (Wr * vr - Wi * vi)
         new_i = ti - (Wr * vi + Wi * vr)
         tr.copy_(new_r)
@@ -323,6 +325,7 @@ def _panel_qr_grid_model(at: torch.Tensor, offset: int,
         ps = sq.to(f32)
         pe = (sq - ps.double()).to(f32)
         Y = buf[jl + 1:].view(nb - jl - 1, slices, per)
+        # dhqr: ignore[DHQR002] the grid model's per-slice partial dots in full FP32 (the kernel's HIGHEST), kept as one einsum so the slices stay apart
         pd = torch.einsum("ksp,sp->sk", Y, X.conj())
         parts = [pd.flatten(), buf[jl:, jl]]  # dots, then a_jj and y_j
         if at.is_complex():

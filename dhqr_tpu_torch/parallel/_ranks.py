@@ -85,9 +85,11 @@ def run_ranks(fn, size: int, backend: str = "gloo", device=None,
     try:
         for p in procs:
             p.start()
+        # dhqr: ignore[DHQR008] bounds a REAL hang of the spawned rank processes — wall time is the point
         deadline = time.monotonic() + timeout_s
         pending = set(range(size))
         while pending:
+            # dhqr: ignore[DHQR008] same hang bound
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"ranks {sorted(pending)} of {size} did not finish in "
@@ -108,6 +110,7 @@ def run_ranks(fn, size: int, backend: str = "gloo", device=None,
             out[rank] = value
             pending.discard(rank)
         for p in procs:
+            # dhqr: ignore[DHQR008] same hang bound, for the joins
             p.join(timeout=max(deadline - time.monotonic(), 5.0))
     finally:
         for p in procs:

@@ -259,6 +259,7 @@ class BucketProgram:
             else:
                 for static, arg in zip(self.static_inputs, args):
                     static.copy_(arg)
+                # dhqr: ignore[DHQR603] replay under the lane lock is the design: a graph's static buffers serve one replay at a time
                 self.graph.replay()
                 outs = tuple(o.clone() for o in self.static_outputs)
                 out = outs[0] if self.single_output else outs
@@ -320,6 +321,7 @@ class LoweredProgram:
         prog = BucketProgram(self.fn, device, "cuda_graph")
         lane = prog.lane
         with lane.lock:
+            # dhqr: ignore[DHQR603] capture-under-lock is the design: one capture per lane, its stream idle first (the twin of the JAX cache's compile-under-lock)
             torch.cuda.synchronize(device)
             if profile:  # the allocator's account of the capture, for xray
                 allocated0 = torch.cuda.memory_allocated(device)
@@ -342,13 +344,17 @@ class LoweredProgram:
                 else:
                     self.fn(*warm)
                 del warm
+                # dhqr: ignore[DHQR603] same capture: the warm-up finishes before capture_begin
                 side.synchronize()
+                # dhqr: ignore[DHQR603] same capture, held across capture_begin/capture_end
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     out = self.fn(*static)
                 finally:
+                    # dhqr: ignore[DHQR603] same capture, held across capture_begin/capture_end
                     graph.capture_end()
             torch.cuda.current_stream(device).wait_stream(side)
+            # dhqr: ignore[DHQR603] same capture: the graph is complete before the lane is released
             torch.cuda.synchronize(device)
         prog.single_output = not isinstance(out, (tuple, list))
         prog.graph = graph
@@ -473,6 +479,7 @@ class ExecutableCache:
             try:
                 with self.timer.measure("aot_compile"):
                     _faults.fire("serve.compile")
+                    # dhqr: ignore[DHQR603] compile-under-lock is the design: one compile per key, N waiters (see the _lock comment in __init__)
                     exe = lower_fn().compile(profile=xray_store is not None)
             except Exception as e:
                 self.counters.bump("compile_failures")

@@ -1011,15 +1011,14 @@ class AsyncScheduler:
                 with self._lock:
                     self._draining = False
             return
-        # wall clock on purpose: the bound on a real hang keeps ticking
-        # under an injected scheduler clock
+        # dhqr: ignore[DHQR008] drain's timeout bounds a REAL hang (wedged dispatch); it must keep ticking even under an injected scheduler clock
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             self._draining = True
             self._work.notify()
             while self._depth or self._inflight:
                 left = None if deadline is None else \
-                    deadline - time.monotonic()
+                    deadline - time.monotonic()  # dhqr: ignore[DHQR008] same wall-clock hang bound as above
                 if left is not None and left <= 0:
                     self._draining = False
                     raise TimeoutError(

@@ -2,7 +2,8 @@
 
 A tall system (m x n, m > n) is compressed first to an ``s x n`` core with
 ``s = O(n log n)`` rows by one pass over A: a count sketch (each row of A
-added, with a sign, into one of s buckets; ``index_add_``) or a
+added, with a sign, into one of s buckets, summed in a fixed order
+over the bucket table drawn with the operator) or a
 subsampled randomized Hadamard transform (SRHT: sign flips, a fast
 Walsh-Hadamard butterfly over the rows padded to a power of two, s rows
 kept). The core's R comes from one Gram product and a shifted
@@ -142,6 +143,7 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _vdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if u.ndim == 1:
+        # dhqr: ignore[DHQR002] a vector dot has no reduced-precision path: this is the JAX twin's vdot at "highest"
         return torch.real(torch.vdot(u, v))
     return torch.real(torch.sum(u.conj() * v, dim=-1))
 
@@ -194,16 +196,36 @@ def _sketch_solve(A, b, SA, Sb, precision, trailing_precision, refine):
     return x
 
 
-def _count_sketch(A, b, rows, signs, s):
+def bucket_table(rows: np.ndarray, s: int) -> np.ndarray:
+    """The count sketch's bucket table: ``(s, c_max)`` int64, row ``k`` the
+    rows that land in bucket ``k`` in ascending order (a stable sort of the
+    rows by bucket), padded to the largest bucket's count ``c_max`` with
+    ``m``, the index of the zero row :func:`_count_sketch` appends. Drawn
+    once per operator, on the host."""
+    m = rows.shape[0]
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=s)
+    c_max = max(int(counts.max(initial=0)), 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(m) - np.repeat(starts, counts)
+    table = np.full((s, c_max), m, dtype=np.int64)
+    table[rows[order], slot] = order
+    return table
+
+
+def _count_sketch(A, b, signs, table):
     """``(S A, S b)`` of the count sketch: each signed row into its bucket
-    (the JAX engine's ``segment_sum``); a stack sketches row by row."""
-    rows = rows.long()
+    (the JAX engine's ``segment_sum``) as one gather through the bucket
+    table into ``(..., s, c_max, n)`` and one sum over ``c_max``. The order
+    of the sum is the table's on every call and every device: no atomics,
+    no host read, no shape that depends on the data (so a CUDA graph
+    captures it). A stack sketches row by row."""
     lead = A.shape[:-2]
-    ax = len(lead)
-    SA = A.new_zeros(lead + (s, A.shape[-1])).index_add_(
-        ax, rows, signs[:, None] * A)
-    Sb = b.new_zeros(lead + (s,)).index_add_(ax, rows, signs * b)
-    return SA, Sb
+    SA = signs[:, None] * A
+    Sb = signs * b
+    SA = torch.cat([SA, SA.new_zeros(lead + (1, A.shape[-1]))], dim=-2)
+    Sb = torch.cat([Sb, Sb.new_zeros(lead + (1,))], dim=-1)
+    return SA[..., table, :].sum(dim=-2), Sb[..., table].sum(dim=-1)
 
 
 def _srht(A, b, signs, idx):
@@ -225,8 +247,8 @@ def _srht(A, b, signs, idx):
 
 
 # A bounded LRU of drawn operators (host numpy arrays, signs already in the
-# matrix's dtype): a warm stream draws nothing, so ``sketch_operator_draws``
-# counts new tuples only.
+# matrix's dtype; a count sketch's entry also holds its bucket table): a warm
+# stream draws nothing, so ``sketch_operator_draws`` counts new tuples only.
 _OPERATOR_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _OPERATOR_CACHE_MAX = 64
 _OPERATOR_LOCK = threading.Lock()
@@ -238,7 +260,9 @@ def _numpy_dtype(dtype) -> np.dtype:
 
 def _operator_arrays(operator: str, m: int, s: int, seed: int, dtype):
     """Host numpy operator arrays for one (operator, m, s, seed, dtype)
-    tuple, the signs cast to the matrix's dtype; memoized per tuple."""
+    tuple, the signs cast to the matrix's dtype; memoized per tuple. A
+    count sketch gives ``(signs, bucket table)``, an SRHT ``(signs,
+    idx)``."""
     np_dtype = _numpy_dtype(dtype)
     key = (operator, int(m), int(s), int(seed), np_dtype.name)
     with _OPERATOR_LOCK:
@@ -249,7 +273,7 @@ def _operator_arrays(operator: str, m: int, s: int, seed: int, dtype):
     COUNTERS.bump("sketch_operator_draws")
     if operator == "countsketch":
         rows, signs = count_sketch_operator(m, s, seed)
-        entry = (rows, np.asarray(signs, dtype=np_dtype))
+        entry = (np.asarray(signs, dtype=np_dtype), bucket_table(rows, s))
     else:
         signs, idx = srht_operator(m, s, seed)
         entry = (np.asarray(signs, dtype=np_dtype), idx)
@@ -341,7 +365,7 @@ def sketched_lstsq(
     a0 = torch.from_numpy(a0).to(A.device)
     a1 = torch.from_numpy(a1).to(A.device)
     if op == "countsketch":
-        SA, Sb = _count_sketch(A, b, a0, a1, s)
+        SA, Sb = _count_sketch(A, b, a0, a1)
     else:
         SA, Sb = _srht(A, b, a0, a1)
     return _sketch_solve(A, b, SA, Sb, precision, trailing_precision, refine)
@@ -355,8 +379,9 @@ def batched_sketch_program(m: int, n: int, s: int, seed: int,
                            dtype=torch.float32, device=None):
     """The program one serve ``"sketch"`` bucket dispatch runs:
     ``fn(A, b)`` over stacks ``(B, m, n)`` / ``(B, m)`` on ``device``.
-    The operator arrays are drawn here, once, as constant tensors on the
-    device (every request of a bucket shares one m, hence one operator),
+    The operator arrays (a count sketch's signs and bucket table) are
+    drawn here, once, as constant tensors on the device (every request of
+    a bucket shares one m, hence one operator),
     so the program is fully determined by its cache key. ``block_size``
     and ``norm`` ride the signature for key parity: the core has no panel
     loop."""
@@ -369,7 +394,7 @@ def batched_sketch_program(m: int, n: int, s: int, seed: int,
 
     def fn(A, b):
         if op == "countsketch":
-            SA, Sb = _count_sketch(A, b, c0, c1, s)
+            SA, Sb = _count_sketch(A, b, c0, c1)
         else:
             SA, Sb = _srht(A, b, c0, c1)
         return _sketch_solve(A, b, SA, Sb, precision, trailing_precision,

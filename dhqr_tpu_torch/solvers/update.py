@@ -120,7 +120,7 @@ def _hyperbolic_remove(R: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 def _mhv(A: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """``A^H u`` as the vector-matrix product ``(u^H A)^H``, full
     precision."""
-    return torch.matmul(u.conj(), A).conj()
+    return gemm.matmul(u.conj(), A, "highest").conj()
 
 
 def _update_state_impl(A, G, R, u, v, sgn: float):
@@ -137,6 +137,7 @@ def _update_state_impl(A, G, R, u, v, sgn: float):
     ``||dG||`` rather than with ``||p||``. R drifts from chol(G) only by
     the sweeps' own rounding, which the refactor policy bounds."""
     w = _mhv(A, u)
+    # dhqr: ignore[DHQR002] a vector dot has no reduced-precision path: this is the JAX twin's vdot at "highest"
     uu = torch.vdot(u, u).real
     vh = v.conj()
     A2 = torch.addr(A, u, vh, alpha=sgn)
@@ -170,7 +171,7 @@ def _usolve_impl(A, R, b, refine: int = 1, precision: str = "highest"):
 
     x = sns(gemm.matmul(b.conj()[None, :], A, precision)[0].conj())
     for _ in range(refine):
-        x = x + sns(_mhv(A, b - torch.matmul(A, x)))
+        x = x + sns(_mhv(A, b - gemm.matmul(A, x, "highest")))
     return x
 
 
@@ -289,7 +290,7 @@ class UpdatableQR:
                          precision=self._precision,
                          block_size=self._block_size, device=self.device)
         R = res.factorization.r_matrix()
-        self._G = torch.matmul(R.mH, R)
+        self._G = gemm.matmul(R.mH, R, "highest")
         self._R = R
         self._k = 0
         self.refactor_count += 1

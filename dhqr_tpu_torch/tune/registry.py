@@ -17,7 +17,8 @@ hook fields are absent here, and the queries over them
 (:func:`jaxpr_routes`, :func:`comms_routes`, :func:`contract_names`,
 :func:`serve_routes`, :func:`donated_routes`) raise
 :class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming ROADMAP
-Queue A item 18.
+Queue A item 18b (the graph passes; the source passes of item 18a read
+no route).
 
 Not route-distinguishing by design: ``block_size`` (a ladder knob — the
 same program schedule at every rung), ``trailing_precision`` (rule 4
@@ -76,7 +77,7 @@ GRID_DCN_PLANS = ({"comms": "dcn:bf16"}, {"comms": "dcn:int8"})
 #: Rule-6c alt-engine tiered rungs.
 GRID_ALT_DCN = (("tsqr", "dcn:bf16"),)
 
-_HOOKS_ITEM = "Queue A item 18 (the registry's analysis hooks)"
+_HOOKS_ITEM = "Queue A item 18b (the registry's analysis hooks)"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

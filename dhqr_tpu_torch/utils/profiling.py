@@ -84,12 +84,14 @@ class PhaseTimer:
     @contextlib.contextmanager
     def measure(self, name: str) -> Iterator[None]:
         self._pending = []
+        # dhqr: ignore[DHQR008] PhaseTimer MEASURES real wall seconds (device time) — a fake clock here would be the bug
         t0 = time.perf_counter()
         try:
             with phase(name):
                 yield
                 if self._pending:
                     sync(self._pending)
+            # dhqr: ignore[DHQR008] same measurement, closing read
             dt = time.perf_counter() - t0
             with self._lock:
                 self._records.append((name, dt))
@@ -260,4 +262,5 @@ def trace(log_dir: "str | None" = None) -> Iterator[None]:
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
+        # dhqr: ignore[DHQR008] a unique trace file name, not a timing decision
         str(log_dir), f"dhqr_trace_{os.getpid()}_{time.time_ns()}.json"))

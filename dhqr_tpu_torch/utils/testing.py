@@ -18,6 +18,7 @@ def normal_equations_residual(A, x, b) -> float:
     """||A^H A x - A^H b|| of numpy arrays."""
     A, x, b = np.asarray(A), np.asarray(x), np.asarray(b)
     Ah = A.conj().T
+    # dhqr: ignore[DHQR002] host-side numpy oracle math (LAPACK-backed f64), no policy product
     return float(np.linalg.norm(Ah @ A @ x - Ah @ b))
 
 
@@ -28,6 +29,7 @@ def lapack_lstsq(A, b):
     import scipy.linalg
 
     Q, R = np.linalg.qr(np.asarray(A), mode="reduced")
+    # dhqr: ignore[DHQR002] host-side numpy oracle math, no policy product
     return scipy.linalg.solve_triangular(R, Q.conj().T @ np.asarray(b),
                                          lower=False)
 
@@ -59,7 +61,7 @@ def solve_backward_error(A, x, b) -> float:
     precision with a full-precision product, as in the JAX package."""
     A, x, b = (np.asarray(v.detach().cpu().numpy()) if hasattr(v, "detach")
                else np.asarray(v) for v in (A, x, b))
-    r = A @ x - b
+    r = A @ x - b  # dhqr: ignore[DHQR002] host numpy in the inputs' precision, as the JAX twin's "highest"
     return float(np.linalg.norm(r)) / (
         float(np.linalg.norm(A)) * float(np.linalg.norm(x))
         + float(np.linalg.norm(b)))

@@ -3,10 +3,16 @@ package's ``dhqr_tpu.solvers.sketch``, on the CPU.
 
 The operators are numpy PCG64 draws in both packages, so they are held
 bit-equal. The solutions go through different float32 arithmetic (XLA's
-``segment_sum`` and butterfly against ``index_add_`` and torch's, a
-different Cholesky and triangular solves) and twelve CGLS iterations that
+``segment_sum`` and butterfly against the port's bucket-table sum and
+torch's, a different Cholesky and triangular solves) and twelve CGLS
+iterations that
 contract towards the same least-squares solution: x within 1e-4 relative
 (2-norm) of the JAX solution, and within the reference's 8x criterion.
+
+The count sketch's bucket sum runs in the bucket table's fixed order: bit
+for bit across calls, within 1e-6 relative of the ``index_add_`` sum it
+replaced (kept here as a yardstick) and within 1e-5 of JAX's
+``segment_sum`` on the same operator.
 """
 
 import numpy as np
@@ -14,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import dhqr_tpu  # noqa: E402
@@ -196,3 +203,89 @@ def test_sketch_is_lstsq_only_and_tall_only():
         dt.qr(A, engine="sketch", device="cpu")
     with pytest.raises(ValueError, match="m < n"):
         dt.lstsq(A.T, b[:20], engine="sketch", device="cpu")
+
+
+# ------------------------------------------- the deterministic bucket sum
+
+
+def _index_add_sketch(A, b, rows, signs, s):
+    """The count sketch as ``index_add_`` summed it before the bucket table
+    (atomic, so order-varying, on the card): the yardstick."""
+    rows = torch.from_numpy(rows).long()
+    lead = A.shape[:-2]
+    ax = len(lead)
+    SA = A.new_zeros(lead + (s, A.shape[-1])).index_add_(
+        ax, rows, signs[:, None] * A)
+    Sb = b.new_zeros(lead + (s,)).index_add_(ax, rows, signs * b)
+    return SA, Sb
+
+
+BUCKET_CASES = [((1500, 16), np.float32), ((1500, 16), np.complex64),
+                ((3, 777, 12), np.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", BUCKET_CASES,
+                         ids=["f32", "c64", "stack"])
+def test_bucket_sum_matches_index_add_jax_and_itself(shape, dtype):
+    m, n = shape[-2:]
+    s = tsk.sketch_dim(m, n)
+    rng = np.random.default_rng(48)
+    A = rng.standard_normal(shape).astype(dtype)
+    b = rng.standard_normal(shape[:-1]).astype(dtype)
+    if np.iscomplexobj(A):
+        A = (A + 1j * rng.standard_normal(shape)).astype(dtype)
+        b = (b + 1j * rng.standard_normal(shape[:-1])).astype(dtype)
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    signs_np, table = tsk._operator_arrays("countsketch", m, s, 9, At.dtype)
+    signs = torch.from_numpy(signs_np)
+    SA, Sb = tsk._count_sketch(At, bt, signs, torch.from_numpy(table))
+    SA2, Sb2 = tsk._count_sketch(At, bt, signs, torch.from_numpy(table))
+    assert torch.equal(SA, SA2) and torch.equal(Sb, Sb2)   # bit for bit
+    rows, _ = tsk.count_sketch_operator(m, s, 9)
+    OA, Ob = _index_add_sketch(At, bt, rows, signs, s)
+
+    def rel(x, y):
+        return float(np.linalg.norm(np.asarray(x) - np.asarray(y))
+                     / np.linalg.norm(np.asarray(y)))
+
+    assert rel(SA, OA) <= 1e-6 and rel(Sb, Ob) <= 1e-6
+    jrows = jnp.asarray(rows)
+    jsigns = jnp.asarray(signs_np)
+    JA = np.stack([np.asarray(jax.ops.segment_sum(
+        jsigns[:, None] * jnp.asarray(a), jrows, num_segments=s))
+        for a in A.reshape((-1, m, n))]).reshape(SA.shape)
+    Jb = np.stack([np.asarray(jax.ops.segment_sum(
+        jsigns * jnp.asarray(v), jrows, num_segments=s))
+        for v in b.reshape((-1, m))]).reshape(Sb.shape)
+    assert rel(SA, JA) <= 1e-5 and rel(Sb, Jb) <= 1e-5
+
+
+def test_bucket_table_is_the_stable_sort_padded_with_the_zero_row():
+    m, s = 1000, 40
+    rows, _ = tsk.count_sketch_operator(m, s, 2)
+    table = tsk.bucket_table(rows, s)
+    counts = np.bincount(rows, minlength=s)
+    assert table.shape == (s, counts.max()) and table.dtype == np.int64
+    for k in range(s):
+        live = table[k, :counts[k]]
+        assert list(live) == list(np.flatnonzero(rows == k))  # ascending
+        assert (table[k, counts[k]:] == m).all()              # padding
+
+
+def test_sketched_lstsq_repeat_is_bit_identical_and_drawn_once():
+    A, b = random_problem(768, 12, np.float32, seed=17)
+    draws = tsk.COUNTERS.get("sketch_operator_draws")
+    x1 = dt.sketched_lstsq(A, b, operator="countsketch", seed=31,
+                           device="cpu")
+    x2 = dt.sketched_lstsq(A, b, operator="countsketch", seed=31,
+                           device="cpu")
+    assert torch.equal(x1, x2)
+    assert tsk.COUNTERS.get("sketch_operator_draws") == draws + 1
+    fn = tsk.batched_sketch_program(768, 12, tsk.sketch_dim(768, 12), 31,
+                                    "countsketch", 32, device="cpu")
+    As, bs = torch.from_numpy(A)[None], torch.from_numpy(b)[None]
+    xs = fn(As, bs)
+    assert torch.equal(fn(As, bs), xs)   # the serve program's repeat too
+    # the stacked CGLS runs other GEMM shapes: the same x to roundoff
+    assert float(torch.linalg.vector_norm(xs[0] - x1)
+                 / torch.linalg.vector_norm(x1)) <= 1e-5

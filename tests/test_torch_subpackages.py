@@ -5,9 +5,12 @@ public function it defines) has a twin at the same dotted path in
 ``dhqr_tpu_torch``, or stands in ROADMAP.md's "Not ported by design" list
 with a stub that raises ``NotPortedError`` and says why. The walk covers
 the sub-packages ``ops``, ``parallel``, ``serve``, ``solvers``, ``utils``,
-``obs``, ``tune``, ``armor``, ``numeric``, ``faults`` and ``models``, and
-the CLI modules ``harness`` and ``_dryrun``; ``analysis/`` waits for its
-ROADMAP item.
+``obs``, ``tune``, ``armor``, ``numeric``, ``faults``, ``models`` and
+``analysis``, and the CLI modules ``harness`` and ``_dryrun``. In
+``analysis`` the source passes of ROADMAP item 18a are twins; every name of
+the graph passes (``jaxpr_pass``, ``comms_pass``, ``cost_model``,
+``atlas``, ``pulse_smoke``, ``xray_smoke``) is a stub at its path that
+raises ``NotPortedError`` naming item 18b.
 
 The helpers that came with the walk are held to their JAX twins on the
 same numpy inputs: ``random_problem`` bit for bit, ``accurate_sumsq`` /
@@ -42,7 +45,10 @@ ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "ROADMAP.md")
 
 SUBPACKAGES = ("ops", "parallel", "serve", "solvers", "utils", "obs",
-               "tune", "armor", "numeric", "faults", "models")
+               "tune", "armor", "numeric", "faults", "models", "analysis")
+# The graph passes of analysis/ (ROADMAP item 18b): stubs naming the item.
+PENDING_18B = ("jaxpr_pass", "comms_pass", "cost_model", "atlas",
+               "pulse_smoke", "xray_smoke")
 
 # Whole JAX modules with no twin module, and the port's counterpart.
 MODULES_BY_DESIGN = {
@@ -65,6 +71,10 @@ STUBS_BY_DESIGN = {
         ("utils.platform", "force_cpu_platform"),
     "dhqr_tpu.utils.platform.enable_compile_cache":
         ("utils.platform", "enable_compile_cache"),
+    "dhqr_tpu.analysis.cli._force_multidevice_env":
+        ("analysis.cli", "_force_multidevice_env"),
+    "dhqr_tpu.analysis.jaxpr_pass._ensure_cpu_backend":
+        ("analysis.jaxpr_pass", "_ensure_cpu_backend"),
 }
 
 
@@ -121,6 +131,28 @@ def test_not_ported_by_design_stubs_raise_with_the_reason(path):
     with pytest.raises(NotPortedError, match="no counterpart") as err:
         fn(*([None] * n_args))
     assert err.value.reason
+
+
+@pytest.mark.parametrize("module", PENDING_18B)
+def test_graph_pass_names_are_stubs_naming_item_18b(module):
+    theirs = importlib.import_module(f"dhqr_tpu.analysis.{module}")
+    mine = importlib.import_module(f"dhqr_tpu_torch.analysis.{module}")
+    names = _public_names(theirs)
+    assert names, module
+    for name in names:
+        with pytest.raises(NotPortedError, match="item 18b") as err:
+            getattr(mine, name)()
+        assert err.value.reason is None, name  # pending, not by design
+
+
+def test_source_pass_names_are_ported_not_stubbed():
+    for module in ("findings", "ast_rules", "concurrency_pass", "api_check",
+                   "cli"):
+        theirs = importlib.import_module(f"dhqr_tpu.analysis.{module}")
+        mine = importlib.import_module(f"dhqr_tpu_torch.analysis.{module}")
+        for name in _public_names(theirs):
+            assert getattr(mine, name).__module__ == mine.__name__, \
+                (module, name)
 
 
 # ------------------------------------------------------ helpers' parity

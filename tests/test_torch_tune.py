@@ -362,7 +362,7 @@ def test_registry_routes_and_stages_match_jax():
     for hook in (lambda: treg.jaxpr_routes("fast"),
                  lambda: treg.comms_routes(2, True), treg.contract_names,
                  treg.serve_routes, treg.donated_routes):
-        with pytest.raises(dt.NotPortedError, match="item 18"):
+        with pytest.raises(dt.NotPortedError, match="item 18b"):
             hook()
 
 
