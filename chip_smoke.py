@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,...,20,21]
+                          [--phases 0,1,2,...,20,21,22]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-21 run by default, 7 on request):
+on any error (0-6 and 8-22 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -234,7 +234,24 @@ on any error (0-6 and 8-21 run by default, 7 on request):
    256 f32 bit for bit (``torch.equal``), and at 65536 x 256 the bucket
    sum's time beside the ``index_add_`` sum it replaced (a yardstick the
    port no longer calls), their relative distance, and the bound of the
-   bucket sum's bytes.
+   bucket sum's bytes;
+22. graph: the graph passes of the port's lint on the card: (a) the jaxpr
+   pass (``analysis/jaxpr_pass.py``) over every preset, each registered
+   route run once under the op log (``analysis/oplog.py``) on the card,
+   and the complex64 ``qr`` / ``lstsq``: 0 unsuppressed findings, no f64
+   op in an f32 route, every ``panel_qr_f32`` / ``panel_qr_c64`` event
+   from the ``kernel`` path and as many as the launch counter moved, the
+   host syncs per route; (b) the comms pass (``analysis/comms_pass.py``)
+   at P = 2 and 4, gloo ranks sharing the card as in phase 14: 0
+   unsuppressed findings, each route's logged bytes beside its contract's
+   budget, the double-run stability check at P = 2, and the donation
+   probes on the card; (c) the xray and pulse smokes on the card with the
+   report's MFU, roofline bound and measured census; (d) the atlas with
+   the collided serve cells compared on their CUDA-graph captures; (e)
+   ``python -m dhqr_tpu_torch.analysis check`` with every pass in a child
+   process (uncounted): exit 0, ``0 finding(s)``, its wall time; and, as
+   a guard on the disarmed seam, steady-state ``qr`` 16384^2 f32 within
+   PERF.md's spread (0.245-0.250 s) plus 2%.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -257,8 +274,9 @@ whose ranks' counts are added to the parent's and on which both kernels
 must launch, and the harness path (20 (a), (b), (d); the dry run of (c)
 runs in a child process of its own, uncounted), on which both kernels
 must launch, and the analysis path (21), whose witness burst goes through
-the serve tier's column loop and may launch none. The ``kernels`` line
-sums the paths.
+the serve tier's column loop and may launch none, and the graph path
+(22; its comms ranks and its CLI child uncounted), on which both kernels
+must launch. The ``kernels`` line sums the paths.
 Phases 6 and 7 are measurements and are not counted. Each phase prints
 JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
@@ -4567,12 +4585,204 @@ def phase_analysis(seed, card):
           "ok": True})
 
 
+# -- phase 22: the graph passes of the port's lint on the card ----------------
+
+#: The spread of steady-state ``qr`` 16384^2 f32 over PRs 1-12 (PERF.md),
+#: and the run-to-run noise allowed above it (steady ``qr`` agrees within
+#: 1% across PRs): the disarmed op-log seam must cost nothing measurable.
+QR_SPREAD_S = (0.245, 0.250)
+QR_NOISE = 0.02
+GRAPH_P = (2, 4)              # the comms pass's rank counts, as phase 14
+GRAPH_C64 = (16, 8)           # the jaxpr pass's shape, for the c64 routes
+
+
+def _kernel_events(logs) -> dict:
+    """Panel-kernel events of op logs, by kernel and path."""
+    out: dict = {}
+    for log in logs:
+        for e in log.kernel_events():
+            key = f"{e.name}:{e.path}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def phase_graph(dt, hp, seed, card):
+    """Phase 22: the graph passes on the card. (a) the jaxpr pass over
+    every preset (and the c64 ``qr`` / ``lstsq``), its panel events from
+    the kernel path and as many as the launch counter; (b) the comms pass
+    at P = 2 and 4 (gloo ranks sharing card 0), bytes against each
+    contract's budget; (c) the xray and pulse smokes with numbers; (d) the
+    atlas with the serve keys' CUDA-graph captures compared; (e) the CLI
+    with every pass; and the disarmed seam's guard, ``qr`` 16384^2."""
+    from dhqr_tpu_torch.analysis import (atlas, comms_pass, jaxpr_pass,
+                                         oplog, pulse_smoke, xray_smoke)
+    from dhqr_tpu_torch.analysis.cost_model import (budget_bytes,
+                                                    tiered_budget_bytes)
+    from dhqr_tpu_torch.analysis.findings import apply_graph_suppressions
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # (a) the jaxpr pass: f32 routes over every preset, then c64 main path
+    t0 = time.perf_counter()
+    before = dict(hp.LAUNCHES)
+    runs = jaxpr_pass.run_routes(device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+    c64 = []
+    for name, call in (("qr[c64]", lambda A, b: dt.qr(A)),
+                       ("lstsq[c64]", lambda A, b: dt.lstsq(A, b))):
+        A = torch.randn(GRAPH_C64, generator=g, device="cuda",
+                        dtype=torch.complex64)
+        b = torch.randn(GRAPH_C64[:1], generator=g, device="cuda",
+                        dtype=torch.complex64)
+        with oplog.record(name) as log:
+            call(A, b)
+        c64.append((name, log, ()))
+    torch.cuda.synchronize()
+    launched = {k: hp.LAUNCHES[k] - before[k] for k in hp.LAUNCHES}
+    raised = [f"{label}: {log!r}" for label, log, _ in runs
+              if isinstance(log, Exception)]
+    logs = [log for _, log, _ in runs + c64 if not isinstance(log, Exception)]
+    findings = jaxpr_pass.run_jaxpr_pass(runs=runs + c64)
+    active = [f for f in findings if not f.suppressed]
+    events = _kernel_events(logs)
+    f64 = [f.render() for f in active if f.rule == "DHQR101"]
+    row = {"phase": 22, "name": "jaxpr_pass", "card": card,
+           "routes": len(runs), "raised": raised,
+           "active": [f.render() for f in active],
+           "suppressed_by_rule": {r: sum(f.rule == r and f.suppressed
+                                         for f in findings)
+                                  for r in sorted({f.rule for f in findings})},
+           "kernel_events": events, "launches": launched,
+           "f64_in_f32_routes": f64,
+           "host_syncs": {label: len(log.syncs()) for label, log, _ in
+                          runs + c64 if not isinstance(log, Exception)},
+           "s": time.perf_counter() - t0}
+    row["ok"] = (not raised and not active
+                 and not any(k.endswith(":plain") for k in events)
+                 and all(events.get(f"{k}:kernel", 0) == v
+                         for k, v in launched.items())
+                 and all(v >= 1 for v in launched.values()))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 22 (a) jaxpr pass failed: {row}")
+
+    # (b) the comms pass on P gloo ranks sharing the card, as phase 14
+    contracts = comms_pass.load_contracts()
+    for P in GRAPH_P:
+        t0 = time.perf_counter()
+        ranks = comms_pass.census(P, device="cuda", stability=P == 2)
+        found = apply_graph_suppressions(
+            comms_pass.check_census(ranks, contracts))
+        per_contract = []
+        for i, r0 in enumerate(ranks[0]):
+            c = contracts[r0["engine"]]
+            p = r0["params"]
+            st = comms_pass.merge_ranks([r[i]["stats"] for r in ranks])
+            if p.topology is not None:
+                tb = tiered_budget_bytes(
+                    c["model"], p.m, p.n, p.nb, P, p.itemsize,
+                    comms=c.get("comms"), topology=p.topology,
+                    hierarchical=bool(c.get("hierarchical", True)))
+                budget, dcn_budget = tb["total"], tb["dcn"]
+            else:
+                budget = budget_bytes(c["model"], p.m, p.n, p.nb, P,
+                                      p.itemsize, comms=c.get("comms"))
+                dcn_budget = None
+            per_contract.append({
+                "route": r0["label"], "contract": r0["engine"],
+                "launches": st.launches(), "bytes": st.total_volume_bytes(),
+                "budget": budget, "slack": c.get("slack", 1.5),
+                "dcn_bytes": st.dcn_volume_bytes(), "dcn_budget": dcn_budget})
+        row = {"phase": 22, "name": "comms_pass", "P": P, "card": card,
+               "backend": "gloo", "routes": per_contract,
+               "active": [f.render() for f in found if not f.suppressed],
+               "suppressed": sum(f.suppressed for f in found),
+               "s": time.perf_counter() - t0}
+        row["ok"] = not row["active"] and len(per_contract) > 0
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"phase 22 (b) comms pass failed: {row}")
+    t0 = time.perf_counter()
+    donation = comms_pass.check_donation(device="cuda")
+    emit({"phase": 22, "name": "donation", "card": card,
+          "active": [f.render() for f in donation],
+          "s": time.perf_counter() - t0, "ok": not donation})
+    if donation:
+        raise AssertionError("phase 22 (b) donation findings: "
+                             + "; ".join(f.render() for f in donation))
+
+    # (c) the smokes, with the card's numbers
+    for name, smoke in (("xray_smoke", xray_smoke.run_xray_smoke),
+                        ("pulse_smoke", pulse_smoke.run_pulse_smoke)):
+        t0 = time.perf_counter()
+        got: dict = {}
+        bad = smoke(device="cuda", stats=got)
+        row = {"phase": 22, "name": name, "card": card,
+               "findings": [f.render() for f in bad], "report": got,
+               "s": time.perf_counter() - t0}
+        row["ok"] = not bad and bool(got)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"phase 22 (c) {name} failed: {row}")
+
+    # (d) the atlas, the collided serve cells compared on their captures
+    t0 = time.perf_counter()
+    st: dict = {}
+    found = atlas.run_atlas_pass(device="cuda", stats=st)
+    row = {"phase": 22, "name": "atlas", "card": card,
+           "findings": [f.render() for f in found], **st,
+           "s": time.perf_counter() - t0}
+    row["ok"] = not found and st.get("collided_groups_run", 0) >= 1 \
+        and st.get("events_compared", 0) > 0
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 22 (d) atlas failed: {row}")
+
+    # (e) the CLI with every pass, in a child process (uncounted)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dhqr_tpu_torch.analysis", "check"],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    tail = [ln for ln in proc.stderr.splitlines()
+            if ln.startswith("dhqr-lint:")]
+    row = {"phase": 22, "name": "cli", "card": card, "rc": proc.returncode,
+           "summary": tail[-1] if tail else None,
+           "findings": [ln for ln in proc.stdout.splitlines()
+                        if ": DHQR" in ln and "[suppressed" not in ln],
+           "wall_s": time.perf_counter() - t0}
+    row["ok"] = proc.returncode == 0 and bool(tail) \
+        and tail[-1].startswith("dhqr-lint: 0 finding(s)")
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 22 (e) CLI failed: {row}; stderr tail "
+                             f"{proc.stderr[-3000:]}")
+
+    # the disarmed seam's guard: steady-state qr 16384^2 f32
+    assert oplog.ARMED is None
+    A = torch.rand((16384, 16384), generator=g, device="cuda")
+    wall(lambda: dt.qr(A))
+    _, t_qr = wall(lambda: dt.qr(A))
+    row = {"phase": 22, "name": "seam_guard", "card": card,
+           "qr_16384_s": t_qr, "spread_s": list(QR_SPREAD_S),
+           "noise": QR_NOISE}
+    row["ok"] = t_qr <= QR_SPREAD_S[1] * (1 + QR_NOISE)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 22 seam guard failed: {row}")
+    del A
+    torch.cuda.empty_cache()
+    emit({"phase": 22, "name": "phase", "s": time.perf_counter() - t_phase,
+          "ok": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19,"
-                            "20,21",
+                            "20,21,22",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -4664,6 +4874,8 @@ def main(argv=None) -> int:
         counted("harness", lambda: phase_harness(dt, hp, args.seed, smi))
     if 21 in phases:
         counted("analysis", lambda: phase_analysis(args.seed, smi))
+    if 22 in phases:
+        counted("graph", lambda: phase_graph(dt, hp, args.seed, smi))
     emit({"launches_by_path": paths})
     # paths with no panel kernel on them
     for key in ("reconstruct", "sketch", "serve"):
@@ -4672,7 +4884,7 @@ def main(argv=None) -> int:
                                  f"{paths[key]}")
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
-                "guarded", "wire", "tune_armor", "harness")
+                "guarded", "wire", "tune_armor", "harness", "graph")
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
         for key in on_paths + (("update", "serve_async")

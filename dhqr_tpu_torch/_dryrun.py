@@ -26,9 +26,10 @@ tier (the bucket cache's misses) and "bit-identical repeat" on the eager
 engines; the fleet stage's child leaves key records, not programs (a CUDA
 graph does not outlive its process), so the parent's first call is a
 counted ``NOT_A_PROGRAM`` miss and one recapture; the checks that read
-the graph passes of ``analysis/`` (the pipeline's traced order audit, the
-pod contract, the comms audit and the atlas) wait for ROADMAP item 18b;
-and the serve stage prints the batched ``policy="fast"`` ratio instead of
+the graph passes of ``analysis/`` (the pipeline's order audit, the pod
+contract, the comms audit and the atlas) read op logs
+(``analysis/oplog.py``) where the JAX dry run reads jaxprs, and the comms
+and atlas stages spawn the comms audit's own ranks; and the serve stage prints the batched ``policy="fast"`` ratio instead of
 holding it to 8x, because the port runs its bf16 passes on the CPU as on
 the card while the JAX package's CPU matmul ignores the precision. The
 lock-discipline stage (``concurrency``) runs its witness burst on the run's
@@ -48,7 +49,7 @@ import time
 MESH_STAGES = ("layouts", "pipeline", "awkward", "refine", "policy",
                "pulse", "wire", "armor", "pod", "rows", "realistic")
 LOCAL_STAGES = ("serve", "async", "faults", "fleet", "numeric", "obs",
-                "xray", "tune", "sketch", "concurrency")
+                "xray", "tune", "sketch", "comms", "atlas", "concurrency")
 STAGES = MESH_STAGES + LOCAL_STAGES
 
 #: The mesh stages' time limit (the spawn and every stage).
@@ -182,9 +183,35 @@ def _stage_pipeline(c: _Mesh) -> None:
     Hp2, _ = sharded_blocked_qr(c.A, c.cmesh, block_size=c.nb,
                                 lookahead=True, overlap_depth=2)
     assert torch.equal(Hp2, Hp), "depth-2 repeat diverged"
+    # Order audit on a 6-panel shape over a 2-rank sub-mesh (every rank
+    # makes the group; ranks 0 and 1 run it): every logged wide trailing
+    # GEMM of panel q must come after panel q+2's broadcast was issued (a
+    # rank whose columns all take the narrow updates logs none).
+    import numpy as np
+    import torch.distributed as dist
+
+    from dhqr_tpu_torch.analysis import oplog
+    from dhqr_tpu_torch.analysis.comms_pass import overlap_distance
+    from dhqr_tpu_torch.parallel import column_mesh
+
+    g2 = dist.new_group([0, 1])
+    depth = None
+    if c.rank < 2:
+        A_aud = np.random.default_rng(6).random((48, 24)).astype(np.float32)
+        with oplog.record("pipeline-audit", groups={g2: ("cols",)}) as log:
+            sharded_blocked_qr(A_aud, column_mesh(g2, device=c.device),
+                               block_size=c.nb, lookahead=True,
+                               overlap_depth=2)
+        depths = [None, None]
+        dist.all_gather_object(depths, overlap_distance(log, c.nb),
+                               group=g2)
+        seen = [d for d in depths if d is not None]
+        depth = min(seen) if seen else None
+        assert depth is not None and depth >= 2, (
+            "logged issue order does not hide >= 2 panels", depths)
     c.say(f"dryrun: pipeline ok (census identical to lookahead: "
-          f"{_launches(p2)}, bit-identical factors, bit-identical repeat; "
-          "the traced order audit waits for ROADMAP item 18b)")
+          f"{_launches(p2)}, bit-identical factors, bit-identical repeat, "
+          f"logged order hides {depth} panels)")
 
 
 def _stage_awkward(c: _Mesh) -> None:
@@ -419,12 +446,36 @@ def _stage_pod(c: _Mesh) -> None:
     assert r_p < 8, ("pod dcn:bf16 lstsq", r_p)
     Hh2, _ = sharded_blocked_qr(Ap, pmesh, block_size=nb, axis_name=taxes)
     assert torch.equal(Hh, Hh2), "pod repeat diverged"
+    # The committed two-tier contract, held on every rank's op log as the
+    # comms audit holds it (per-tier DHQR302 through EngineParams.topology).
+    from dhqr_tpu_torch.analysis import oplog
+    from dhqr_tpu_torch.analysis.comms_pass import (
+        EngineParams,
+        check_comms,
+        collect_comms,
+        load_contracts,
+        stamp_shard_inputs,
+    )
+
+    groups = {pmesh.group: ("dcn", "ici"), pmesh.ici_mesh.group: ("ici",),
+              pmesh.dcn_mesh.group: ("dcn",)}
+    with oplog.record("pod-audit", groups=groups) as log:
+        sharded_blocked_qr(Ap, pmesh, block_size=nb, axis_name=taxes)
+    stamp_shard_inputs(log, Ap.nbytes // 4)
+    pod_contract = load_contracts().get("blocked_qr_pod")
+    assert pod_contract is not None, (
+        "blocked_qr_pod contract missing from comms_contracts.json")
+    pod_findings = check_comms(
+        collect_comms(log), f"dryrun::blocked_qr_pod[rank {c.rank}]",
+        pod_contract, EngineParams(m=m, n=n, nb=nb, P=4, topology=(2, 2)))
+    assert not pod_findings, "pod contract findings:\n" + "\n".join(
+        f.render() for f in pod_findings)
     c.say(f"dryrun: pod ok (2x2 hierarchical census {len(lh['ici'])} ICI "
           f"+ {len(lh['dcn'])} DCN legs for {n_bcast} broadcasts, "
           f"cross-DCN bytes {dcn_bytes} B vs flat {flat_bytes} B / "
           f"{taxes.ici_size}, dcn:bf16 lstsq within 8x ({r_p:.2f}x), "
-          "repeat bit-identical; the committed pod contract waits for "
-          "ROADMAP item 18b)")
+          "repeat bit-identical, blocked_qr_pod contract green on every "
+          "rank)")
 
 
 def _stage_rows(c: _Mesh) -> None:
@@ -527,10 +578,11 @@ class _Local:
     REQ_SHAPES = [(48, 16), (30, 24), (48, 16), (72, 40), (24, 24),
                   (60, 10), (40, 28)]
 
-    def __init__(self, dev):
+    def __init__(self, dev, n_ranks: int = 1):
         import numpy as np
 
         self.dev = dev
+        self.n_ranks = n_ranks
         rng = np.random.default_rng(8)
         self.As = [rng.random(s).astype(np.float32) for s in self.REQ_SHAPES]
         self.bs = [rng.random(s[0]).astype(np.float32)
@@ -953,6 +1005,48 @@ def _stage_sketch(s: _Local) -> None:
          "repeat bit-identical)")
 
 
+def _stage_comms(s: _Local) -> None:
+    """The comms-contract audit (dhqr-audit): the mesh matrix on 2 ranks
+    of its own at one preset, the donation probes and the double-run
+    stability check — a collective-shaped regression fails the dry run."""
+    from dhqr_tpu_torch.analysis.comms_pass import run_comms_pass
+
+    if s.n_ranks < 2:
+        _say("dryrun: comms audit SKIPPED (needs >= 2 ranks: a 1-rank mesh "
+             "is the pass's blind spot)")
+        return
+    findings = [f for f in run_comms_pass(presets=["fast"],
+                                          device_counts=(2,), device=s.dev)
+                if not f.suppressed]
+    assert not findings, "comms audit findings:\n" + "\n".join(
+        f.render() for f in findings)
+    _say("dryrun: comms audit ok (contracts green at P=2, donation in place, "
+         "op logs stable across two runs)")
+
+
+def _stage_atlas(s: _Local) -> None:
+    """The route registry's self-check, always; with >= 2 ranks the whole
+    DHQR5xx drift audit (coverage, contract bijection, serve-key
+    collisions run on the dry run's device, grid drift)."""
+    from dhqr_tpu_torch.tune.registry import self_check
+
+    problems = self_check()
+    assert not problems, "route registry self-check:\n" + "\n".join(
+        problems)
+    if s.n_ranks < 2:
+        _say("dryrun: atlas DHQR5xx audit SKIPPED (needs >= 2 ranks like "
+             "the mesh stages; the registry self-check ran)")
+        return
+    from dhqr_tpu_torch.analysis.atlas import run_atlas_pass
+
+    findings = run_atlas_pass(device=s.dev)
+    assert not findings, "atlas findings:\n" + "\n".join(
+        f.render() for f in findings)
+    _say("dryrun: atlas ok (route registry structurally sound, DHQR501-505 "
+         "green: contracts bijective, serve keys collision-free, grid "
+         "inside the registry)")
+
+
 def _stage_concurrency(s: _Local) -> None:
     """Lock discipline (dhqr-warden): the DHQR6xx static self-scan plus one
     armed lock-witness burst over a tiny scheduler/router stream on the
@@ -976,6 +1070,7 @@ _LOCAL = {"serve": _stage_serve, "async": _stage_async,
           "faults": _stage_faults, "fleet": _stage_fleet,
           "numeric": _stage_numeric, "obs": _stage_obs,
           "xray": _stage_xray, "tune": _stage_tune, "sketch": _stage_sketch,
+          "comms": _stage_comms, "atlas": _stage_atlas,
           "concurrency": _stage_concurrency}
 
 
@@ -1015,7 +1110,7 @@ def run(n_ranks: int, device=None, stages=None) -> dict:
         seconds.update(_spawn(n_ranks, dev, mesh, sizes))
         # dhqr: ignore[DHQR008] same measurement, closing read
         seconds["spawn"] = time.perf_counter() - t0 - sum(seconds.values())
-    local = _Local(dev)
+    local = _Local(dev, n_ranks)
     for stage in LOCAL_STAGES:
         if stage in chosen:
             # dhqr: ignore[DHQR008] same measurement, per local stage

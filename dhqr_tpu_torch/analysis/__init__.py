@@ -20,14 +20,28 @@ The source passes are ported (ROADMAP item 18a):
   ``dhqr_tpu_torch.__all__`` imports cleanly and stands in README.md's
   port API table.
 
-The graph passes (``jaxpr_pass``, ``comms_pass``, ``cost_model``,
-``atlas``, ``pulse_smoke``, ``xray_smoke``) are stubs that raise
-``NotPortedError`` naming ROADMAP item 18b.
+The graph passes are ported too (ROADMAP item 18b), over an **op log**
+(:mod:`dhqr_tpu_torch.analysis.oplog`: a ``TorchDispatchMode`` recording
+what an entry point dispatches, the panel kernels recorded as launches)
+in place of a jaxpr:
+
+* **The jaxpr pass** — :mod:`~dhqr_tpu_torch.analysis.jaxpr_pass` runs
+  every registered route per preset and checks DHQR101-104 (f64
+  promotions, host syncs, foreign process groups, routes that raise).
+* **The comms audit** — :mod:`~dhqr_tpu_torch.analysis.comms_pass` runs
+  the mesh routes on P ranks and holds each collective census to its
+  contract (``comms_contracts.json``) and the analytic budgets of
+  :mod:`~dhqr_tpu_torch.analysis.cost_model` (DHQR301-305).
+* **The smokes** — :mod:`~dhqr_tpu_torch.analysis.xray_smoke` (DHQR401)
+  and :mod:`~dhqr_tpu_torch.analysis.pulse_smoke` (DHQR402, DHQR306).
+* **The atlas** — :mod:`~dhqr_tpu_torch.analysis.atlas` (DHQR501-505),
+  the route registry's drift audit.
 
 Findings support inline suppressions
 (``# dhqr: ignore[DHQR002] <reason>``, the JAX package's grammar) and a
-committed baseline file,
-empty by policy; the CLI is ``python -m dhqr_tpu_torch.analysis check
+committed baseline file, empty by policy (its ``graph_suppressions``
+list holds the graph findings the eager engines make by design, each
+with its reason); the CLI is ``python -m dhqr_tpu_torch.analysis check
 [paths] [--json] [--baseline FILE]``, and a tier-1 test
 (tests/test_torch_analysis.py) self-scans the port so a new violation
 fails the suite.

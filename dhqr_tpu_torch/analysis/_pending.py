@@ -1,29 +1,13 @@
-"""The graph passes of dhqr-lint that wait for ROADMAP item 18b.
+"""Stubs for the names of the JAX package's ``analysis`` that have no
+counterpart in the port, by design (ROADMAP.md "Not ported by design").
 
-Each public name of the JAX package's ``jaxpr_pass``, ``comms_pass``,
-``cost_model``, ``atlas``, ``pulse_smoke`` and ``xray_smoke`` has a twin
-at its path that raises :class:`NotPortedError` naming the item, so a
-request for one of those passes is never skipped silently.
+Each raises :class:`NotPortedError` with the reason, so a request for one
+is never skipped silently.
 """
 
 from __future__ import annotations
 
 from dhqr_tpu_torch.utils.config import NotPortedError
-
-#: The ROADMAP item the graph passes arrive with.
-ITEM = "Queue A item 18b (the graph passes of analysis/)"
-
-
-def pending(module: str, name: str):
-    """A stub for the JAX package's ``analysis.<module>.<name>``."""
-
-    def stub(*args, **kwargs):
-        raise NotPortedError(f"analysis.{module}.{name}", ITEM)
-
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = (f"The JAX package's ``analysis.{module}.{name}``: not "
-                    f"ported yet (ROADMAP.md {ITEM}).")
-    return stub
 
 
 def by_design(module: str, name: str, reason: str):
@@ -31,7 +15,7 @@ def by_design(module: str, name: str, reason: str):
 
     def stub(*args, **kwargs):
         raise NotPortedError(f"analysis.{module}.{name}",
-                             "Queue A item 18a, not ported by design",
+                             "Queue A item 18, not ported by design",
                              reason)
 
     stub.__name__ = stub.__qualname__ = name

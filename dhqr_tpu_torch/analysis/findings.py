@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import re
 
 # ``# dhqr: ignore[DHQR002] reason`` — one or more rule IDs, comma
@@ -199,3 +200,44 @@ def write_baseline(path, findings) -> None:
     with open(path, "w", encoding="utf-8") as fh:
         json.dump(payload, fh, indent=2, sort_keys=True)
         fh.write("\n")
+
+
+#: The port's shipped baseline; its ``graph_suppressions`` list holds the
+#: graph passes' accepted findings, each with its reason.
+SHIPPED_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "lint_baseline.json")
+
+
+def load_graph_suppressions(path=None) -> "list[dict]":
+    """The graph findings the eager engines make by design: entries
+    ``{"rule", "snippet", "reason"}`` of the baseline's
+    ``graph_suppressions`` list (a ``label`` key, when present, limits an
+    entry to the entry points it matches, ``*`` matching any text). A graph finding has no source line
+    to carry an inline ``# dhqr: ignore``; this list is its twin, and
+    every entry must say why."""
+    with open(path or SHIPPED_BASELINE, "r", encoding="utf-8") as fh:
+        data = json.load(fh)
+    return list(data.get("graph_suppressions", []))
+
+
+def apply_graph_suppressions(findings, entries=None) -> "list[Finding]":
+    """Mark the findings an entry of :func:`load_graph_suppressions`
+    matches (same rule and snippet, and label when the entry names one)
+    suppressed, with the entry's reason."""
+    entries = load_graph_suppressions() if entries is None else entries
+    out = []
+    for f in findings:
+        for e in entries:
+            if e["rule"] == f.rule and e["snippet"] == f.snippet \
+                    and _label_match(e.get("label", "*"), f.path):
+                f = dataclasses.replace(f, suppressed=True,
+                                        reason=e["reason"])
+                break
+        out.append(f)
+    return out
+
+
+def _label_match(pattern: str, label: str) -> bool:
+    """``*`` matches any text; everything else (brackets too) literally."""
+    rx = ".*".join(re.escape(part) for part in pattern.split("*"))
+    return re.fullmatch(rx, label) is not None

@@ -37,6 +37,7 @@ import os
 import time
 from typing import Callable, Optional
 
+from dhqr_tpu_torch.analysis import oplog as _oplog
 from dhqr_tpu_torch.obs import netmodel as _net
 from dhqr_tpu_torch.utils import lockwitness as _lockwitness
 
@@ -570,6 +571,8 @@ def observed_dispatch(label: str, thunk: Callable[[], object], *,
     returned either way. ``device`` (no mesh) is what :func:`measure`
     profiles: None is the card. ``on_report(report)`` fires once, after
     the capture; its failure costs the pairing, never the dispatch."""
+    if _oplog.ARMED is not None:  # the op log's shard body
+        thunk = _oplog.scoped(f"shard:{label}", thunk)
     store = _ACTIVE
     if store is None:
         return thunk()

@@ -54,6 +54,11 @@ __all__ = [
 #: Why the port's measured side has no byte count.
 BYTES_REASON = ("torch.profiler counts no bytes moved by a kernel, so the "
                 "program has no measured bytes accessed")
+#: The roofline's basis on a device whose peak is known: the profiler
+#: counts no bytes, so the intensity is over the key's analytic bytes.
+ANALYTIC_BYTES_REASON = ("intensity over the key's analytic bytes (each "
+                         "input read once, each output written once): "
+                         "torch.profiler counts no bytes moved")
 #: Why a CPU program has no measured side.
 CPU_REASON = ("the CPU runs the bucket program eagerly: nothing is "
               "captured, so no profiled capture run exists")
@@ -73,7 +78,9 @@ class XrayReport:
     capture; each is None with its reason in ``measured_unavailable`` /
     ``memory_unavailable``. ``analytic_flops`` is the closed-form
     useful-work count of the key. Roofline fields need a measured byte
-    count, which the profiler does not give: ``roofline_bound`` is None
+    count, which the profiler does not give: on a device whose peak and
+    bandwidth are known the intensity is over the key's analytic bytes
+    (``roofline_reason`` says so), elsewhere ``roofline_bound`` is None
     and ``roofline_reason`` says why. :meth:`mfu` and
     :meth:`achieved_gflops` pair the report with measured seconds (the
     profiled run's ``device_seconds``)."""
@@ -200,6 +207,23 @@ def _analytic_for_key(key) -> "float | None":
     return None
 
 
+def _analytic_bytes_for_key(key) -> "int | None":
+    """The least bytes a serve key's program moves: its inputs read once
+    and its outputs written once (qr: A in, H and alpha out; lstsq and
+    sketch: A and b in, x out), at the key's dtype; None for other keys."""
+    kind = getattr(key, "kind", None)
+    batch = getattr(key, "batch", None)
+    m, n = getattr(key, "m", None), getattr(key, "n", None)
+    if None in (kind, batch, m, n):
+        return None
+    itemsize = {"float32": 4, "float64": 8, "complex64": 8,
+                "complex128": 16}.get(str(getattr(key, "dtype", "")))
+    if itemsize is None:
+        return None
+    words = 2 * m * n + n if kind == "qr" else m * n + m + n
+    return batch * words * itemsize
+
+
 def _kernel_class(name: str) -> str:
     """The class of one CUDA kernel, by its name."""
     low = name.lower()
@@ -295,6 +319,12 @@ def report_for(key, compiled, *, analytic_flops: "float | None" = None,
     bw = device_hbm_gbps(device_kind) if device_kind else None
     intensity, ridge, bound, roof_reason, ceiling = _roofline(
         analytic_flops, measured, peak, bw)
+    nbytes = _analytic_bytes_for_key(key)
+    if bound is None and peak and bw and nbytes \
+            and not (measured or {}).get("bytes accessed"):
+        intensity, ridge, bound, _, ceiling = _roofline(
+            analytic_flops, {"bytes accessed": nbytes}, peak, bw)
+        roof_reason = ANALYTIC_BYTES_REASON
     return XrayReport(
         key=str(key), analytic_flops=analytic_flops, measured=measured,
         memory=memory, measured_unavailable=reason,

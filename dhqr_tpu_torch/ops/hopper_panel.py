@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dhqr_tpu_torch.analysis import oplog as _oplog
 from dhqr_tpu_torch.ops import _build, gemm
 from dhqr_tpu_torch.utils.config import refuse_grad
 
@@ -370,7 +371,11 @@ def _panel_qr_plain_leaf(panel: torch.Tensor, offset: int,
     launches nothing and counts nothing."""
     del sms
     at = panel.T.contiguous()
-    return at.T, _PLAIN[panel.dtype](at, int(offset))
+    alpha = _PLAIN[panel.dtype](at, int(offset))
+    if _oplog.ARMED is not None:
+        _oplog.kernel(KERNELS[panel.dtype], "plain", panel.shape,
+                      panel.dtype, offset)
+    return at.T, alpha
 
 
 # -- the kernels ------------------------------------------------------------
@@ -521,6 +526,10 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
         alpha = _PLAIN[panel.dtype](at, int(offset))
     else:
         raise KernelRefusal(f"no panel kernel for device {panel.device}")
+    if _oplog.ARMED is not None:  # the op log's pallas_call eqn
+        _oplog.kernel(KERNELS[panel.dtype],
+                      "kernel" if panel.device.type == "cuda" else "plain",
+                      panel.shape, panel.dtype, offset)
     return at.T, alpha
 
 

@@ -87,6 +87,7 @@ from typing import Iterator
 import torch
 import torch.distributed as dist
 
+from dhqr_tpu_torch.analysis import oplog as _oplog
 from dhqr_tpu_torch.faults import harness as _faults
 from dhqr_tpu_torch.parallel.topology import TierAxes
 from dhqr_tpu_torch.precision import COMMS_MODES, WIRE_ITEMSIZE, resolve_comms
@@ -834,8 +835,11 @@ def wire_all_gather(x: torch.Tensor, mesh, comms=None, *, dim: int = 0,
     if isinstance(axis, TierAxes) and not relayout:
         shares = _tier_gather([x], mesh, axis, comms)
         return _ready(torch.cat([s[0] for s in shares], dim), async_op)
-    out = _gather_leg([x], mesh, comms, "flat", False, faults=not relayout,
-                      async_op=async_op)
+    # the op log files the relayout apart: the JAX package's output
+    # sharding, done outside its program
+    with _oplog.scope("relayout") if relayout else contextlib.nullcontext():
+        out = _gather_leg([x], mesh, comms, "flat", False,
+                          faults=not relayout, async_op=async_op)
     return _then(out, lambda shares: torch.cat([s[0] for s in shares], dim))
 
 

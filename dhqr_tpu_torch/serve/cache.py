@@ -87,6 +87,7 @@ import torch
 
 from dhqr_tpu_torch.faults import harness as _faults
 from dhqr_tpu_torch.obs import metrics as _obs_metrics
+from dhqr_tpu_torch.analysis import oplog as _oplog
 from dhqr_tpu_torch.obs import xray as _obs_xray
 from dhqr_tpu_torch.serve.errors import CompileFailed, Quarantined
 from dhqr_tpu_torch.utils import lockwitness as _lockwitness
@@ -349,7 +350,8 @@ class LoweredProgram:
                 # dhqr: ignore[DHQR603] same capture, held across capture_begin/capture_end
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    out = self.fn(*static)
+                    with _oplog.scope("capture"):  # the graph's body
+                        out = self.fn(*static)
                 finally:
                     # dhqr: ignore[DHQR603] same capture, held across capture_begin/capture_end
                     graph.capture_end()

@@ -10,15 +10,15 @@ grid's axes (:data:`GRID_ALT_ENGINES`, :data:`GRID_MESH_LEVERS`,
 the benchmark stage catalogue (:data:`BENCH_STAGES`). Route names, grid
 axes and stages are the JAX package's.
 
-The JAX registry also carries each route's analysis hooks (its jaxpr
-trace specs, comms-audit spec and contract, serve-key probe cells and
-donation entry) for its lint passes. Those passes are not ported: the
-hook fields are absent here, and the queries over them
-(:func:`jaxpr_routes`, :func:`comms_routes`, :func:`contract_names`,
-:func:`serve_routes`, :func:`donated_routes`) raise
-:class:`~dhqr_tpu_torch.utils.config.NotPortedError` naming ROADMAP
-Queue A item 18b (the graph passes; the source passes of item 18a read
-no route).
+Each route also carries its analysis hooks (all declarative, as in the
+JAX registry): ``jaxpr`` trace specs (the builders of
+``analysis/jaxpr_pass``, which runs them under the op log), a
+``comms_trace`` spec and the ``contract`` row of
+``analysis/comms_contracts.json`` its collective census is priced
+against, ``serve`` cache-key probe cells (DHQR503) and the ``donation``
+probe of ``analysis/comms_pass._donation_entries`` (DHQR304 / DHQR504).
+:func:`jaxpr_routes`, :func:`comms_routes`, :func:`contract_names`,
+:func:`serve_routes` and :func:`donated_routes` are the passes' queries.
 
 Not route-distinguishing by design: ``block_size`` (a ladder knob — the
 same program schedule at every rung), ``trailing_precision`` (rule 4
@@ -29,9 +29,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from dhqr_tpu_torch.precision import COMMS_MODES
+from dhqr_tpu_torch.precision import COMMS_MODES, PrecisionPolicy
 from dhqr_tpu_torch.tune.plan import PLAN_ENGINES, Plan
-from dhqr_tpu_torch.utils.config import NotPortedError
 
 #: The tune-DB kinds: the serve kinds never route engines, they batch the
 #: blocked householder engine / the sketched program.
@@ -77,16 +76,31 @@ GRID_DCN_PLANS = ({"comms": "dcn:bf16"}, {"comms": "dcn:int8"})
 #: Rule-6c alt-engine tiered rungs.
 GRID_ALT_DCN = (("tsqr", "dcn:bf16"),)
 
-_HOOKS_ITEM = "Queue A item 18b (the registry's analysis hooks)"
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Route:
-    """One execution route, by its identity: engine ``family``, ``kind``,
-    ``schedule``, ``panel_impl``, ``comms`` rung, the schedule levers
-    (``layout``, ``lookahead``, ``agg_panels``, ``overlap_depth``), the
-    dispatch mode (``donated``, ``batched``) and its reachability
-    (``min_devices``, ``presets``)."""
+    """One execution route. Identity per the atlas contract: (engine
+    ``family``, ``panel_impl``, ``comms`` rung, ``schedule`` +
+    ``layout``/``lookahead``/``agg_panels`` schedule levers,
+    ``donated``/``batched`` dispatch mode).
+
+    Per-subsystem hooks (all optional, all declarative):
+
+    * ``jaxpr`` — tuple of run specs ``{"label": ..., "builder": ...,
+      "axes": (...), **kwargs}`` the jaxpr pass runs under the op log.
+    * ``contract`` + ``comms_trace`` — the comms-audit engine spec;
+      ``contract`` names the ``comms_contracts.json`` row the logged
+      census is priced against (DHQR502 keeps the two bijective).
+    * ``serve`` — cache-key probe cells ``{"kind": ..., "cells":
+      (overrides, ...)}`` DHQR503 mints CacheKeys for; any two cells
+      (across all routes) colliding on one key must run identical
+      programs. The nb-pinned twin cells exist so dropping a key field
+      (the classic recompile-hazard edit) produces a collision whose
+      programs genuinely differ at the probe bucket.
+    * ``donation`` — the ``analysis/comms_pass._donation_entries`` label
+      of the probe that runs this route's donated dispatch (DHQR304,
+      DHQR504).
+    """
 
     name: str
     family: str                       # one of PLAN_ENGINES + internals
@@ -102,93 +116,227 @@ class Route:
     batched: bool = False
     min_devices: int = 1
     presets: str = "all"              # "all" | "accurate"
+    contract: "str | None" = None
+    jaxpr: "tuple[dict, ...]" = ()
+    comms_trace: "dict | None" = None
+    serve: "dict | None" = None
+    donation: "str | None" = None
 
 
 _FAMILIES = tuple(PLAN_ENGINES) + ("update", "solve")
 _SCHEDULES = ("single", "column", "row", "batched", "pod")
 
+
+def _j(label, builder, axes=(), **kw):
+    """One jaxpr trace spec (see Route.jaxpr)."""
+    return dict(label=label, builder=builder, axes=tuple(axes), **kw)
+
+
 ROUTES: "tuple[Route, ...]" = (
     # -- single-device API tier --------------------------------------------
-    Route("householder_single", "householder", "qr", "single"),
+    Route("householder_single", "householder", "qr", "single",
+          jaxpr=(_j("qr[{preset}]", "api_qr"),
+                 _j("lstsq[{preset}]", "api_lstsq"))),
     Route("householder_recursive", "householder", "lstsq", "single",
-          panel_impl="recursive"),
+          panel_impl="recursive",
+          jaxpr=(_j("lstsq_plan[{preset}]", "api_lstsq_plan",
+                    plan=Plan(block_size=4, panel_impl="recursive")),)),
+    # Round 21: the reconstruct panel interior gets its own trace — it
+    # was a grid candidate (rule 3) with no jaxpr coverage before the
+    # registry forced the question.
     Route("householder_reconstruct", "householder", "lstsq", "single",
-          panel_impl="reconstruct", presets="accurate"),
+          panel_impl="reconstruct", presets="accurate",
+          jaxpr=(_j("lstsq_plan_reconstruct", "api_lstsq_plan",
+                    plan=Plan(block_size=4, panel_impl="reconstruct")),)),
     Route("lstsq_auto_engine", "householder", "lstsq", "single",
-          presets="accurate"),
-    Route("tsqr_plan", "tsqr", "lstsq", "single", presets="accurate"),
-    Route("cholqr2_plan", "cholqr2", "lstsq", "single", presets="accurate"),
-    Route("tsqr_r_single", "tsqr", "qr", "single"),
-    Route("cholesky_qr2_single", "cholqr2", "qr", "single"),
-    Route("sketched_lstsq", "sketch", "lstsq", "single"),
-    Route("update_solve", "update", "solve", "single"),
-    Route("update_rank1", "update", "update", "single"),
-    Route("blocked_qr_donate", "householder", "qr", "single", donated=True),
+          presets="accurate",
+          jaxpr=(_j("lstsq_tall", "api_lstsq", tall=True),)),
+    Route("tsqr_plan", "tsqr", "lstsq", "single", presets="accurate",
+          jaxpr=(_j("lstsq_plan_tsqr", "api_lstsq_plan",
+                    plan=Plan(engine="tsqr"), tall=True),)),
+    Route("cholqr2_plan", "cholqr2", "lstsq", "single", presets="accurate",
+          jaxpr=(_j("lstsq_plan_cholqr2", "api_lstsq_plan",
+                    plan=Plan(engine="cholqr2"), tall=True),)),
+    Route("tsqr_r_single", "tsqr", "qr", "single",
+          jaxpr=(_j("tsqr_r[{preset}]", "tsqr_r"),)),
+    Route("cholesky_qr2_single", "cholqr2", "qr", "single",
+          jaxpr=(_j("cholesky_qr2[{preset}]", "cholesky_qr2"),)),
+    Route("sketched_lstsq", "sketch", "lstsq", "single",
+          jaxpr=(_j("sketched_lstsq[{preset}]", "sketched"),)),
+    Route("update_solve", "update", "solve", "single",
+          jaxpr=(_j("update_solve[{preset}]", "update_solve"),)),
+    Route("update_rank1", "update", "update", "single",
+          jaxpr=(_j("update_rank1[{preset}]", "update_rank1"),)),
+    Route("blocked_qr_donate", "householder", "qr", "single", donated=True,
+          donation="ops/blocked.blocked_householder_qr[donate]"),
     # -- serving tier (batched bucket programs) ----------------------------
-    Route("batched_lstsq", "householder", "lstsq", "batched", batched=True),
+    Route("batched_lstsq", "householder", "lstsq", "batched", batched=True,
+          contract="batched_lstsq",
+          jaxpr=(_j("batched_lstsq[{preset}]", "bucket", kind="lstsq"),),
+          comms_trace=dict(builder="bucket_sharded", shape="batch",
+                           sweep=True),
+          serve=dict(kind="lstsq", cells=({}, {"block_size": 64}))),
     Route("batched_lstsq_recursive", "householder", "lstsq", "batched",
-          panel_impl="recursive", batched=True),
+          panel_impl="recursive", batched=True,
+          serve=dict(kind="lstsq",
+                     cells=({"panel_impl": "recursive",
+                             "block_size": 64},))),
     Route("batched_lstsq_wire_bf16", "householder", "lstsq", "batched",
-          comms="bf16", batched=True),
+          comms="bf16", batched=True, contract="batched_lstsq",
+          comms_trace=dict(builder="bucket_sharded", shape="batch",
+                           label="batched_lstsq_wire_bf16",
+                           policy=PrecisionPolicy(comms="bf16")),
+          # cfg.comms is deliberately NOT a serve key field (the bucket
+          # programs launch zero collectives) — this cell must collide
+          # with batched_lstsq's key AND trace to the identical program.
+          serve=dict(kind="lstsq",
+                     cells=({"policy": PrecisionPolicy(comms="bf16")},))),
     Route("batched_qr", "householder", "qr", "batched", donated=True,
-          batched=True),
+          batched=True, donation="ops/blocked._batched_qr_impl",
+          jaxpr=(_j("batched_qr[{preset}]", "bucket", kind="qr"),),
+          serve=dict(kind="qr", cells=({}, {"block_size": 64}))),
     Route("batched_qr_recursive", "householder", "qr", "batched",
-          panel_impl="recursive", donated=True, batched=True),
-    Route("async_lstsq", "householder", "lstsq", "batched", batched=True),
-    Route("batched_sketch", "sketch", "lstsq", "batched", batched=True),
+          panel_impl="recursive", donated=True, batched=True,
+          serve=dict(kind="qr",
+                     cells=({"panel_impl": "recursive",
+                             "block_size": 64},))),
+    Route("async_lstsq", "householder", "lstsq", "batched", batched=True,
+          jaxpr=(_j("async_lstsq[{preset}]", "async_bucket"),)),
+    Route("batched_sketch", "sketch", "lstsq", "batched", batched=True,
+          jaxpr=(_j("batched_sketch[{preset}]", "bucket", kind="sketch"),),
+          serve=dict(kind="sketch", cells=({},))),
     # -- sharded column tier -----------------------------------------------
-    Route("unblocked_qr", "householder", "qr", "column", min_devices=2),
-    Route("blocked_qr", "householder", "qr", "column", min_devices=2),
+    Route("unblocked_qr", "householder", "qr", "column", min_devices=2,
+          contract="unblocked_qr",
+          jaxpr=(_j("sharded_householder_qr[{preset}]", "sharded_unblocked",
+                    axes=("cols",)),),
+          comms_trace=dict(builder="unblocked", shape="col")),
+    Route("blocked_qr", "householder", "qr", "column", min_devices=2,
+          contract="blocked_qr",
+          jaxpr=(_j("sharded_blocked_qr[{preset}]", "sharded_blocked",
+                    axes=("cols",)),),
+          comms_trace=dict(builder="blocked", shape="col", sweep=True)),
     Route("blocked_qr_cyclic", "householder", "qr", "column",
-          layout="cyclic", min_devices=2),
+          layout="cyclic", min_devices=2, contract="blocked_qr_cyclic",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           layout="cyclic")),
     Route("blocked_qr_lookahead", "householder", "qr", "column",
-          lookahead=True, min_devices=2),
+          lookahead=True, min_devices=2, contract="blocked_qr_lookahead",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           lookahead=True)),
+    # Round 23 (dhqr-pipeline): the depth-k double-buffered panel
+    # broadcast — identical per-column arithmetic and launch count to
+    # the lookahead schedule, with k panel broadcasts in flight ahead of
+    # the trailing GEMM (the pf psum frames are up to depth*nb rows of R
+    # taller; the blocked_qr slack absorbs that like it absorbs
+    # lookahead's one-panel-taller frame).
     Route("blocked_qr_pipeline2", "householder", "qr", "column",
-          lookahead=True, overlap_depth=2, min_devices=2),
+          lookahead=True, overlap_depth=2, min_devices=2,
+          contract="blocked_qr_pipeline2",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           lookahead=True, overlap_depth=2)),
     Route("blocked_qr_pipeline4", "householder", "qr", "column",
-          lookahead=True, overlap_depth=4, min_devices=2),
+          lookahead=True, overlap_depth=4, min_devices=2,
+          contract="blocked_qr_pipeline4",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           lookahead=True, overlap_depth=4)),
     Route("blocked_qr_agg", "householder", "qr", "column", agg_panels=2,
-          min_devices=2),
+          min_devices=2, contract="blocked_qr_agg",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           agg_panels=2)),
     Route("blocked_qr_agg_lookahead", "householder", "qr", "column",
-          agg_panels=2, lookahead=True, min_devices=2),
-    Route("lstsq_mesh", "householder", "lstsq", "column", min_devices=2),
-    Route("sharded_solve", "solve", "solve", "column", min_devices=2),
-    Route("tsqr_lstsq", "tsqr", "lstsq", "row", min_devices=2),
-    Route("cholqr_lstsq", "cholqr2", "lstsq", "row", min_devices=2),
-    # -- compressed wire rungs ---------------------------------------------
+          agg_panels=2, lookahead=True, min_devices=2,
+          contract="blocked_qr_agg_lookahead",
+          comms_trace=dict(builder="blocked", shape="col", sweep=True,
+                           agg_panels=2, lookahead=True)),
+    Route("lstsq_mesh", "householder", "lstsq", "column", min_devices=2,
+          jaxpr=(_j("lstsq_mesh[{preset}]", "lstsq_mesh",
+                    axes=("cols",)),)),
+    Route("sharded_solve", "solve", "solve", "column", min_devices=2,
+          contract="sharded_solve",
+          comms_trace=dict(builder="solve", shape="col")),
+    Route("tsqr_lstsq", "tsqr", "lstsq", "row", min_devices=2,
+          contract="tsqr_lstsq",
+          jaxpr=(_j("sharded_tsqr_lstsq[{preset}]", "sharded_tsqr",
+                    axes=("rows",)),),
+          comms_trace=dict(builder="tsqr", shape="row")),
+    Route("cholqr_lstsq", "cholqr2", "lstsq", "row", min_devices=2,
+          contract="cholqr_lstsq",
+          jaxpr=(_j("sharded_cholqr_lstsq[{preset}]", "sharded_cholqr",
+                    axes=("rows",)),),
+          comms_trace=dict(builder="cholqr", shape="row")),
+    # -- compressed wire rungs (dhqr-wire, round 18) -----------------------
     Route("blocked_qr_wire_bf16", "householder", "qr", "column",
-          comms="bf16", min_devices=2),
+          comms="bf16", min_devices=2, contract="blocked_qr_wire_bf16",
+          comms_trace=dict(builder="blocked", shape="col", comms="bf16")),
     Route("blocked_qr_wire_int8", "householder", "qr", "column",
-          comms="int8", min_devices=2),
+          comms="int8", min_devices=2, contract="blocked_qr_wire_int8",
+          comms_trace=dict(builder="blocked", shape="col", comms="int8")),
     Route("blocked_qr_agg_wire_bf16", "householder", "qr", "column",
-          agg_panels=2, comms="bf16", min_devices=2),
+          agg_panels=2, comms="bf16", min_devices=2,
+          contract="blocked_qr_agg_wire_bf16",
+          comms_trace=dict(builder="blocked", shape="col", agg_panels=2,
+                           comms="bf16")),
+    # Round 23: the pipeline ring runs THROUGH the round-18 wire seam —
+    # one traced rung proves compressed broadcasts pipeline too (the
+    # contract's slack is widened to absorb the ring's taller psum
+    # frames on top of the bf16 wire budget; see comms_contracts.json).
     Route("blocked_qr_pipeline2_wire_bf16", "householder", "qr", "column",
-          comms="bf16", lookahead=True, overlap_depth=2, min_devices=2),
+          comms="bf16", lookahead=True, overlap_depth=2, min_devices=2,
+          contract="blocked_qr_pipeline2_wire_bf16",
+          comms_trace=dict(builder="blocked", shape="col", comms="bf16",
+                           lookahead=True, overlap_depth=2)),
     Route("unblocked_qr_wire_bf16", "householder", "qr", "column",
-          comms="bf16", min_devices=2),
+          comms="bf16", min_devices=2, contract="unblocked_qr_wire_bf16",
+          comms_trace=dict(builder="unblocked", shape="col", comms="bf16")),
     Route("sharded_solve_wire_bf16", "solve", "solve", "column",
-          comms="bf16", min_devices=2),
+          comms="bf16", min_devices=2, contract="sharded_solve_wire_bf16",
+          comms_trace=dict(builder="solve", shape="col", comms="bf16")),
     Route("tsqr_lstsq_wire_bf16", "tsqr", "lstsq", "row", comms="bf16",
-          min_devices=2),
+          min_devices=2, contract="tsqr_lstsq_wire_bf16",
+          comms_trace=dict(builder="tsqr", shape="row", comms="bf16")),
     Route("tsqr_lstsq_wire_int8", "tsqr", "lstsq", "row", comms="int8",
-          min_devices=2),
+          min_devices=2, contract="tsqr_lstsq_wire_int8",
+          comms_trace=dict(builder="tsqr", shape="row", comms="int8")),
     Route("cholqr_lstsq_wire_bf16", "cholqr2", "lstsq", "row",
-          comms="bf16", min_devices=2),
-    # -- two-tier pod tier -------------------------------------------------
-    Route("unblocked_qr_pod", "householder", "qr", "pod", min_devices=4),
+          comms="bf16", min_devices=2, contract="cholqr_lstsq_wire_bf16",
+          comms_trace=dict(builder="cholqr", shape="row", comms="bf16")),
+    # -- two-tier pod tier (dhqr-pod, round 20) ----------------------------
+    Route("unblocked_qr_pod", "householder", "qr", "pod", min_devices=4,
+          contract="unblocked_qr_pod",
+          comms_trace=dict(builder="unblocked", shape="col", pod=True)),
     Route("blocked_qr_pod", "householder", "qr", "pod", min_devices=4,
-          presets="accurate"),
-    Route("sharded_solve_pod", "solve", "solve", "pod", min_devices=4),
-    Route("tsqr_lstsq_pod", "tsqr", "lstsq", "pod", min_devices=4),
-    Route("cholqr_lstsq_pod", "cholqr2", "lstsq", "pod", min_devices=4),
+          presets="accurate", contract="blocked_qr_pod",
+          jaxpr=(_j("sharded_blocked_qr_pod", "sharded_blocked",
+                    axes=("dcn", "ici"), pod=True),),
+          comms_trace=dict(builder="blocked", shape="col", pod=True)),
+    Route("sharded_solve_pod", "solve", "solve", "pod", min_devices=4,
+          contract="sharded_solve_pod",
+          comms_trace=dict(builder="solve", shape="col", pod=True)),
+    Route("tsqr_lstsq_pod", "tsqr", "lstsq", "pod", min_devices=4,
+          contract="tsqr_lstsq_pod",
+          comms_trace=dict(builder="tsqr", shape="row", pod=True)),
+    Route("cholqr_lstsq_pod", "cholqr2", "lstsq", "pod", min_devices=4,
+          contract="cholqr_lstsq_pod",
+          comms_trace=dict(builder="cholqr", shape="row", pod=True)),
     Route("sharded_solve_pod_dcn_bf16", "solve", "solve", "pod",
-          comms="dcn:bf16", min_devices=4),
+          comms="dcn:bf16", min_devices=4,
+          contract="sharded_solve_pod_dcn_bf16",
+          comms_trace=dict(builder="solve", shape="col", pod=True,
+                           comms="dcn:bf16")),
     Route("tsqr_lstsq_pod_dcn_bf16", "tsqr", "lstsq", "pod",
-          comms="dcn:bf16", min_devices=4),
+          comms="dcn:bf16", min_devices=4,
+          contract="tsqr_lstsq_pod_dcn_bf16",
+          comms_trace=dict(builder="tsqr", shape="row", pod=True,
+                           comms="dcn:bf16")),
     Route("lstsq_pod_dcn_bf16", "householder", "lstsq", "pod",
-          comms="dcn:bf16", min_devices=4, presets="accurate"),
+          comms="dcn:bf16", min_devices=4, presets="accurate",
+          jaxpr=(_j("lstsq_pod[dcn:bf16]", "lstsq_pod",
+                    axes=("dcn", "ici"), mode="dcn:bf16"),)),
     Route("lstsq_pod_dcn_int8", "householder", "lstsq", "pod",
-          comms="dcn:int8", min_devices=4, presets="accurate"),
+          comms="dcn:int8", min_devices=4, presets="accurate",
+          jaxpr=(_j("lstsq_pod[dcn:int8]", "lstsq_pod",
+                    axes=("dcn", "ici"), mode="dcn:int8"),)),
 )
 
 
@@ -220,29 +368,51 @@ def reachable(r: Route, devices: int = 1, preset: str = "accurate") -> bool:
     return True
 
 
-def jaxpr_routes(preset: str, devices: int = 1):
-    """The JAX package's jaxpr-pass route query: not ported."""
-    raise NotPortedError("tune.registry.jaxpr_routes", _HOOKS_ITEM)
+def jaxpr_routes(preset: str, devices: int = 1) -> "list[Route]":
+    """Routes the jaxpr pass runs under ``preset`` with ``devices`` ranks.
+    The mesh engines run on a 1-rank mesh there (that blind spot is the
+    comms pass's reason to exist), so only the pod routes — which need a
+    real 2x2 factorization — carry a device floor for this pass."""
+    out = []
+    for r in ROUTES:
+        if not r.jaxpr:
+            continue
+        if r.presets == "accurate" and preset != "accurate":
+            continue
+        if r.schedule == "pod" and devices < r.min_devices:
+            continue
+        out.append(r)
+    return out
 
 
-def comms_routes(P: int, sweep: bool):
-    """The JAX package's comms-audit route query: not ported."""
-    raise NotPortedError("tune.registry.comms_routes", _HOOKS_ITEM)
+def comms_routes(P: int, sweep: bool) -> "list[Route]":
+    """Routes the comms audit runs at mesh size ``P``; ``sweep`` selects
+    the preset-parameterized half of the matrix (see the comms pass's
+    module docstring)."""
+    out = []
+    for r in ROUTES:
+        spec = r.comms_trace
+        if spec is None or bool(spec.get("sweep")) != sweep:
+            continue
+        if P < r.min_devices:
+            continue
+        out.append(r)
+    return out
 
 
-def contract_names():
-    """The JAX package's comms-contract names: not ported."""
-    raise NotPortedError("tune.registry.contract_names", _HOOKS_ITEM)
+def contract_names() -> "set[str]":
+    """Every comms_contracts.json row some registered route prices its
+    census against — DHQR502 requires this to equal the committed file's
+    row set exactly."""
+    return {r.contract for r in ROUTES if r.contract}
 
 
-def serve_routes():
-    """The JAX package's serve-key probe routes: not ported."""
-    raise NotPortedError("tune.registry.serve_routes", _HOOKS_ITEM)
+def serve_routes() -> "list[Route]":
+    return [r for r in ROUTES if r.serve is not None]
 
 
-def donated_routes():
-    """The JAX package's donation-audit routes: not ported."""
-    raise NotPortedError("tune.registry.donated_routes", _HOOKS_ITEM)
+def donated_routes() -> "list[Route]":
+    return [r for r in ROUTES if r.donated]
 
 
 def grid_route_for(kind: str, plan: Plan, nproc: int = 1) -> "str | None":
@@ -353,8 +523,9 @@ def bench_stages() -> "tuple[BenchStage, ...]":
 
 
 def self_check() -> "list[str]":
-    """Registry-internal invariants (the JAX package's, less those of the
-    analysis hooks): human-readable problem strings, empty when healthy."""
+    """Registry-internal invariants (the JAX package's): human-readable
+    problem strings, empty when healthy. The atlas pass turns them into
+    DHQR501 findings and the dry run's atlas stage asserts on them."""
     problems = []
     names = [r.name for r in ROUTES]
     for name in sorted({n for n in names if names.count(n) > 1}):
@@ -391,6 +562,38 @@ def self_check() -> "list[str]":
                     f"{where}: overlap_depth is mutually exclusive with "
                     "agg_panels (the aggregated schedule groups panels "
                     "its own way)")
+        if r.comms_trace is not None and not r.contract:
+            problems.append(
+                f"{where}: comms-traced routes must name a contract")
+        if r.contract and r.comms_trace is None:
+            problems.append(
+                f"{where}: names contract {r.contract!r} but carries no "
+                "comms_trace spec to price it with")
+        for spec in r.jaxpr:
+            if "label" not in spec or "builder" not in spec:
+                problems.append(
+                    f"{where}: jaxpr spec needs 'label' and 'builder'")
+        if r.serve is not None:
+            if r.serve.get("kind") not in SERVE_PROGRAM_KINDS:
+                problems.append(
+                    f"{where}: serve cell kind must be one of "
+                    f"{SERVE_PROGRAM_KINDS}")
+            if not r.serve.get("cells"):
+                problems.append(
+                    f"{where}: serve spec needs at least one probe cell")
+        if r.donated and not (r.donation or r.serve):
+            problems.append(
+                f"{where}: donated routes must name their donation entry")
+        # Every route must be auditable by SOMETHING — a record no pass
+        # consumes is exactly the unaudited-route drift the atlas exists
+        # to prevent (DHQR501 reports these through the lint gate too).
+        if not (r.jaxpr or r.comms_trace or r.serve or r.donation):
+            problems.append(
+                f"{where}: no audit surface (jaxpr, comms_trace, serve "
+                "or donation)")
+    labels = [spec["label"] for r in ROUTES for spec in r.jaxpr]
+    for lab in sorted({l for l in labels if labels.count(l) > 1}):
+        problems.append(f"duplicate jaxpr trace label {lab!r}")
     configs = [s.config for s in BENCH_STAGES]
     for c in sorted({c for c in configs if configs.count(c) > 1}):
         problems.append(f"duplicate bench stage config {c}")

@@ -480,14 +480,17 @@ def test_cli_fast_self_scan_is_green(capsys):
     assert "0 finding(s)" in capsys.readouterr().err
 
 
-def test_cli_graph_passes_raise_naming_item_18b():
-    from dhqr_tpu_torch.utils.config import NotPortedError
-
+def test_cli_graph_passes_raise_naming_item_18b(tmp_path):
+    """Item 18b landed: the interim flags that raised are gone (argparse
+    refuses them), the JAX CLI's ``--no-*`` flags skip the graph passes,
+    and no pass raises ``NotPortedError``."""
+    good = tmp_path / "good.py"
+    good.write_text(DHQR003_GOOD)
     for flag in ("--jaxpr", "--comms", "--atlas", "--xray", "--pulse"):
-        with pytest.raises(NotPortedError, match="item 18b"):
-            cli.main(["check", "--fast", flag])
-    with pytest.raises(NotPortedError, match="item 18b"):
-        cli.main(["comms"])
+        with pytest.raises(SystemExit):
+            cli.main(["check", str(good), flag])
+        assert cli.main(["check", str(good), "--no-" + flag[2:]]) == 0
+    assert not hasattr(cli, "PENDING_PASSES")
 
 
 def test_list_rules(capsys):
@@ -495,7 +498,10 @@ def test_list_rules(capsys):
     rules = [line.split()[0] for line in
              capsys.readouterr().out.splitlines()]
     assert rules == sorted(rules)
+    graph = {f"DHQR{i}" for i in (101, 102, 103, 104, 301, 302, 303, 304,
+                                  305, 306, 401, 402, 501, 502, 503, 504,
+                                  505)}
     assert {f"DHQR{i:03d}" for i in range(11)} | {"DHQR201", "DHQR202",
                                                   "DHQR601", "DHQR602",
                                                   "DHQR603", "DHQR604"} \
-        == set(rules)
+        | graph == set(rules)

@@ -172,11 +172,6 @@ _METHODS_NOT_TWINNED = {
     ("dhqr_tpu.QRFactorization", "tree_flatten"),
     ("dhqr_tpu.QRFactorization", "tree_unflatten"),
 }
-# The tune registry's analysis fields wait for ROADMAP Queue A item 18.
-_ROUTE_ANALYSIS_FIELDS = ["contract", "jaxpr", "comms_trace", "serve",
-                          "donation"]
-
-
 def _params(fn):
     return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()]
 
@@ -202,8 +197,6 @@ def test_public_methods_take_the_reference_parameters(path, theirs, mine):
         except (TypeError, ValueError):
             continue  # a builtin slot with no signature
         got = _params(getattr(mine, attr))
-        if path == "dhqr_tpu.tune.Route" and attr == "__init__":
-            ref = [p for p in ref if p[0] not in _ROUTE_ANALYSIS_FIELDS]
         if got == ref:
             continue
         var_kw = [p for p in ref if p[1] is inspect.Parameter.VAR_KEYWORD]

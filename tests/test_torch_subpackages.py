@@ -7,10 +7,10 @@ with a stub that raises ``NotPortedError`` and says why. The walk covers
 the sub-packages ``ops``, ``parallel``, ``serve``, ``solvers``, ``utils``,
 ``obs``, ``tune``, ``armor``, ``numeric``, ``faults``, ``models`` and
 ``analysis``, and the CLI modules ``harness`` and ``_dryrun``. In
-``analysis`` the source passes of ROADMAP item 18a are twins; every name of
-the graph passes (``jaxpr_pass``, ``comms_pass``, ``cost_model``,
-``atlas``, ``pulse_smoke``, ``xray_smoke``) is a stub at its path that
-raises ``NotPortedError`` naming item 18b.
+``analysis`` the source passes of ROADMAP item 18a and the graph passes of
+item 18b (``jaxpr_pass``, ``comms_pass``, ``cost_model``, ``atlas``,
+``pulse_smoke``, ``xray_smoke``) are twins: no name is a stub that waits
+for an item.
 
 The helpers that came with the walk are held to their JAX twins on the
 same numpy inputs: ``random_problem`` bit for bit, ``accurate_sumsq`` /
@@ -46,7 +46,7 @@ ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
 
 SUBPACKAGES = ("ops", "parallel", "serve", "solvers", "utils", "obs",
                "tune", "armor", "numeric", "faults", "models", "analysis")
-# The graph passes of analysis/ (ROADMAP item 18b): stubs naming the item.
+# The graph passes of analysis/ (ROADMAP item 18b): ported, no stubs.
 PENDING_18B = ("jaxpr_pass", "comms_pass", "cost_model", "atlas",
                "pulse_smoke", "xray_smoke")
 
@@ -135,14 +135,20 @@ def test_not_ported_by_design_stubs_raise_with_the_reason(path):
 
 @pytest.mark.parametrize("module", PENDING_18B)
 def test_graph_pass_names_are_stubs_naming_item_18b(module):
+    """Item 18b is ported: every public name of the graph passes is a
+    function of the port's own analysis modules (none a stub), and the
+    stub factory that named the item is gone."""
     theirs = importlib.import_module(f"dhqr_tpu.analysis.{module}")
     mine = importlib.import_module(f"dhqr_tpu_torch.analysis.{module}")
     names = _public_names(theirs)
     assert names, module
     for name in names:
-        with pytest.raises(NotPortedError, match="item 18b") as err:
-            getattr(mine, name)()
-        assert err.value.reason is None, name  # pending, not by design
+        fn = getattr(mine, name)
+        assert callable(fn), name
+        assert fn.__module__ in (mine.__name__,
+                                 "dhqr_tpu_torch.analysis.oplog"), name
+    pending = importlib.import_module("dhqr_tpu_torch.analysis._pending")
+    assert not hasattr(pending, "pending")
 
 
 def test_source_pass_names_are_ported_not_stubbed():

@@ -359,11 +359,18 @@ def test_registry_routes_and_stages_match_jax():
           s.layout) for s in jreg.bench_stages()]
     assert (treg.TUNE_KINDS, treg.SERVE_PROGRAM_KINDS) == \
         (jreg.TUNE_KINDS, jreg.SERVE_PROGRAM_KINDS)
-    for hook in (lambda: treg.jaxpr_routes("fast"),
-                 lambda: treg.comms_routes(2, True), treg.contract_names,
-                 treg.serve_routes, treg.donated_routes):
-        with pytest.raises(dt.NotPortedError, match="item 18b"):
-            hook()
+    # the analysis hooks (ROADMAP item 18b): the JAX registry's routes
+    for mine, theirs in ((treg.jaxpr_routes("fast"),
+                          jreg.jaxpr_routes("fast")),
+                         (treg.comms_routes(2, True),
+                          jreg.comms_routes(2, True)),
+                         (treg.serve_routes(), jreg.serve_routes()),
+                         (treg.donated_routes(), jreg.donated_routes())):
+        assert [r.name for r in mine] == [r.name for r in theirs]
+    assert treg.contract_names() == jreg.contract_names()
+    hooks = ("jaxpr", "comms_trace", "contract", "serve", "donation")
+    assert all(hasattr(treg.Route("x", "householder", "qr", "single"), f)
+               for f in hooks)
 
 
 # ------------------------------------------------------- stubbed searches
