@@ -64,11 +64,27 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    ``lstsq(engine=...)`` for tsqr, cholqr2 and cholqr3, each against
    ``torch.linalg.lstsq`` (yardstick) under the 8x bar and timed; each
    TSQR call's kernel launches equal the port's panel plan;
-10. gradients: ``lstsq_diff`` at 4096 x 512 f32 (and 2048 x 256 c64), the
-   gradient of a scalar loss against the float64 normal-equations gradient
-   autograd computes on the card (a yardstick the port never calls), the
-   adjoint identity between ``jvp`` and ``backward``, forward + backward
-   time against the forward alone, and the forward's kernel launches;
+10. gradients: (a) ``lstsq_diff`` at 4096 x 512 f32 (and 2048 x 256 c64),
+   the gradient of a scalar loss against the float64 normal-equations
+   gradient autograd computes on the card (a yardstick the port never
+   calls), the adjoint identity between ``jvp`` and ``backward``, forward
+   + backward time against the forward alone, and the forward's kernel
+   launches; (b) the factorization's own derivative
+   (``householder_factor``): ``qr`` (a loss on H and alpha) and
+   ``qr_explicit`` (a loss on Q and R) at 4400 x 4000 f32,
+   ``lstsq(engine="tsqr")`` and ``lstsq(blocked=False)`` at 65536 x 256
+   f32, the minimum-norm ``lstsq`` at 256 x 65536 f32 and ``qr`` at 2048 x
+   256 c64: the directional derivative of each route (kernel, f32 plain
+   panels, f64 plain panels) against an f64 central difference, the
+   kernel route's gradient within 2x of the f32 plain route's error
+   against the f64 route's gradient, ``torch.linalg.qr``'s f64 autograd
+   gradient (yardstick) for ``qr_explicit`` and the f64 normal-equations
+   gradient for the ``lstsq`` routes, the ``jvp``/``backward`` adjoint
+   identity, the forward with grad bit for bit the one without and its
+   launches = plan, forward and forward + backward times beside
+   ``torch.linalg.qr``'s, and the backward's peak memory over the
+   forward's (at most 6x A's bytes); and ``torch.profiler``'s view of
+   the c64 backward (the card's idle share, kernels launched);
 11. schedules: ``qr`` at 16384^2 f32 and 8192 x 4096 c64 by default, with
    ``lookahead=True`` and with ``agg_panels`` 2 and 4 (steady seconds,
    GFLOP/s, backward error, distance from the default's factors, launches
@@ -315,6 +331,11 @@ TOL_BF16 = 1e-5      # bf16 pass vs plain: max|diff| / max(|C| + |A||B|)
 TOL_GRAM = 2e-5      # ||R^H R - A^H A|| / ||A^H A||, f32 R (TSQR, sweeps)
 TOL_GRAD = 1e-4      # f32 gradient vs the f64 normal-equations gradient
 TOL_ADJOINT = 1e-4   # |<w, J u> - <J^T w, u>| / |<w, J u>|, f32
+TOL_CD64 = 1e-8      # f64 route's directional derivative vs the f64 central
+                     # difference of the same loss
+TOL_YARDSTICK64 = 1e-8   # f64 gradient vs torch.linalg.qr's f64 autograd
+KERNEL_GRAD_FACTOR = 2.0  # kernel gradient error <= 2x the f32 plain route's
+BACKWARD_MEM_FACTOR = 6.0  # backward peak - forward peak <= 6x A's bytes
 
 KERNEL_SOURCE = "dhqr_tpu_torch/csrc/panel_qr.cu"
 # What one phase hands a later one in the same run: phase 17's serve cache
@@ -1138,6 +1159,279 @@ def phase_gradients(dt, hp, seed, shapes=((4096, 512, torch.float32),
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"gradient check failed: {row}")
+    phase_factor_gradients(dt, hp, seed)
+
+
+def _real_dot(a, b) -> float:
+    """Re<a, b> over every entry, in float64."""
+    return float(torch.real(torch.vdot(a.flatten().to(_wide(a.dtype)),
+                                       b.flatten().to(_wide(a.dtype)))))
+
+
+def _wide(dtype):
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
+def _weighted(outs, ws):
+    """The scalar loss sum_i Re<W_i, out_i>."""
+    return sum(torch.real(torch.vdot(w.flatten().to(o.dtype), o.flatten()))
+               for w, o in zip(ws, outs))
+
+
+def _qr_fwd_bwd(A, ws):
+    """torch.linalg.qr's forward + backward of Re<W1, Q> + Re<W2, R> (the
+    yardstick's gradient; the port never calls it)."""
+    At = A.detach().clone().requires_grad_()
+    Q, R = torch.linalg.qr(At)
+    _weighted((Q, R), ws).backward()
+    return At.grad
+
+
+def _factor_grad_cases(dt):
+    """Part (b)'s cases: (name, (m, n), dtype, route, reference, {loss:
+    output indices}, whether a kernel runs on the route).
+
+    A route maps (A, b, **keywords) to a tuple of outputs, and a loss
+    weighs some of them (sum_i Re<W_i, out_i>); ``qr``'s route gives H,
+    alpha, Q and R of one factorization, so that its two losses share
+    every forward. The reference computes the same outputs on the plain
+    panels, for the f64 gradient and central difference (with the
+    compensated norm off: f64 needs no compensation, and the norm takes
+    most of the plain loop's launches)."""
+    def factors(A, b, **kw):  # qr's packed factors and qr_explicit's
+        f = dt.qr(A, device=A.device, **kw)
+        return f.H, f.alpha, f.q_columns(), f.r_matrix()
+
+    def packed(A, b, **kw):
+        f = dt.qr(A, device=A.device, **kw)
+        return f.H, f.alpha
+
+    def tsqr(A, b, **kw):
+        return (dt.lstsq(A, b, engine="tsqr", device=A.device, **kw),)
+
+    def unblocked(A, b, **kw):
+        return (dt.lstsq(A, b, blocked=False, device=A.device, **kw),)
+
+    def lstsq(A, b, **kw):  # blocked: lstsq_diff's closed form; m < n:
+        return (dt.lstsq(A, b, device=A.device, **kw),)  # minimum norm
+
+    def plain(route):
+        return lambda A, b: route(A, b, use_pallas="never", norm="fast")
+
+    def fast(route):
+        return lambda A, b: route(A, b, norm="fast")
+
+    return [
+        ("qr", (4400, 4000), torch.float32, factors, plain(factors),
+         {"qr": (0, 1), "qr_explicit": (2, 3)}, True),
+        ("tsqr", (65536, 256), torch.float32, tsqr, plain(lstsq),
+         {"lstsq_tsqr": (0,)}, True),
+        ("unblocked", (65536, 256), torch.float32, unblocked, plain(lstsq),
+         {"lstsq_unblocked": (0,)}, False),
+        ("min_norm", (256, 65536), torch.float32, lstsq, fast(lstsq),
+         {"lstsq_min_norm": (0,)}, False),
+        ("qr_c64", (2048, 256), torch.complex64, packed, plain(packed),
+         {"qr": (0, 1)}, True),
+    ]
+
+
+def _normal_equations_x(A, b):
+    """x of the normal equations (minimum norm for m < n): the lstsq
+    routes' f64 autograd yardstick."""
+    if A.shape[0] >= A.shape[1]:
+        return (torch.linalg.solve(A.mH @ A, A.mH @ b),)
+    return (A.mH @ torch.linalg.solve(A @ A.mH, b),)
+
+
+def _with_grad(A, b):
+    return (A.detach().clone().requires_grad_(),
+            b.detach().clone().requires_grad_())
+
+
+def _grads(loss, inputs, retain=False):
+    """(A's, b's) gradients of ``loss``; b's is zero where it is unused."""
+    gA, gb = torch.autograd.grad(loss, inputs, retain_graph=retain,
+                                 allow_unused=True)
+    return gA, torch.zeros_like(inputs[1]) if gb is None else gb
+
+
+def _warm_factor_grad(dt, dtype, device):
+    """One small ``qr`` forward + backward in ``dtype`` before its first
+    case is measured: the first use of a complex op on the card may compile it at
+    run time (PyTorch's jiterator), and a stream's first cuBLAS call
+    allocates its workspace, so an unwarmed backward's time and peak
+    memory measure those instead (seconds and ~48 MB at c64 2048 x 256)."""
+    A = torch.randn(512, 64, device=device, dtype=dtype, requires_grad=True)
+    f = dt.qr(A, device=device)
+    _weighted((f.H, f.alpha), (f.H.detach(), f.alpha.detach())).backward()
+    _sync(device)
+
+
+def phase_factor_gradients(dt, hp, seed, device="cuda", cases=None):
+    """Phase 10 (b): gradients through the factorization itself
+    (``householder_factor``), with the forward on the panel kernels.
+    ``device`` and ``cases`` (default :func:`_factor_grad_cases`) are for a
+    rehearsal on the CPU at small shapes. The complex case's backward is
+    also profiled: it runs the same column steps as the f32 ones, on few
+    enough columns (256, ~10k kernels) for the profiler to sum quickly."""
+    warmed = set()
+    for i, (case, (m, n), dtype, route, ref, losses, kernel) in enumerate(
+            cases or _factor_grad_cases(dt)):
+        t_case = time.perf_counter()
+        g = torch.Generator(device=device).manual_seed(seed + 40 + i)
+
+        def rnd(*shape, dt_=dtype):
+            return torch.randn(shape, generator=g, device=device, dtype=dt_)
+
+        A, b, U, ub = rnd(m, n), rnd(m), rnd(m, n), rnd(m)
+        wide = _wide(dtype)
+        A64, b64, U64, ub64 = (t.to(wide) for t in (A, b, U, ub))
+        kname = hp.KERNELS[dtype]
+        if dtype not in warmed:
+            _warm_factor_grad(dt, dtype, device)
+            warmed.add(dtype)
+        big = max(m, n), min(m, n)
+        if case == "tsqr":
+            plan = tsqr_expected_launches(m, n, 8, dtype)
+        else:
+            plan = expected_launches(*big, dtype) if kernel else 0
+        # the route without grad, then with it: the forward's bits and
+        # launches, the times, and each backward's peak memory over the
+        # forward's
+        with torch.no_grad():
+            l0 = hp.LAUNCHES[kname]
+            outs0, fwd_s = _timed(lambda: route(A, b), A.device)
+            launches_off = hp.LAUNCHES[kname] - l0
+        ws = {loss: [rnd(*outs0[k].shape, dt_=outs0[k].dtype) for k in idx]
+              for loss, idx in losses.items()}
+
+        def L(outs, loss):
+            return _weighted([outs[k] for k in losses[loss]], ws[loss])
+
+        At, bt = _with_grad(A, b)
+        torch.cuda.reset_peak_memory_stats()
+        l0 = hp.LAUNCHES[kname]
+        outs, fwd_grad_s = _timed(lambda: route(At, bt), A.device)
+        launches_on = hp.LAUNCHES[kname] - l0
+        same = all(torch.equal(o.detach(), o0) for o, o0 in zip(outs, outs0))
+        fwd_peak = torch.cuda.max_memory_allocated()
+        port, bwd_over, bwd_s = {}, {}, {}
+        for j, loss in enumerate(losses):
+            torch.cuda.reset_peak_memory_stats()
+            port[loss], bwd_s[loss] = _timed(lambda: _grads(
+                L(outs, loss), (At, bt), retain=j + 1 < len(losses)),
+                A.device)
+            bwd_over[loss] = (torch.cuda.max_memory_allocated() - fwd_peak) \
+                / A.nbytes
+        del outs, At, bt
+        # the other routes: every loss from one forward each
+        others = {}
+        if kernel:
+            Ap, bp = _with_grad(A, b)
+            outs = route(Ap, bp, use_pallas="never")
+            others["plain_f32"] = {
+                loss: _grads(L(outs, loss), (Ap, bp), j + 1 < len(losses))
+                for j, loss in enumerate(losses)}
+        Ar, br = _with_grad(A64, b64)
+        outs = ref(Ar, br)
+        others["plain_f64"] = {
+            loss: _grads(L(outs, loss), (Ar, br), j + 1 < len(losses))
+            for j, loss in enumerate(losses)}
+        del outs
+        eps = 1e-5 * float(A64.norm() / U64.norm())
+        with torch.no_grad():
+            plus = ref(A64 + eps * U64, b64 + eps * ub64)
+            minus = ref(A64 - eps * U64, b64 - eps * ub64)
+            cds = {loss: (float(L(plus, loss)) - float(L(minus, loss)))
+                   / (2 * eps) for loss in losses}
+            del plus, minus
+        # the adjoint identity: d/dt L(A + t U) by jvp against <g, U>
+        _, tangents = torch.func.jvp(lambda A, b: route(A, b), (A, b),
+                                     (U, ub))
+        rname = "kernel" if kernel else "port"
+        # torch.linalg.qr's forward + backward of a loss on (Q, R) at the
+        # factored shape, once per case
+        F = A if m >= n else A.mH.contiguous()
+        qr_ws = [rnd(*big, dt_=dtype), rnd(big[1], big[1], dt_=dtype)]
+        torch_qr_ms = cuda_ms(lambda: _qr_fwd_bwd(F, qr_ws), 1)
+        del F, qr_ws
+        for loss, idx in losses.items():
+            t_loss = time.perf_counter()
+            grads = {rname: port[loss]} | {r: gs[loss]
+                                           for r, gs in others.items()}
+            cd = cds[loss]
+            directional = {r: _real_dot(ga, U64) + _real_dot(gb, ub64)
+                           for r, (ga, gb) in grads.items()}
+            ref_gA, ref_gb = grads["plain_f64"]
+            gA, gb = port[loss]
+            jv = sum(_real_dot(w, tangents[k])
+                     for w, k in zip(ws[loss], idx))
+            adjoint = abs(jv - directional[rname]) / abs(directional[rname])
+            row = {"phase": 10, "name": "factor_gradient", "loss": loss,
+                   "dtype": str(dtype).split(".")[-1], "shape": [m, n],
+                   "eps": eps, "central_difference_f64": cd,
+                   "directional": directional,
+                   "directional_rel_err": {r: abs(d - cd) / abs(cd)
+                                           for r, d in directional.items()},
+                   "tol_cd64": TOL_CD64,
+                   "grad_rel_err_vs_f64_route": {
+                       r: max(rel_err(ga.to(wide), ref_gA),
+                              rel_err(gb_.to(wide), ref_gb))
+                       for r, (ga, gb_) in grads.items() if r != "plain_f64"},
+                   "adjoint_rel_err": adjoint, "tol_adjoint": TOL_ADJOINT,
+                   "forward_bit_identical": same,
+                   "launches_grad_on": launches_on,
+                   "launches_grad_off": launches_off, "expected": plan,
+                   "backward_peak_over_forward_in_A_bytes": bwd_over[loss],
+                   "tol_memory": BACKWARD_MEM_FACTOR}
+            err = row["grad_rel_err_vs_f64_route"]
+            ok = (row["directional_rel_err"]["plain_f64"] <= TOL_CD64
+                  and adjoint <= TOL_ADJOINT and same
+                  and launches_on == launches_off == plan
+                  and bwd_over[loss] <= BACKWARD_MEM_FACTOR)
+            if kernel:
+                ok = ok and err["kernel"] <= KERNEL_GRAD_FACTOR * \
+                    err["plain_f32"]
+            # the yardsticks, f64 autograd on the card
+            if loss == "qr_explicit":
+                yard = _qr_fwd_bwd(A64, [w.to(wide) for w in ws[loss]])
+                row["torch_qr_f64_vs_f64_route"] = rel_err(ref_gA, yard)
+                row["kernel_vs_torch_qr_f64"] = rel_err(gA.to(wide), yard)
+                ok = ok and row["torch_qr_f64_vs_f64_route"] <= \
+                    TOL_YARDSTICK64
+            if loss.startswith("lstsq"):
+                Ay, by = _with_grad(A64, b64)
+                yA, yb = _grads(_weighted(_normal_equations_x(Ay, by),
+                                          [w.to(wide) for w in ws[loss]]),
+                                (Ay, by))
+                row["grad_rel_err_vs_normal_equations_f64"] = max(
+                    rel_err(gA.to(wide), yA), rel_err(gb.to(wide), yb))
+                row["tol_grad"] = TOL_GRAD
+                ok = ok and row["grad_rel_err_vs_normal_equations_f64"] \
+                    <= TOL_GRAD
+            # times of the calls above (host clock around synchronised
+            # work: each runs 24 ms to 3 s, launch-bound), beside
+            # torch.linalg.qr's; the qr case's forward computes both
+            # losses' outputs (Q and R add ~6 ms at 4400 x 4000)
+            row["forward_ms"] = 1e3 * fwd_s
+            row["forward_with_grad_ms"] = 1e3 * fwd_grad_s
+            row["backward_ms"] = 1e3 * bwd_s[loss]
+            row["forward_backward_ms"] = 1e3 * (fwd_grad_s + bwd_s[loss])
+            row["torch_qr_forward_backward_ms"] = torch_qr_ms
+            if dtype.is_complex and device == "cuda":
+                Ag, bg = _with_grad(A, b)
+                loss_g = L(route(Ag, bg), loss)
+                row["backward_profile"] = _solve_profile(
+                    lambda: _grads(loss_g, (Ag, bg)), A.device)
+                del Ag, bg, loss_g
+            row["seconds"] = time.perf_counter() - (
+                t_case if loss == next(iter(losses)) else t_loss)
+            row["ok"] = bool(ok)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"factor gradient check failed: {row}")
+        del port, others, tangents, A, b, U, ub, A64, b64, U64, ub64
+        torch.cuda.empty_cache()
 
 
 # -- phase 11: the lookahead and aggregated schedules -------------------------

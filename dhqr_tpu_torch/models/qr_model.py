@@ -31,7 +31,7 @@ from dhqr_tpu_torch.ops import blocked as _blocked
 from dhqr_tpu_torch.ops import householder as _hh
 from dhqr_tpu_torch.ops import solve as _solve
 from dhqr_tpu_torch.ops.cholqr import cholesky_qr_lstsq
-from dhqr_tpu_torch.ops.differentiable import lstsq_diff
+from dhqr_tpu_torch.ops.differentiable import householder_factor, lstsq_diff
 from dhqr_tpu_torch.ops.tsqr import tsqr_lstsq
 from dhqr_tpu_torch.ops import gemm as _gemm
 from dhqr_tpu_torch.parallel import sharded_qr as _sharded
@@ -526,10 +526,11 @@ def _minimum_norm_impl(A: torch.Tensor, b: torch.Tensor, block_size: int,
                        precision: str = _hh.DEFAULT_PRECISION,
                        norm: str = "accurate") -> torch.Tensor:
     """Underdetermined (m < n, full row rank): factor A^H = Q R, then
-    ``x = Q R^{-H} b`` is the minimum-norm solution of A x = b."""
+    ``x = Q R^{-H} b`` is the minimum-norm solution of A x = b
+    (differentiable: the factorization is ``householder_factor``'s)."""
     m, n = A.shape
-    H, alpha = _blocked._blocked_qr_impl(A.mH.clone(), block_size, norm=norm,
-                                         precision=precision)
+    H, alpha = householder_factor(A.mH.clone(), block_size, in_place=True,
+                                  norm=norm, precision=precision)
     R = _solve.r_matrix(H, alpha)  # (m, m) upper; A = R^H Q^H
     B = b[:, None] if b.ndim == 1 else b
     Y = torch.linalg.solve_triangular(R.mH, B, upper=False)  # R^H Y = b

@@ -71,7 +71,7 @@ def diag_condition_bound(diag) -> float:
     """Cheap LOWER bound on cond_2 from an R diagonal:
     ``max|r_ii| / min|r_ii|``. Never overestimates; can underestimate
     badly without pivoting (Kahan matrices)."""
-    mag = torch.as_tensor(diag).abs()
+    mag = torch.as_tensor(diag).detach().abs()
     return float(mag.max() / mag.min())
 
 

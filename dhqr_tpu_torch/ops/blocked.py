@@ -44,7 +44,12 @@ from dhqr_tpu_torch.ops.householder import (
     _panel_qr_recursive,
 )
 from dhqr_tpu_torch.precision import apply_policy_to_factor_args
-from dhqr_tpu_torch.utils.config import NotPortedError, check_precision
+from dhqr_tpu_torch.utils.config import (
+    NotPortedError,
+    check_precision,
+    records_grad,
+    refuse_grad,
+)
 from dhqr_tpu_torch.utils.device import as_tensor
 
 DEFAULT_BLOCK_SIZE = 128
@@ -295,6 +300,16 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     return H, alpha
 
 
+def refuse_batched_grad(t) -> None:
+    """The batched engine's refusal of an input that autograd follows (the
+    serving tier's entry points check every request with it)."""
+    if isinstance(t, torch.Tensor):
+        refuse_grad(t, "the batched engine", reason=(
+            "it factors a donated stack in place, and the JAX package's "
+            "batched engine is not differentiable either (it converts to "
+            "the host)"))
+
+
 def _batched_qr_impl(A: torch.Tensor, block_size: int,
                      precision: str = DEFAULT_PRECISION,
                      norm: str = "accurate", panel_impl: str = "loop",
@@ -306,7 +321,10 @@ def _batched_qr_impl(A: torch.Tensor, block_size: int,
     panel step and trailing update is one batched op; row i agrees with
     the 2-D engine on A[i] to roundoff (the column norms take the same
     tree, the GEMMs are batched). The Hopper panel kernel is a
-    single-problem tier and is never engaged here."""
+    single-problem tier and is never engaged here. A stack that autograd
+    follows raises, as ``jax.grad`` fails through the JAX package's
+    batched engine (it converts to the host)."""
+    refuse_batched_grad(A)
     return _blocked_qr_impl(A, block_size, kernel=False, norm=norm,
                             panel_impl=panel_impl, precision=precision,
                             trailing_precision=trailing_precision)
@@ -462,7 +480,12 @@ def blocked_householder_qr(
     trailing update once per group of k panels (:func:`_grouped_schedule`).
     Both keep the default's factors to roundoff and are mutually exclusive
     on a single device; ``overlap_depth`` is mesh-only.
+
+    Differentiable in A (:func:`~dhqr_tpu_torch.ops.differentiable.
+    householder_factor`), with the forward bit for bit the one without
+    grad; ``donate=True`` with an A that autograd follows raises.
     """
+    from dhqr_tpu_torch.ops.differentiable import householder_factor
     from dhqr_tpu_torch.utils.config import DHQRConfig, refuse_unported
 
     precision, trailing_precision = apply_policy_to_factor_args(
@@ -481,39 +504,52 @@ def blocked_householder_qr(
             f"blocked_householder_qr requires m >= n, got {tuple(A.shape)}")
     nb = auto_block_size(m, A.dtype, use_pallas) if block_size is None \
         else int(block_size)
+    if donate and records_grad(A):
+        raise ValueError(
+            "donate=True factors in place in A's storage, but autograd "
+            "follows A (it requires grad, or carries a forward-mode "
+            "tangent): the factorization would overwrite a tensor autograd "
+            "tracks. Pass donate=False to differentiate")
     kernel = _resolve_kernel(use_pallas, m, A.dtype, A.device)
-    return _blocked_qr_impl(A if donate else A.clone(), nb, kernel=kernel,
-                            norm=norm, panel_impl=panel_impl,
-                            precision=precision,
-                            trailing_precision=trailing_precision,
-                            lookahead=lookahead, agg_panels=agg_panels)
+    return householder_factor(A, nb, in_place=donate, kernel=kernel,
+                              norm=norm, panel_impl=panel_impl,
+                              precision=precision,
+                              trailing_precision=trailing_precision,
+                              lookahead=lookahead, agg_panels=agg_panels)
+
+
+def _apply_panels(H, b, block_size, order, apply, precision):
+    """``apply`` (a panel's block reflector) to ``b`` panel by panel in
+    ``order``; ``b`` is (m,) or (m, k), or for a stack H (B, m, n) a (B, m)
+    or (B, m, k) stack. In place on a copy of b, or out of place (the same
+    products) when autograd follows H or b."""
+    n = H.shape[-1]
+    nb = min(block_size, n)
+    vec = b.ndim == H.ndim - 1
+    B = b[..., None].clone() if vec else b.clone()
+    traced = records_grad(H, b)
+    for k in order(range(0, n, nb)):
+        Y = torch.tril(H[..., k:, k:k + nb])
+        if traced:
+            B = torch.cat([B[..., :k, :], apply(Y, B[..., k:, :], precision)],
+                          dim=-2)
+        else:
+            apply(Y, B[..., k:, :], precision, inplace=True)
+    return B[..., 0] if vec else B
 
 
 def _apply_qt_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,
                    precision: str = DEFAULT_PRECISION):
-    """Q^H b panel by panel; ``b`` is (m,) or (m, k), or for a stack H
-    (B, m, n) a (B, m) or (B, m, k) stack."""
-    n = H.shape[-1]
-    nb = min(block_size, n)
-    vec = b.ndim == H.ndim - 1
-    B = b[..., None].clone() if vec else b.clone()
-    for k in range(0, n, nb):
-        Y = torch.tril(H[..., k:, k:k + nb])
-        apply_block_reflector_h(Y, B[..., k:, :], precision, inplace=True)
-    return B[..., 0] if vec else B
+    """Q^H b panel by panel; shapes as :func:`_apply_panels`."""
+    return _apply_panels(H, b, block_size, iter, apply_block_reflector_h,
+                         precision)
 
 
 def _apply_q_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,
                   precision: str = DEFAULT_PRECISION):
-    """Q b, panels in reverse order; shapes as :func:`_apply_qt_impl`."""
-    n = H.shape[-1]
-    nb = min(block_size, n)
-    vec = b.ndim == H.ndim - 1
-    B = b[..., None].clone() if vec else b.clone()
-    for k in reversed(range(0, n, nb)):
-        Y = torch.tril(H[..., k:, k:k + nb])
-        apply_block_reflector(Y, B[..., k:, :], precision, inplace=True)
-    return B[..., 0] if vec else B
+    """Q b, panels in reverse order; shapes as :func:`_apply_panels`."""
+    return _apply_panels(H, b, block_size, reversed, apply_block_reflector,
+                         precision)
 
 
 def blocked_apply_qt(H, alpha, b, block_size: int = DEFAULT_BLOCK_SIZE,

@@ -14,9 +14,22 @@ is registered as a ``torch.autograd.Function``: ``jvp`` is this rule
 under the real inner product Re<u, v>). Both are built from the packed
 factors (H, alpha) of the forward pass: no normal-equations matrix is ever
 formed, and autograd never records the factorization's loops.
+
+:func:`householder_factor` is the derivative of every other factoring
+route: the map A -> (H, alpha) that the unblocked loop, the blocked engine
+in every schedule, the reconstruct panels and the Hopper kernel all
+compute. Its ``autograd.Function`` runs the engine with grad off and
+differentiates the unblocked recurrence (the JAX package differentiates
+that recurrence by tracing it): ``jvp`` its tangent over the columns in
+order, ``backward`` its adjoint in reverse. Neither keeps a tape; both work
+a panel at a time, the columns inside a panel one step at a time
+(``householder._panel_jvp`` / ``_panel_vjp``) and the rest of the columns
+by compact-WY products (:func:`_wy_jvp` / :func:`_wy_vjp`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -27,12 +40,19 @@ from dhqr_tpu_torch.ops.blocked import (
     _apply_qt_impl,
     _blocked_qr_impl,
     _resolve_kernel,
+    apply_block_reflector,
     check_schedule_args,
+    wy_upper,
 )
 from dhqr_tpu_torch.ops.hopper_panel import _panel_qr_plain_leaf
-from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
+from dhqr_tpu_torch.ops.householder import (
+    DEFAULT_PRECISION,
+    _panel_jvp,
+    _panel_qr_masked,
+    _panel_vjp,
+)
 from dhqr_tpu_torch.ops.solve import _back_substitute, as_matrix_rhs, r_matrix
-from dhqr_tpu_torch.utils.config import check_precision
+from dhqr_tpu_torch.utils.config import check_precision, records_grad
 from dhqr_tpu_torch.utils.device import as_tensor
 
 
@@ -194,3 +214,157 @@ def lstsq_diff(A, b, block_size: int = DEFAULT_BLOCK_SIZE,
         kernel, norm, panel_impl, int(refine), precision, trailing_precision,
         apply_precision, bool(lookahead), agg_panels, leaf,
         None if pallas_flat is None else int(pallas_flat)))[0]
+
+
+# -- the differentiable factorization ---------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FactorOptions:
+    """The engine knobs of one factorization (:func:`householder_factor`):
+    ``unblocked`` runs ``householder_qr``'s column loop, otherwise the
+    blocked engine with the rest (as ``_blocked_qr_impl`` takes them)."""
+
+    unblocked: bool = False
+    kernel: bool = False
+    norm: str = "accurate"
+    panel_impl: str = "loop"
+    precision: str = DEFAULT_PRECISION
+    trailing_precision: "str | None" = None
+    lookahead: bool = False
+    agg_panels: "int | None" = None
+    leaf: object = None
+    flat: "int | None" = None
+
+
+def _factor(A, block_size, opts: FactorOptions, in_place: bool):
+    """The engine call: ``(H, alpha)`` of A, in A's storage when
+    ``in_place`` (the blocked engine; the column loop always copies)."""
+    if opts.unblocked:
+        return _panel_qr_masked(A, 0, precision=opts.precision,
+                                norm=opts.norm)
+    return _blocked_qr_impl(
+        A if in_place else A.clone(), block_size, kernel=opts.kernel,
+        norm=opts.norm, panel_impl=opts.panel_impl, precision=opts.precision,
+        trailing_precision=opts.trailing_precision, lookahead=opts.lookahead,
+        agg_panels=opts.agg_panels, leaf=opts.leaf, flat=opts.flat)
+
+
+def _wy_jvp(Y, dY, C, dC, precision):
+    """Tangent of ``C <- (I - Y T^H Y^H) C`` (a panel's transform applied
+    to the columns right of it), in place on ``C`` and ``dC``; with ``U =
+    I + triu(Y^H Y, 1)``, ``T^H = U^{-H}``."""
+    U = wy_upper(Y, precision)
+    W = gemm.matmul(Y.mH, C, precision)
+    Z = torch.linalg.solve_triangular(U.mH, W, upper=False,
+                                      unitriangular=True)
+    dU = torch.triu(gemm.matmul(dY.mH, Y, precision)
+                    + gemm.matmul(Y.mH, dY, precision), diagonal=1)
+    dW = gemm.matmul(dY.mH, C, precision) + gemm.matmul(Y.mH, dC, precision)
+    dZ = torch.linalg.solve_triangular(
+        U.mH, dW - gemm.matmul(dU.mH, Z, precision), upper=False,
+        unitriangular=True)
+    dC -= gemm.matmul(dY, Z, precision) + gemm.matmul(Y, dZ, precision)
+    gemm.addmm(C, Y, Z, precision, alpha=-1, inplace=True)
+
+
+def _wy_vjp(Y, C, O, precision):
+    """Adjoint of ``C_out = (I - Y T^H Y^H) C_in``, in place: ``C`` holds
+    C_out and ends as C_in (rebuilt, the transform being an involution
+    product: ``C_in = (I - Y T Y^H) C_out``), ``O`` holds C_out's cotangent
+    and ends as C_in's. Returns Y's cotangent."""
+    U = wy_upper(Y, precision)
+    apply_block_reflector(Y, C, precision, inplace=True)
+    Z = torch.linalg.solve_triangular(U.mH, gemm.matmul(Y.mH, C, precision),
+                                      upper=False, unitriangular=True)
+    W_bar = torch.linalg.solve_triangular(
+        U, -gemm.matmul(Y.mH, O, precision), upper=True, unitriangular=True)
+    S_bar = torch.triu(-gemm.matmul(Z, W_bar.mH, precision), diagonal=1)
+    Y_bar = gemm.matmul(Y, S_bar + S_bar.mH, precision) \
+        + gemm.matmul(C, W_bar.mH, precision) \
+        - gemm.matmul(O, Z.mH, precision)
+    gemm.addmm(O, Y, W_bar, precision, alpha=1, inplace=True)
+    return Y_bar
+
+
+def _factor_jvp(A, H, alpha, dA, nb, precision):
+    """``(dH, dalpha)``: the tangent of the unblocked recurrence, a panel
+    of ``nb`` columns at a time in order, replaying the states from A with
+    the forward pass's reflectors."""
+    n = A.shape[1]
+    S, dS = A.clone(), dA.clone()
+    dalpha = torch.zeros_like(alpha)
+    for k in range(0, n, nb):
+        b = min(nb, n - k)
+        dalpha[k:k + b] = _panel_jvp(S[k:, k:k + b], dS[k:, k:k + b],
+                                     H[k:, k:k + b], alpha[k:k + b],
+                                     precision)
+        if k + b < n:
+            _wy_jvp(torch.tril(H[k:, k:k + b]), torch.tril(dS[k:, k:k + b]),
+                    S[k:, k + b:], dS[k:, k + b:], precision)
+    return dS, dalpha
+
+
+def _factor_vjp(H, alpha, H_bar, alpha_bar, nb, precision):
+    """A's cotangent: the adjoint of the unblocked recurrence, a panel of
+    ``nb`` columns at a time in reverse, rebuilding each state from
+    ``(H, alpha)`` alone (O(m n) memory, no tape)."""
+    n = H.shape[1]
+    S = H.clone()
+    G = torch.zeros_like(H) if H_bar is None else H_bar.clone()
+    a_bar = torch.zeros_like(alpha) if alpha_bar is None else alpha_bar
+    for k in reversed(range(0, n, nb)):
+        b = min(nb, n - k)
+        if k + b < n:
+            G[k:, k:k + b] += torch.tril(_wy_vjp(
+                torch.tril(H[k:, k:k + b]), S[k:, k + b:], G[k:, k + b:],
+                precision))
+        _panel_vjp(S[k:, k:k + b], G[k:, k:k + b], alpha[k:k + b],
+                   a_bar[k:k + b], precision)
+    return G
+
+
+class _HouseholderQR(torch.autograd.Function):
+    """(H, alpha) of A by the engine that ``opts`` names, with the
+    derivative of the unblocked recurrence. Saves (H, alpha) for
+    ``backward`` (and A for ``jvp``): no per-column state."""
+
+    @staticmethod
+    def forward(A, block_size, opts):
+        return _factor(A, block_size, opts, in_place=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, block_size, opts = inputs
+        ctx.nb = max(1, min(block_size, A.shape[1]))
+        ctx.precision = opts.precision
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(A, *output)
+
+    @staticmethod
+    def backward(ctx, H_bar, alpha_bar):
+        H, alpha = ctx.saved_tensors
+        return (_factor_vjp(H, alpha, H_bar, alpha_bar, ctx.nb,
+                            ctx.precision), None, None)
+
+    @staticmethod
+    def jvp(ctx, dA, _block_size, _opts):
+        A, H, alpha = ctx.saved_tensors
+        return _factor_jvp(A, H, alpha, dA, ctx.nb, ctx.precision)
+
+
+def householder_factor(A: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE,
+                       *, in_place: bool = False, **options):
+    """``(H, alpha)`` of A (m x n, m >= n) by the engine ``options`` names
+    (the fields of :class:`FactorOptions`), differentiable in reverse and
+    forward mode: every public factorization calls it.
+
+    When autograd does not follow A, this is the engine call itself, in
+    A's storage if ``in_place`` (the caller's scratch copy). When it does,
+    the same engine call runs inside :class:`_HouseholderQR` on a copy,
+    with grad off: its output is the same bit for bit, with the same kernel
+    launches. ``block_size`` is the blocked engine's panel width and the
+    derivative's (the unblocked loop's derivative takes it too)."""
+    opts = FactorOptions(**options)
+    if not records_grad(A):
+        return _factor(A, block_size, opts, in_place)
+    return _HouseholderQR.apply(A, int(block_size), opts)

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from dhqr_tpu_torch.utils.config import check_precision
+from dhqr_tpu_torch.utils.config import check_precision, records_grad
 
 # bf16 passes per product of a float32/complex64 operand; other names (and
 # other dtypes) are full precision.
@@ -128,6 +128,12 @@ def _matmul(a, b, precision, plain):
         return _matmul(a[None, :], b, precision, plain)[0]
     if b.ndim == 1:
         return _matmul(a, b[:, None], precision, plain)[:, 0]
+    if records_grad(a, b):
+        return _PassProduct.apply(None, a, b, precision, 1, plain)
+    return _pass_product(a, b, passes, plain)
+
+
+def _pass_product(a, b, passes, plain):
     out = _bf16_product(*_real_operands(a, b, passes), _plain_for(a, plain))
     if a.is_complex():
         return torch.view_as_complex(out.view(out.shape[:-1] + (-1, 2)))
@@ -144,10 +150,62 @@ def _addmm(c, a, b, precision, alpha, inplace, plain):
         if inplace:
             return c.addmm_(a, b, alpha=alpha)
         return torch.addmm(c, a, b, alpha=alpha)
+    if records_grad(c, a, b):
+        out = _PassProduct.apply(c, a, b, precision, alpha, plain)
+        return c.copy_(out) if inplace else out
+    return _pass_addmm(c, a, b, passes, alpha, plain, inplace)
+
+
+def _pass_addmm(c, a, b, passes, alpha, plain, inplace=False):
     target = c if inplace else c.clone()
     _bf16_addmm_(_real_view(target), *_real_operands(a, b, passes), alpha,
                  _plain_for(c, plain))
     return target
+
+
+class _PassProduct(torch.autograd.Function):
+    """``c + alpha (a @ b)`` (``a @ b`` when ``c`` is None) in bf16 passes,
+    for operands that autograd follows: the forward is the same products
+    bit for bit (the bf16 GEMM with f32 output has no derivative of its
+    own), and the cotangent and tangent products run at the same
+    precision, as the JAX package's products transpose with theirs."""
+
+    @staticmethod
+    def forward(c, a, b, precision, alpha, plain):
+        passes = bf16_passes(precision, a.dtype)
+        if c is None:
+            return _pass_product(a, b, passes, plain)
+        return _pass_addmm(c, a, b, passes, alpha, plain)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        c, a, b, precision, alpha, plain = inputs
+        ctx.args = (precision, alpha, plain, c is not None)
+        ctx.save_for_backward(a, b)
+        ctx.save_for_forward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        precision, alpha, plain, has_c = ctx.args
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = alpha * _matmul(g, b.mH, precision, plain)
+        if ctx.needs_input_grad[2]:
+            gb = alpha * _matmul(a.mH, g, precision, plain)
+        return (g if has_c else None), ga, gb, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dc, da, db, *_):
+        a, b = ctx.saved_tensors
+        precision, alpha, plain, _has_c = ctx.args
+        out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=a.dtype,
+                          device=a.device)
+        if da is not None:
+            out = out + _matmul(da, b, precision, plain)
+        if db is not None:
+            out = out + _matmul(a, db, precision, plain)
+        return out * alpha if dc is None else dc + out * alpha
 
 
 def matmul(a, b, precision: str = "highest") -> torch.Tensor:

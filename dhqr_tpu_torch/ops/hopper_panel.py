@@ -505,9 +505,14 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     most ``sms`` SMs (default: all; its slices resident in shared memory
     where they fit, streamed where they do not); a CPU tensor runs the
     plain version. Anything the kernel does not take raises, and so does a
-    panel that requires grad.
+    panel that autograd follows: the kernel writes through a raw pointer
+    (the differentiable route is ``ops.differentiable.householder_factor``,
+    whose forward calls this wrapper with grad off).
     """
-    refuse_grad(panel, "the Hopper panel kernel")
+    refuse_grad(panel, "the Hopper panel kernel", reason=(
+        "it writes its factors through a raw pointer, where autograd "
+        "cannot follow; every public factorization differentiates through "
+        "ops.differentiable.householder_factor instead"))
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
         raise KernelRefusal(

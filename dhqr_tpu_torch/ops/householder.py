@@ -94,6 +94,166 @@ def _panel_step(jj: int, P: torch.Tensor, alpha: torch.Tensor, offset: int,
     P[..., j:, jj + 1:] -= vj[..., :, None] * w[..., None, :]
 
 
+def _step_scalars(a: torch.Tensor, alpha: torch.Tensor, v0: torch.Tensor):
+    """``(s, t, phi, f, live, eps)`` of the column step that took a column
+    with pivot ``a`` to ``alpha e_0`` with the stored reflector's first
+    entry ``v0`` (element-wise: one step, or every step of a panel): the
+    norm ``s = |alpha|``, the sign factor ``phi = alpha / s``, ``t = -phi
+    a`` (real) or ``|a|`` (complex), the scale ``f = 1/sqrt(s (s + t))``,
+    the gate ``s (s + t) > 0`` and the sign ``eps`` of ``v = eps f (x -
+    alpha e_0)``.
+
+    The loop and the kernel take ``phi = alphafactor(a)``, so ``t = |a|``
+    and ``eps = 1``, as :func:`householder_reflector` computes them. The
+    reconstruct panels (real only) take the sign of Q's diagonal instead
+    and a reflector whose first entry is positive; reading ``phi`` and
+    ``eps`` off the stored factors lets one rule serve both."""
+    s = alpha.abs()
+    if a.is_complex():
+        phi, t, eps = alphafactor(a), a.abs(), torch.ones_like(s)
+    else:
+        phi = torch.where(alpha > 0, 1.0, -1.0).to(a.dtype)
+        t = -phi * a
+        eps = torch.where(v0 * (a - alpha) < 0, -1.0, 1.0).to(a.dtype)
+    denom = s * (s + t)
+    live = denom > 0
+    f = torch.where(live, 1.0 / torch.sqrt(torch.where(live, denom, 1.0)),
+                    0.0)
+    return s, t, phi, f, live, eps
+
+
+def _shifted(x: torch.Tensor, alpha_j: torch.Tensor) -> torch.Tensor:
+    """``x - alpha_j e_0``: the reflector before its scale ``f``."""
+    u = x.clone()
+    u[0] -= alpha_j
+    return u
+
+
+def _safe(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t > 0, t, torch.ones_like(t))
+
+
+def _reflector_jvp(x, dx, alpha_j, v):
+    """Tangent of one reflector: ``(dv, dalpha_j)`` from the column ``x``
+    (rows from the diagonal down), its tangent ``dx``, the step's
+    ``alpha_j`` and stored ``v`` (:func:`_step_scalars`). The gates of
+    :func:`householder_reflector` give a zero tangent where they select a
+    constant: a zero column (``denom == 0``), a zero pivot's sign factor."""
+    a = x[0]
+    s, t, phi, f, live, eps = _step_scalars(a, alpha_j, v[0])
+    # dhqr: ignore[DHQR002] the norm's tangent Re(x^H dx)/s: the norm is a full-precision sum (ops.summation), never a policy product
+    ds = torch.where(s > 0, torch.vdot(x, dx).real / _safe(s), 0.0)
+    da = dx[0]
+    dalpha = ds * phi
+    if x.is_complex():  # t = |a|, phi = -a/|a|
+        dt = torch.where(t > 0, (a.conj() * da).real / _safe(t), 0.0)
+        dphi = (a * dt / _safe(t) - da) / _safe(t)
+        dalpha = dalpha + s * torch.where(t > 0, dphi, 0.0)
+    else:  # phi constant
+        dt = -phi * da
+    ddenom = (2 * s + t) * ds + s * dt
+    df = torch.where(live, -0.5 * f ** 3 * ddenom, 0.0)
+    du = _shifted(dx, dalpha)
+    return eps * (df * _shifted(x, alpha_j) + f * du), dalpha
+
+
+def _vjp_constants(alpha: torch.Tensor, v0: torch.Tensor):
+    """Per column of a factored panel, the scalars of its step's adjoint
+    that the stored factors fix, one vector each (so that a column's
+    adjoint launches only the kernels its cotangent needs): ``x = mu v +
+    alpha e_0`` rebuilds the column (``mu = -conj(v0) alpha``, so the pivot
+    is ``a = alpha (1 - |v0|^2)``), then ``eps f``, ``-eps f^3 / 2`` (gated),
+    ``2 s + t``, ``1 / s`` (gated), ``phi``, ``s``, and for complex ``s /
+    t`` and ``a / t^2`` (gated) and ``sgn(a)``."""
+    a = alpha * (1 - v0.abs() ** 2)
+    s, t, phi, f, live, eps = _step_scalars(a, alpha, v0)
+    consts = [-v0.conj() * alpha, eps * f,
+              torch.where(live, -0.5 * f ** 3, 0.0) * eps, 2 * s + t,
+              torch.where(s > 0, 1.0 / _safe(s), 0.0), phi, s]
+    if a.is_complex():
+        consts += [torch.where(t > 0, s / _safe(t), 0.0),
+                   torch.where(t > 0, a / _safe(t) ** 2, 0.0), torch.sgn(a)]
+    return consts
+
+
+def _reflector_vjp(x, v_bar, alpha_bar, p, consts):
+    """Adjoint of one reflector: the cotangent of the column ``x`` (rows
+    from the diagonal down) from those of ``v`` and ``alpha_j``, under the
+    real inner product ``Re<u, v>`` (PyTorch's convention for complex
+    tensors), with ``p = v^H v_bar`` and the column's
+    :func:`_vjp_constants`. Zero where :func:`_reflector_jvp`'s gates are
+    closed."""
+    mu, ef, c3, c4, inv_s, phi, s = consts[:7]
+    c = c3 * (mu.conj() * p).real          # u = x - alpha e_0 = mu v
+    alpha_bar = alpha_bar - ef * v_bar[0]
+    s_bar = c * c4 + (alpha_bar.conj() * phi).real
+    t_bar = c * s
+    if x.is_complex():  # phi = -a/|a|, weighted by s; t = |a|
+        s_t, a_t2, sgn_a = consts[7:]
+        a_bar = -s_t * alpha_bar + (
+            t_bar + s * (alpha_bar.conj() * a_t2).real) * sgn_a
+    else:  # t = -phi a
+        a_bar = -phi * t_bar
+    x_bar = torch.addcmul(ef * v_bar, s_bar * inv_s, x)
+    x_bar[0] += a_bar
+    return x_bar
+
+
+def _panel_jvp(S, dS, Hp, alpha, precision: str = DEFAULT_PRECISION):
+    """Tangent of the column steps of one panel, in order, in place: ``S``
+    is the panel's input from its diagonal row down (it ends as the
+    factored panel), ``dS`` its tangent (it ends as the factored panel's),
+    ``Hp`` and ``alpha`` the factored panel of the forward pass, whose
+    reflectors the steps reuse. Returns the tangent of ``alpha``."""
+    b = S.shape[1]
+    dalpha = torch.zeros_like(alpha)
+    for jj in range(b):
+        v = Hp[jj:, jj]
+        dv, dalpha[jj] = _reflector_jvp(S[jj:, jj], dS[jj:, jj], alpha[jj],
+                                        v)
+        if jj + 1 < b:
+            T, dT = S[jj:, jj + 1:], dS[jj:, jj + 1:]
+            w = gemm.matmul(v.conj(), T, precision)
+            dw = gemm.matmul(dv.conj(), T, precision) \
+                + gemm.matmul(v.conj(), dT, precision)
+            dT -= torch.outer(dv, w) + torch.outer(v, dw)
+            T -= torch.outer(v, w)
+        S[jj:, jj] = v
+        dS[jj:, jj] = dv
+    return dalpha
+
+
+def _panel_vjp(S, G, alpha, alpha_bar, precision: str = DEFAULT_PRECISION):
+    """Adjoint of the column steps of one panel, in reverse, in place:
+    ``S`` is the factored panel from its diagonal row down (it ends as the
+    panel's input), ``G`` its cotangent (it ends as the input's).
+
+    Nothing of the forward pass is kept but the factored panel: every
+    reflector is an involution (``||v||^2 = 2``), so the columns right of
+    step j before it are ``(I - v v^H)`` of those after it, and the column
+    itself was ``(I - v v^H) alpha_j e_j``."""
+    b = S.shape[1]
+    consts = _vjp_constants(alpha, torch.diagonal(S))
+    for jj in reversed(range(b)):
+        v = S[jj:, jj]  # read before S[jj:, jj] takes the rebuilt column
+        v_bar = G[jj:, jj]
+        if jj + 1 < b:
+            Tn, Gn = S[jj:, jj + 1:], G[jj:, jj + 1:]
+            Tn.addr_(v, gemm.matmul(v.conj(), Tn, precision), alpha=-1)
+            w = gemm.matmul(v.conj(), Tn, precision)
+            g = gemm.matmul(v.conj(), Gn, precision)
+            v_bar = v_bar - gemm.matmul(Gn, w.conj(), precision) \
+                - gemm.matmul(Tn, g.conj(), precision)
+            Gn.addr_(v, g, alpha=-1)
+        k = [c[jj] for c in consts]
+        x = k[0] * v
+        x[0] += alpha[jj]
+        # dhqr: ignore[DHQR002] a scalar of the reflector's scale, which the forward computes at full precision, never a policy product
+        p = torch.vdot(v, v_bar)
+        G[jj:, jj] = _reflector_vjp(x, v_bar, alpha_bar[jj], p, k)
+        S[jj:, jj] = x
+
+
 def _panel_qr_masked(panel: torch.Tensor, offset: int,
                      precision: str = DEFAULT_PRECISION,
                      norm: str = "accurate"):
@@ -235,9 +395,13 @@ def householder_qr(A, precision: str = DEFAULT_PRECISION,
                    norm: str = "accurate", device=None):
     """Factor ``A`` (m x n, m >= n): returns ``(H, alpha)`` — reflectors
     (rows j:m of column j, ``||v||^2 = 2``) and R's strict upper triangle in
-    ``H``, R's diagonal in ``alpha``."""
+    ``H``, R's diagonal in ``alpha``. Differentiable in both modes
+    (:func:`~dhqr_tpu_torch.ops.differentiable.householder_factor`)."""
+    from dhqr_tpu_torch.ops.differentiable import householder_factor
+
     A = as_tensor(A, device)
     m, n = A.shape
     if m < n:
         raise ValueError(f"householder_qr requires m >= n, got {tuple(A.shape)}")
-    return _panel_qr_masked(A, 0, precision=precision, norm=norm)
+    return householder_factor(A, unblocked=True, precision=precision,
+                              norm=norm)

@@ -29,8 +29,9 @@ def as_matrix_rhs(b: torch.Tensor):
 
 
 def _apply_reflectors(H, b, order, single_vdot: bool, precision):
+    """The reflectors of H applied to b one at a time in ``order``, out of
+    place (autograd may follow H or b)."""
     B, restore = as_matrix_rhs(b)
-    B = B.clone()
     single = single_vdot and B.shape[1] == 1
     for j in order:
         v = _reflector_column(H, j)
@@ -38,7 +39,7 @@ def _apply_reflectors(H, b, order, single_vdot: bool, precision):
             s = accurate_vdot(v, B[:, 0])[None]
         else:
             s = gemm.matmul(v.conj(), B, precision)
-        B -= v[:, None] * s[None, :]
+        B = B - v[:, None] * s[None, :]
     return restore(B)
 
 

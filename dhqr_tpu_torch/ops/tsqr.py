@@ -13,6 +13,9 @@ the combine stack, is a blocked QR through the blocked engine, so on the
 card every leaf panel launches the Hopper panel kernel
 (``use_pallas`` is resolved against the leaf height, as in the JAX
 package). :func:`tsqr_panel_plans` lists the panels of both stages.
+Both stages factor through
+:func:`~dhqr_tpu_torch.ops.differentiable.householder_factor`, so TSQR is
+differentiable in A and b as the composition of its stages.
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ import torch
 from dhqr_tpu_torch.ops.blocked import (
     DEFAULT_BLOCK_SIZE,
     _apply_qt_impl,
-    _blocked_qr_impl,
     _resolve_kernel,
     panel_plan,
 )
+from dhqr_tpu_torch.ops.differentiable import householder_factor
 from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.solve import _back_substitute, as_matrix_rhs, r_matrix
 from dhqr_tpu_torch.precision import (
@@ -36,11 +39,13 @@ from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
 
 
 def _leaf_factor(Ai, bi, nb, precision, kernel=False, trailing_precision=None):
-    """One row block: packed QR (in place in ``Ai``) reduced to its (n, n)
-    R head, and Q^H b's (n, k) head when ``bi`` is given (else None)."""
+    """One row block: packed QR (in place in ``Ai``, a copy, when autograd
+    does not follow it) reduced to its (n, n) R head, and Q^H b's (n, k)
+    head when ``bi`` is given (else None)."""
     n = Ai.shape[1]
-    H, alpha = _blocked_qr_impl(Ai, nb, kernel=kernel, precision=precision,
-                                trailing_precision=trailing_precision)
+    H, alpha = householder_factor(Ai, nb, in_place=True, kernel=kernel,
+                                  precision=precision,
+                                  trailing_precision=trailing_precision)
     c = None if bi is None else _apply_qt_impl(H, bi, nb, precision)[:n]
     return r_matrix(H, alpha), c
 
@@ -64,11 +69,12 @@ def _tsqr_factor(A, B, n_blocks, nb, precision, kernel=False,
 def _combine_factor(Rstack, cstack, nb, precision, kernel=False,
                     trailing_precision=None):
     """The combine stage: QR of the stacked R heads (in place in
-    ``Rstack``) and Q^H of the stacked c heads (None without them).
+    ``Rstack``, as the leaves) and Q^H of the stacked c heads (None
+    without them).
     Returns ``(H2, alpha2, c2)``; the row-sharded TSQR shares it."""
-    H2, alpha2 = _blocked_qr_impl(Rstack, nb, kernel=kernel,
-                                  precision=precision,
-                                  trailing_precision=trailing_precision)
+    H2, alpha2 = householder_factor(Rstack, nb, in_place=True, kernel=kernel,
+                                    precision=precision,
+                                    trailing_precision=trailing_precision)
     c2 = None if cstack is None else _apply_qt_impl(H2, cstack, nb, precision)
     return H2, alpha2, c2
 

@@ -85,6 +85,7 @@ from dhqr_tpu_torch.precision import (
     resolve_comms,
 )
 from dhqr_tpu_torch.utils.config import (
+    GRAD_MESH_ITEM,
     DHQRConfig,
     refuse_grad,
     refuse_unported,
@@ -250,7 +251,7 @@ def _prepare(A, mesh, axis_name, layout):
     _check_layout(layout)
     A = as_tensor(A, mesh.device)
     check_fp32_matmul(A.device)
-    refuse_grad(A, "the mesh engines")
+    refuse_grad(A, "the mesh engines", GRAD_MESH_ITEM, None)
     axis_name = resolve_axis(mesh, axis_name)
     return A, axis_name, axis_size(mesh, axis_name)
 

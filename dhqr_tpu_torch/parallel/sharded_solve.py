@@ -46,7 +46,11 @@ from dhqr_tpu_torch.precision import (
     resolve_comms,
     resolve_policy,
 )
-from dhqr_tpu_torch.utils.config import check_precision, refuse_grad
+from dhqr_tpu_torch.utils.config import (
+    GRAD_MESH_ITEM,
+    check_precision,
+    refuse_grad,
+)
 from dhqr_tpu_torch.utils.device import as_tensor
 
 
@@ -121,7 +125,7 @@ def sharded_solve(H, alpha, b, mesh, block_size: int = 128,
     H = as_tensor(H, mesh.device)
     alpha = as_tensor(alpha, mesh.device, H.dtype)
     b = as_tensor(b, mesh.device, H.dtype)
-    refuse_grad(b, "the mesh engines")
+    refuse_grad(b, "the mesh engines", GRAD_MESH_ITEM, None)
     axis_name = resolve_axis(mesh, axis_name)
     nproc = axis_size(mesh, axis_name)
     n = alpha.shape[0]

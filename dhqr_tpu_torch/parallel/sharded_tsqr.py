@@ -35,7 +35,11 @@ from dhqr_tpu_torch.parallel.topology import (
     resolve_axis,
 )
 from dhqr_tpu_torch.precision import resolve_comms
-from dhqr_tpu_torch.utils.config import check_precision, refuse_grad
+from dhqr_tpu_torch.utils.config import (
+    GRAD_MESH_ITEM,
+    check_precision,
+    refuse_grad,
+)
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
 
 
@@ -53,8 +57,8 @@ def prepare_rows(A, b, mesh, axis_name):
     A = as_tensor(A, mesh.device)
     b = as_tensor(b, A.device, A.dtype)
     check_fp32_matmul(A.device)
-    refuse_grad(A, "the mesh engines")
-    refuse_grad(b, "the mesh engines")
+    refuse_grad(A, "the mesh engines", GRAD_MESH_ITEM, None)
+    refuse_grad(b, "the mesh engines", GRAD_MESH_ITEM, None)
     axis = resolve_axis(mesh, axis_name)
     return A, b, axis, axis_size(mesh, axis)
 

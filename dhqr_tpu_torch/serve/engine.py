@@ -458,6 +458,8 @@ def _validate_requests(As: Sequence, bs: "Sequence | None"):
         raise ValueError(
             f"got {len(As)} matrices but {len(bs)} right-hand sides"
         )
+    for t in list(As) + list(bs or ()):
+        _blocked.refuse_batched_grad(t)
     for i, A in enumerate(As):
         shape = getattr(A, "shape", None)
         if shape is None or len(shape) != 2:

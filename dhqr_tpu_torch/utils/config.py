@@ -14,6 +14,7 @@ import math
 import os
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from dhqr_tpu_torch.precision import MXU_PASSES, resolve_comms
 
@@ -44,16 +45,41 @@ class NotPortedError(NotImplementedError):
             f"(arrives with ROADMAP.md {roadmap})")
 
 
-def refuse_grad(panel: torch.Tensor, engine: str) -> None:
-    """The panel engines write their factors where autograd cannot follow:
-    in place (the plain loop) or through a raw pointer (the Hopper kernel),
-    so a panel that requires grad raises rather than return a wrong
-    gradient. ``lstsq_diff`` factors with grad off and brings its own
-    derivative rules."""
-    if torch.is_grad_enabled() and panel.requires_grad:
-        raise NotPortedError(
-            f"gradients through {engine}",
-            "Queue A item 19 (gradients outside the blocked lstsq)")
+# Where gradients through the mesh engines arrive.
+GRAD_MESH_ITEM = "Queue A item 29 (gradients through the mesh)"
+# Why a panel engine refuses a matrix that records gradients when it is
+# called directly: the differentiable route goes around it.
+GRAD_BY_DESIGN = ("it writes its factors in place, where autograd cannot "
+                  "follow; every public factorization differentiates "
+                  "through ops.differentiable.householder_factor instead")
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd follows any of ``tensors``: reverse mode (grad
+    enabled and ``requires_grad``) or forward mode (a dual tensor, as
+    ``torch.func.jvp`` and forward-AD ``gradcheck`` make). None entries
+    are skipped."""
+    grad_on = torch.is_grad_enabled()
+    for t in tensors:
+        if t is None:
+            continue
+        if grad_on and t.requires_grad:
+            return True
+        if fwAD.unpack_dual(t).tangent is not None:
+            return True
+    return False
+
+
+def refuse_grad(tensor: torch.Tensor, engine: str,
+                roadmap: str = "Not ported by design",
+                reason: "str | None" = GRAD_BY_DESIGN) -> None:
+    """Raise :class:`NotPortedError` when autograd follows ``tensor`` into
+    ``engine``, rather than return a wrong gradient. The panel engines
+    (plain loop, reconstruct, the kernel's wrapper) and the batched engine
+    refuse by design; the mesh engines pass ``roadmap=GRAD_MESH_ITEM,
+    reason=None``."""
+    if records_grad(tensor):
+        raise NotPortedError(f"gradients through {engine}", roadmap, reason)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,18 @@ against ``jax.grad`` / ``jax.jvp`` of ``dhqr_tpu``.
 Tolerances: float64 gradients and tangents match the JAX package's to
 1e-9 (relative, both closed-form rules from one factorization), float32 to
 2e-3 (the rules amplify f32 rounding by ~cond(A)^2 at these shapes).
-Complex gradients are held by ``torch.autograd.gradcheck`` only: PyTorch
-and JAX use different conjugation conventions for them.
+Complex gradients match too, under the two packages' conventions: for a
+real loss, PyTorch's ``.grad`` is the complex conjugate of ``jax.grad``'s,
+so complex128 is held to 1e-9 against ``np.conj`` of the JAX gradient.
+
+The factoring entry points outside ``lstsq_diff`` (``qr``, ``qr_explicit``,
+``householder_qr``, ``blocked_householder_qr``, the unblocked and the
+minimum-norm ``lstsq``, TSQR) differentiate through
+``ops.differentiable.householder_factor`` and are held to ``jax.grad`` of
+the same ``dhqr_tpu`` call; the kernel routes (``use_pallas="always"``,
+the kernel's plain version on the CPU) to JAX's ``use_pallas="never"``.
+The raw kernel wrapper, the batched engine and the mesh engines refuse a
+matrix that autograd follows.
 """
 
 import numpy as np
@@ -124,7 +134,7 @@ def test_adjoint_identity_between_jvp_and_backward():
 
 def test_forward_pass_is_the_blocked_solve():
     """lstsq_diff's forward is the blocked engine's solve, bit for bit, and
-    the paths outside it refuse inputs that require grad."""
+    the paths outside it give the same forward with and without grad."""
     A, b = random_problem(48, 16, np.float32, seed=53)
     x = dt.lstsq_diff(A, b, 8, refine=1, device="cpu")
     fact = dt.qr(A, block_size=8, device="cpu")
@@ -135,11 +145,11 @@ def test_forward_pass_is_the_blocked_solve():
     for call in (lambda: dt.lstsq(At, bt, blocked=False, device="cpu"),
                  lambda: dt.lstsq(At, bt, engine="tsqr", device="cpu"),
                  lambda: dt.lstsq(At[:8], bt[:8], device="cpu"),
-                 lambda: dt.qr(At, device="cpu")):
-        with pytest.raises(dt.NotPortedError, match="gradients"):
-            call()
-    with torch.no_grad():
-        dt.lstsq(At, bt, blocked=False, device="cpu")
+                 lambda: dt.qr(At, device="cpu").H):
+        y = call()
+        assert y.requires_grad
+        with torch.no_grad():
+            assert torch.equal(y, call())
     for sched in ({"lookahead": True}, {"agg_panels": 2}):  # now ported
         torch.testing.assert_close(
             dt.lstsq_diff(A, b, 8, device="cpu", **sched),
@@ -150,36 +160,146 @@ def test_forward_pass_is_the_blocked_solve():
         dt.lstsq_diff(A[:8], b[:8], device="cpu")
 
 
+def _packed(fact, b):
+    """The packed factors and a solve of a factorization."""
+    return fact.H, fact.alpha, fact.solve(b)
+
+
 _FACTORING_CALLS = {  # every exported entry point that factors A outside
-    # lstsq_diff, by the plain panel loop and by the kernel's wrapper
-    "qr": lambda A, b: dt.qr(A, device="cpu"),
-    "qr_kernel": lambda A, b: dt.qr(A, use_pallas="always", device="cpu"),
-    "qr_explicit": lambda A, b: dt.qr_explicit(A, device="cpu"),
-    "blocked_householder_qr": lambda A, b: dt.blocked_householder_qr(
-        A, 8, device="cpu"),
-    "householder_qr": lambda A, b: dt.householder_qr(A, device="cpu"),
-    "lstsq_unblocked": lambda A, b: dt.lstsq(A, b, blocked=False,
-                                             device="cpu"),
-    "lstsq_minimum_norm": lambda A, b: dt.lstsq(A[:8], b[:8], device="cpu"),
-    "tsqr_lstsq": lambda A, b: dt.tsqr_lstsq(A, b, n_blocks=2, device="cpu"),
-    "tsqr_lstsq_kernel": lambda A, b: dt.tsqr_lstsq(
-        A, b, n_blocks=2, use_pallas="always", device="cpu"),
-    "tsqr_r": lambda A, b: dt.tsqr_r(A, n_blocks=2, device="cpu"),
+    # lstsq_diff, by the plain panel loop and by the kernel's route: the
+    # port's call and the JAX package's, each returning a tuple of outputs
+    "qr": (lambda A, b: _packed(dt.qr(A, device="cpu"), b),
+           lambda A, b: _packed(dhqr_tpu.qr(A), b)),
+    "qr_kernel": (
+        lambda A, b: _packed(dt.qr(A, use_pallas="always", device="cpu"), b),
+        lambda A, b: _packed(dhqr_tpu.qr(A, use_pallas="never"), b)),
+    "qr_explicit": (lambda A, b: dt.qr_explicit(A, device="cpu"),
+                    lambda A, b: dhqr_tpu.qr_explicit(A)),
+    "blocked_householder_qr": (
+        lambda A, b: dt.blocked_householder_qr(A, 8, device="cpu"),
+        lambda A, b: dhqr_tpu.blocked_householder_qr(A, 8)),
+    "householder_qr": (lambda A, b: dt.householder_qr(A, device="cpu"),
+                       lambda A, b: dhqr_tpu.householder_qr(A)),
+    "lstsq_unblocked": (
+        lambda A, b: (dt.lstsq(A, b, blocked=False, device="cpu"),),
+        lambda A, b: (dhqr_tpu.lstsq(A, b, blocked=False),)),
+    "lstsq_minimum_norm": (
+        lambda A, b: (dt.lstsq(A[:8], b[:8], device="cpu"),),
+        lambda A, b: (dhqr_tpu.lstsq(A[:8], b[:8]),)),
+    "tsqr_lstsq": (
+        lambda A, b: (dt.tsqr_lstsq(A, b, n_blocks=2, device="cpu"),),
+        lambda A, b: (dhqr_tpu.tsqr_lstsq(A, b, n_blocks=2),)),
+    "tsqr_lstsq_kernel": (
+        lambda A, b: (dt.tsqr_lstsq(A, b, n_blocks=2, use_pallas="always",
+                                    device="cpu"),),
+        lambda A, b: (dhqr_tpu.tsqr_lstsq(A, b, n_blocks=2,
+                                          use_pallas="never"),)),
+    "tsqr_r": (lambda A, b: (dt.tsqr_r(A, n_blocks=2, device="cpu"),),
+               lambda A, b: (dhqr_tpu.tsqr_r(A, n_blocks=2),)),
+}
+_KERNEL_ROUTES = ("qr_kernel", "tsqr_lstsq_kernel")  # f32 / c64 only
+_PARITY_CASES = [(name, dtype) for name in sorted(_FACTORING_CALLS)
+                 for dtype in ((np.float32, np.complex64)
+                               if name in _KERNEL_ROUTES else
+                               (np.float64, np.complex128))] + [
+    ("qr", np.float32), ("tsqr_lstsq", np.float32)]
+_GRAD_TOL = {np.float64: 1e-9, np.complex128: 1e-9, np.float32: 2e-3,
+             np.complex64: 2e-3}
+
+
+def _cotangents(outs, seed):
+    """One seeded weight per output, of its shape and dtype."""
+    rng = np.random.default_rng(seed)
+    ws = []
+    for o in outs:
+        o = np.asarray(o.detach() if isinstance(o, torch.Tensor) else o)
+        w = rng.standard_normal(o.shape)
+        if np.iscomplexobj(o):
+            w = w + 1j * rng.standard_normal(o.shape)
+        ws.append(w.astype(o.dtype))
+    return ws
+
+
+@pytest.mark.parametrize("name,dtype", _PARITY_CASES,
+                         ids=[f"{n}-{np.dtype(d).name}"
+                              for n, d in _PARITY_CASES])
+def test_factoring_entry_points_differentiate_like_jax(name, dtype):
+    """The loss sum_i Re<W_i, out_i> over a route's outputs: A's and b's
+    gradients equal the conjugate of jax.grad's through the same dhqr_tpu
+    call (equal for real dtypes)."""
+    A, b = random_problem(48, 16, dtype, seed=54)
+    port, ref = _FACTORING_CALLS[name]
+    ws = _cotangents(port(torch.from_numpy(A), torch.from_numpy(b)), 57)
+    At = torch.tensor(A, requires_grad=True)
+    bt = torch.tensor(b, requires_grad=True)
+    outs = port(At, bt)
+    sum(torch.sum(torch.real(torch.from_numpy(w).conj() * o))
+        for w, o in zip(ws, outs)).backward()
+
+    def loss(A, b):
+        return sum(jnp.sum(jnp.real(jnp.conj(w) * o))
+                   for w, o in zip(ws, ref(A, b)))
+
+    jA, jb = jax.grad(loss, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(b))
+    assert _rel(At.grad.numpy(), np.conj(np.asarray(jA))) <= _GRAD_TOL[dtype]
+    if bt.grad is not None:
+        assert _rel(bt.grad.numpy(), np.conj(np.asarray(jb))) \
+            <= _GRAD_TOL[dtype]
+    else:  # a factor-only route: b does not reach the outputs
+        assert not np.any(np.asarray(jb))
+
+
+def _batched_engine(A, b):
+    from dhqr_tpu_torch.ops import blocked
+
+    return blocked._batched_qr_impl(A[None].clone(), 8)
+
+
+_REFUSING_CALLS = {  # where autograd does not follow, by design
     "panel_qr_kernel": lambda A, b: hopper_panel.panel_qr_kernel(A),
+    "batched_qr": lambda A, b: dt.batched_qr([A], device="cpu"),
+    "batched_lstsq": lambda A, b: dt.batched_lstsq([A], [b], device="cpu"),
+    "batched_engine": _batched_engine,
 }
 
 
-@pytest.mark.parametrize("name", sorted(_FACTORING_CALLS))
+@pytest.mark.parametrize("name", sorted(_REFUSING_CALLS))
 def test_factoring_entry_points_refuse_a_matrix_that_requires_grad(name):
-    """The panel engines (plain loop, kernel wrapper) own the refusal, so
-    the exported ops raise as the routers do; with grad off they run."""
+    """The raw kernel wrapper (a raw-pointer write) and the batched engine
+    (in place on a donated stack; jax.grad fails there too) refuse, and
+    say why; with grad off they run."""
     A, b = random_problem(48, 16, np.float32, seed=54)
     At = torch.tensor(A, requires_grad=True)
-    call = _FACTORING_CALLS[name]
-    with pytest.raises(dt.NotPortedError, match="gradients"):
+    call = _REFUSING_CALLS[name]
+    with pytest.raises(dt.NotPortedError, match="no counterpart") as err:
         call(At, torch.from_numpy(b))
+    assert "gradients through" in str(err.value) and err.value.reason
     with torch.no_grad():
         call(At, torch.from_numpy(b))
+
+
+def test_mesh_engines_refuse_a_matrix_that_requires_grad():
+    """The mesh engines refuse before any collective and cite ROADMAP item
+    29 (gradients through the mesh: jax.grad works through
+    lstsq(mesh=...), so this is a gap, not a design)."""
+    from dhqr_tpu_torch.analysis.jaxpr_pass import solo_meshes
+
+    A, b = random_problem(48, 16, np.float64, seed=58)
+    At = torch.tensor(A, requires_grad=True)
+    bt = torch.tensor(b, requires_grad=True)
+    with solo_meshes(torch.device("cpu")) as (meshes, _):
+        cols, rows = meshes["cols"], meshes["rows"]
+        for call in (lambda: dt.qr(At, mesh=cols, block_size=8),
+                     lambda: dt.lstsq(At, bt, mesh=cols, block_size=8),
+                     lambda: dt.lstsq(At, bt, mesh=cols, blocked=False),
+                     lambda: dt.lstsq(At, bt, mesh=rows, engine="tsqr"),
+                     lambda: dt.lstsq(At, bt, mesh=rows, engine="cholqr2"),
+                     lambda: dt.qr(A, mesh=cols, block_size=8).solve(bt)):
+            with pytest.raises(dt.NotPortedError, match="item 29"):
+                call()
+        with torch.no_grad():
+            x = dt.lstsq(At, bt, mesh=cols, block_size=8)
+    assert _rel(x.numpy(), dt.lstsq(A, b, block_size=8, device="cpu")) <= 1e-9
 
 
 @pytest.mark.parametrize("name", ["lstsq_unblocked", "tsqr_lstsq"])
@@ -196,4 +316,5 @@ def test_rhs_gradient_outside_lstsq_diff_matches_it(name):
         return bt.grad.numpy()
 
     ref = grad_b(lambda A, b: dt.lstsq_diff(A, b, 8, device="cpu"))
-    assert _rel(grad_b(_FACTORING_CALLS[name]), ref) <= 1e-12
+    port = _FACTORING_CALLS[name][0]
+    assert _rel(grad_b(lambda A, b: port(A, b)[0]), ref) <= 1e-12
