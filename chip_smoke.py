@@ -1937,8 +1937,220 @@ def _rank_rows_case(dt, parallel, hp, device, seed, m, n, dtype, engines):
     return rows
 
 
+TOL_GRAD_COMPRESSED = 1e-3   # compressed row engine's gradient vs exact
+
+
+def _grad_route(dt, parallel, route, device, block_size):
+    """``(mesh call, single-device call)`` of one phase-14 gradient route,
+    each mapping (A, b) to its outputs (the single-device one takes the
+    engine's keywords): "qr": (H, alpha) of ``qr(mesh=)`` (this rank's
+    store-order block, and alpha) beside ``qr``'s; "lstsq": x of
+    ``lstsq(mesh=)``; ("rows", engine, comms): x of the row engine; both
+    beside the blocked ``lstsq``'s x, the exact solution's twin."""
+    if route == "qr":
+        mesh = parallel.column_mesh(device=device)
+
+        def packed(f):
+            return f.H, f.alpha
+
+        return (lambda A, b: packed(dt.qr(A, mesh=mesh,
+                                          block_size=block_size)),
+                lambda A, b, **kw: packed(dt.qr(A, device=A.device, **kw)))
+    single = (lambda A, b, **kw: (dt.lstsq(A, b, device=A.device, **kw),))
+    if route == "lstsq":
+        mesh = parallel.column_mesh(device=device)
+        return (lambda A, b: (dt.lstsq(A, b, mesh=mesh,
+                                       block_size=block_size),), single)
+    _, engine, comms = route
+    mesh = parallel.row_mesh(device=device)
+    return (lambda A, b: (dt.lstsq(A, b, mesh=mesh, engine=engine,
+                                   comms=comms),), single)
+
+
+def _rank_grad_case(dt, parallel, hp, device, seed, m, n, dtype, routes,
+                    block_size=128):
+    """Gradients through the mesh on this rank, per route
+    (:func:`_grad_route`): the forward without grad (timed after a warm-up
+    call), then with it (bits, launches, seconds), the backward of the
+    weighted loss (seconds, its collectives and bytes from the wire
+    census, peak memory over A's bytes) and the tangent's part of the
+    adjoint identity, with a digest of the gradient; rank 0 also holds
+    the gradient to the single-device f64 route's (compensated norm off:
+    f64 needs none), beside the single-device f32 plain route's error.
+    The row routes share their data, so rank 0 computes their
+    yardsticks once."""
+    import hashlib
+
+    import torch.autograd.forward_ad as fwAD
+
+    from dhqr_tpu_torch.parallel import _ranks, wire
+
+    dtype = getattr(torch, dtype)
+    wide = _wide(dtype)
+    rank0 = torch.distributed.get_rank() == 0
+    _warm_factor_grad(dt, dtype, device)
+    yardsticks = {}
+    rows = []
+    for i, route in enumerate(routes):
+        t_route = time.perf_counter()
+        shared = not isinstance(route, str)  # a row route
+        g = torch.Generator(device=device).manual_seed(
+            seed + (0 if shared else i))
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=device,
+                               dtype=dtype)
+
+        A, b, U, ub = rnd(m, n), rnd(m), rnd(m, n), rnd(m)
+        mesh_call, single = _grad_route(dt, parallel, route, device,
+                                        block_size)
+        with torch.no_grad():
+            mesh_call(A, b)  # warm-up: first-use costs of the route
+            l0 = sum(hp.LAUNCHES.values())
+            outs0, fwd_s = _timed(lambda: mesh_call(A, b), device)
+            launches_off = sum(hp.LAUNCHES.values()) - l0
+        natural = [rnd(m, n), rnd(n)] if route == "qr" else [rnd(n)]
+        ws = list(natural)
+        if route == "qr":  # this rank's store-order block of the H weight
+            fact = dt.qr(A, mesh=parallel.column_mesh(device=device),
+                         block_size=block_size)
+            ws[0] = _ranks._weight(("store", natural[0]), fact, device)
+            del fact
+        At, bt = _with_grad(A, b)
+        torch.cuda.reset_peak_memory_stats()
+        l0 = sum(hp.LAUNCHES.values())
+        outs, fwd_grad_s = _timed(lambda: mesh_call(At, bt), device)
+        launches_on = sum(hp.LAUNCHES.values()) - l0
+        same = all(torch.equal(o.detach(), o0) for o, o0 in zip(outs, outs0))
+        fwd_peak = torch.cuda.max_memory_allocated()
+        # autograd runs a CUDA backward on a thread of its own
+        with wire.census(every_thread=True) as seen:
+            (gA, gb), bwd_s = _timed(lambda: _grads(_weighted(outs, ws),
+                                                    (At, bt)), device)
+        peak = (torch.cuda.max_memory_allocated() - fwd_peak) / A.nbytes
+        del outs, At, bt
+        with fwAD.dual_level():
+            tangents, jvp_s = _timed(lambda: [
+                fwAD.unpack_dual(t).tangent for t in mesh_call(
+                    fwAD.make_dual(A, U), fwAD.make_dual(b, ub))], device)
+        digest = hashlib.sha256()
+        for t in (gA, gb):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        row = {"route": route if isinstance(route, str) else
+               "-".join(str(v) for v in route),
+               "forward_s": fwd_s, "forward_with_grad_s": fwd_grad_s,
+               "backward_s": bwd_s, "jvp_s": jvp_s,
+               "forward_bit_identical": same,
+               "launches_grad_off": launches_off,
+               "launches_grad_on": launches_on,
+               "backward_collectives": len(seen.entries),
+               "backward_bytes": sum(e["bytes"] for e in seen.entries),
+               "backward_families": {
+                   f: v["collectives"] for f, v in seen.families().items()},
+               "backward_peak_over_A_bytes": peak,
+               "wJu": [_real_dot(w, t) for w, t in zip(ws, tangents)],
+               "gu": _real_dot(gA, U) + _real_dot(gb, ub),
+               "grad_digest": digest.hexdigest()}
+        del tangents
+        if rank0:  # the single-device yardsticks
+            t_ref = time.perf_counter()
+            key = "rows" if shared else route
+            if key not in yardsticks:
+                def grads_of(call, A_, b_, ws_):
+                    Ar, br = _with_grad(A_, b_)
+                    return _grads(_weighted(call(Ar, br), ws_), (Ar, br))
+
+                yardsticks[key] = (
+                    grads_of(lambda A_, b_: single(A_, b_, norm="fast"),
+                             A.to(wide), b.to(wide),
+                             [w.to(wide) for w in natural]),
+                    grads_of(lambda A_, b_: single(A_, b_,
+                                                   use_pallas="never"),
+                             A, b, natural))
+            (ref_A, ref_b), (plain_A, plain_b) = yardsticks[key]
+            row["grad_rel_err_vs_f64_route"] = max(
+                rel_err(gA.to(wide), ref_A), rel_err(gb.to(wide), ref_b))
+            row["plain_f32_rel_err_vs_f64_route"] = max(
+                rel_err(plain_A.to(wide), ref_A),
+                rel_err(plain_b.to(wide), ref_b))
+            row["yardstick_s"] = time.perf_counter() - t_ref
+        row["seconds"] = time.perf_counter() - t_route
+        rows.append(row)
+        del A, b, U, ub, gA, gb, ws, natural
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _check_sharded_grad(case, per_rank, P, where, smi):
+    """Phase 14's gradient case: per route, every rank's forward with grad
+    bit for bit the forward without it with the same launches (the plan's
+    on the column mesh), every rank's gradient bit-identical to rank 0's,
+    the adjoint identity with the conventions' global sums, and the
+    gradient within 2x the single-device f32 plain route's error against
+    the f64 route's (a compressed wire: within 1e-3 of it)."""
+    m, n = case["m"], case["n"]
+    dtype = getattr(torch, case["dtype"])
+    for j, route in enumerate(case["routes"]):
+        rows = [r[j] for r in per_rank]
+        r0 = rows[0]
+        if route == "qr":  # the blocks summed, alpha once
+            wJu = sum(r["wJu"][0] for r in rows) + r0["wJu"][1]
+        else:
+            wJu = sum(r0["wJu"])
+        adjoint = abs(wJu - r0["gu"]) / abs(r0["gu"])
+        launches = sum(r["launches_grad_on"] for r in rows)
+        compressed = not isinstance(route, str) and route[2] is not None
+        expect = sharded_plan(m, n, dtype, P, case.get("block_size")) \
+            if route in ("qr", "lstsq") else None
+        err, plain = (r0["grad_rel_err_vs_f64_route"],
+                      r0["plain_f32_rel_err_vs_f64_route"])
+        row = {"phase": 14, "name": "sharded_gradient", **where,
+               "card": smi, "route": r0["route"], "dtype": case["dtype"],
+               "shape": [m, n],
+               "forward_ms": 1e3 * max(r["forward_s"] for r in rows),
+               "forward_with_grad_ms": 1e3 * max(
+                   r["forward_with_grad_s"] for r in rows),
+               "forward_backward_ms": 1e3 * max(
+                   r["forward_with_grad_s"] + r["backward_s"] for r in rows),
+               "jvp_ms": 1e3 * max(r["jvp_s"] for r in rows),
+               "route_s": max(r["seconds"] for r in rows),
+               "yardstick_s": r0["yardstick_s"],
+               "backward_collectives_per_rank": r0["backward_collectives"],
+               "backward_bytes_per_rank": r0["backward_bytes"],
+               "backward_families": r0["backward_families"],
+               "backward_peak_over_A_bytes": max(
+                   r["backward_peak_over_A_bytes"] for r in rows),
+               "grad_rel_err_vs_f64_route": err,
+               "plain_f32_rel_err_vs_f64_route": plain,
+               "tol_factor": KERNEL_GRAD_FACTOR,
+               "adjoint_rel_err": adjoint, "tol_adjoint": TOL_ADJOINT,
+               "forward_bit_identical": all(
+                   r["forward_bit_identical"] for r in rows),
+               "launches_grad_on": launches,
+               "launches_grad_off": sum(r["launches_grad_off"]
+                                        for r in rows),
+               "expected": expect,
+               "ranks_agree": len({r["grad_digest"] for r in rows}) == 1}
+        bar = TOL_GRAD_COMPRESSED if compressed else KERNEL_GRAD_FACTOR * plain
+        # the identity holds to the f32 rounding of both sides: where the
+        # route's own gradient error exceeds TOL_ADJOINT (c64 at 1024
+        # columns: a pivot's phase is sensitive), to 2x that error
+        row["tol_adjoint"] = max(TOL_ADJOINT, KERNEL_GRAD_FACTOR * plain)
+        row["ok"] = bool(
+            row["forward_bit_identical"] and row["ranks_agree"]
+            and all(r["launches_grad_on"] == r["launches_grad_off"]
+                    for r in rows)
+            and (expect is None or launches == expect)
+            and adjoint <= row["tol_adjoint"] and err <= bar)
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"sharded gradient check failed: {row}")
+
+
 _RANK_CASES = {"qr": _rank_qr_case, "lstsq": _rank_lstsq_case,
-               "rows": _rank_rows_case}
+               "rows": _rank_rows_case, "grad": _rank_grad_case}
 
 
 def sharded_worker(device, cases):
@@ -1989,14 +2201,20 @@ def _mps_running() -> bool:
     return False
 
 
-def phase_sharded(hp, seed):
+def phase_sharded(hp, seed, smi=None):
     """The sharded tier on one card: (a) NCCL with one rank, ``qr`` +
-    ``solve`` at 16384^2 f32; (b) gloo, 4 ranks on card 0, ``qr`` +
-    ``solve`` at 16384^2 f32 per layout and schedule, (d) ``lstsq`` at the
-    reference's 4400 x 4000 (and 4400 x 3998, padded) f32 and c64 under
-    8x, (e) TSQR and CholeskyQR2 on the row mesh at 65536 x 256 f32; (c)
-    gloo, 2 ranks, c64 ``qr`` + ``solve`` at 8192 x 4096. Launches of every
-    rank are added into the parent's counts."""
+    ``solve`` at 16384^2 f32, and (f) gradients through ``qr(mesh=)`` and
+    ``lstsq(mesh=)`` at the reference's 4400 x 4000 f32; (b) gloo, 4 ranks
+    on card 0, ``qr`` + ``solve`` at 16384^2 f32 per layout and schedule,
+    (d) ``lstsq`` at the reference's 4400 x 4000 (and 4400 x 3998, padded)
+    f32 and c64 under 8x, (e) TSQR and CholeskyQR2 on the row mesh at
+    65536 x 256 f32, (f) gradients through the column mesh at 1024 x 512
+    f32 and c64 (two 64-wide panels per rank) and the row mesh at 65536 x
+    256 f32
+    (tsqr, cholqr2, cholqr2 on the bf16 wire); (c) gloo, 2 ranks, c64
+    ``qr`` + ``solve`` at 8192 x 4096. Launches of every rank are added
+    into the parent's counts; ``smi`` (the card's name and power limit)
+    marks the gradient rows."""
     from dhqr_tpu_torch.parallel._ranks import run_ranks
     from dhqr_tpu_torch.utils.testing import lapack_lstsq, \
         normal_equations_residual
@@ -2018,11 +2236,14 @@ def phase_sharded(hp, seed):
     square = {"kind": "qr", "m": 16384, "n": 16384, "dtype": f32,
               "seed": seed + 14}
     reference = {"kind": "lstsq", "m": 4400, "n": 4000, "seed": seed + 3}
+    grads = {"kind": "grad", "seed": seed + 17}
     runs = [
-        ("a", "nccl", 1, [dict(square, probe=True, profile=True,
-                               runs=[("block", "default", {}),
-                                     ("block", "lookahead",
-                                      {"lookahead": True})])]),
+        ("af", "nccl", 1, [dict(square, probe=True, profile=True,
+                                runs=[("block", "default", {}),
+                                      ("block", "lookahead",
+                                       {"lookahead": True})]),
+                           dict(grads, m=4400, n=4000, dtype=f32,
+                                routes=["qr", "lstsq"])]),
         ("c", "gloo", 2, [{"kind": "qr", "m": 8192, "n": 4096, "dtype": c64,
                            "seed": seed + 15,
                            "runs": [("cyclic", "default", {})]}]),
@@ -2032,7 +2253,14 @@ def phase_sharded(hp, seed):
             dict(reference, dtype=f32, cols=3998),
             dict(reference, dtype=c64, cols=4000),
             {"kind": "rows", "m": 65536, "n": 256, "dtype": f32,
-             "seed": seed + 16, "engines": ["tsqr", "cholqr2"]}]),
+             "seed": seed + 16, "engines": ["tsqr", "cholqr2"]},
+            dict(grads, m=1024, n=512, dtype=f32, block_size=64,
+                 routes=["qr", "lstsq"]),
+            dict(grads, m=1024, n=512, dtype=c64, block_size=64,
+                 routes=["qr"]),
+            dict(grads, m=65536, n=256, dtype=f32,
+                 routes=[("rows", "tsqr", None), ("rows", "cholqr2", None),
+                         ("rows", "cholqr2", "bf16")])]),
     ]
     for label, backend, P, cases in runs:
         t0 = time.perf_counter()
@@ -2048,6 +2276,8 @@ def phase_sharded(hp, seed):
             per_rank = [r["cases"][i] for r in ranks]
             if case["kind"] == "qr":
                 _check_sharded_qr(case, per_rank, P, where)
+            elif case["kind"] == "grad":
+                _check_sharded_grad(case, per_rank, P, where, smi)
             elif case["kind"] == "lstsq":
                 dtype = np.dtype(case["dtype"])
                 A, b, _ = lapack_problem(case["m"], case["n"], dtype,
@@ -5138,7 +5368,7 @@ def main(argv=None) -> int:
     if 13 in phases:
         counted("sketch", lambda: phase_sketch(dt, args.seed))
     if 14 in phases:
-        counted("sharded", lambda: phase_sharded(hp, args.seed))
+        counted("sharded", lambda: phase_sharded(hp, args.seed, smi))
     if 15 in phases:
         tallies = {}  # each path's launches as its own calls counted them
         counted("guarded", lambda: tallies.update(

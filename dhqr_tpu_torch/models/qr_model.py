@@ -56,6 +56,7 @@ from dhqr_tpu_torch.utils.config import (
     ENGINES,
     DHQRConfig,
     SketchConfig,
+    refuse_mesh_grad,
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
@@ -196,6 +197,9 @@ class QRFactorization:
         refinement stalls at the bias of the perturbed Q^H)."""
         steps = self.refine if refine is None else int(refine)
         b = self._rhs(b)
+        if steps and self.mesh is not None:
+            refuse_mesh_grad("refinement on the column mesh", "refine",
+                             self.H, self.alpha, b, self.matrix)
         x = self._solve_once(b)
         if steps:
             if self.matrix is None:
@@ -740,7 +744,10 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     (:func:`~dhqr_tpu_torch.parallel.sharded_lstsq`, or the unblocked
     engine chained into :func:`~dhqr_tpu_torch.parallel.sharded_solve`)
     and tsqr / cholqr2 / cholqr3 row-sharded; ``refine`` factors once
-    and loops the sharded solve. The mesh path is not differentiable.
+    and loops the sharded solve. The mesh path differentiates as the JAX
+    package's does (:mod:`dhqr_tpu_torch.parallel.sharded_qr`), except
+    the column mesh with ``refine > 0`` (and so with a compressed
+    ``comms``), where ``jax.grad`` fails: it raises ``NotPortedError``.
 
     ``comms=`` (mesh only) names the wire format of the mesh's
     collectives; a compressed householder mesh solve refines by at least
@@ -808,6 +815,10 @@ def _lstsq_mesh(A, b, cfg: DHQRConfig, mesh):
     :func:`~dhqr_tpu_torch.parallel.sharded_lstsq`; unblocked, or with
     ``refine`` sweeps, one :func:`qr` and its sharded solves (factor and
     solve share one store order)."""
+    if cfg.refine:
+        refuse_mesh_grad(
+            "lstsq(mesh=) with refine > 0 (a compressed comms= forces its "
+            "floor of CSNE sweeps)", "refine", A, b)
     if cfg.blocked and not cfg.refine:
         return sharded_lstsq(
             A, b, mesh, block_size=cfg.block_size,

@@ -65,6 +65,7 @@ from dhqr_tpu_torch.numeric.errors import (
     ResidualGateFailed,
 )
 from dhqr_tpu_torch.obs import trace as _obs
+from dhqr_tpu_torch.utils.config import refuse_mesh_grad
 from dhqr_tpu_torch.utils.device import as_tensor
 from dhqr_tpu_torch.utils.profiling import Counters
 
@@ -381,6 +382,9 @@ def guarded_lstsq(A, b, config=None, mesh=None, device=None,
     cfg = dataclasses.replace(cfg, guards=None)
     A, b = _inputs(A, b, mesh, device)
     dev = A.device if mesh is None else None
+    if mode == "full" and mesh is not None:
+        refuse_mesh_grad("guarded_lstsq(guards='full', mesh=)", "probe",
+                         A, b)
 
     rec, tid = _trace_guarded("guarded_lstsq", cfg.engine, mode, A.shape)
     COUNTERS.bump("guarded_calls")
@@ -528,6 +532,8 @@ def guarded_qr(A, config=None, mesh=None, device=None,
     cfg = dataclasses.replace(cfg, guards=None)
     A, _ = _inputs(A, None, mesh, device)
     dev = A.device if mesh is None else None
+    if mode == "full" and mesh is not None:
+        refuse_mesh_grad("guarded_qr(guards='full', mesh=)", "cond", A)
 
     rec, tid = _trace_guarded("guarded_qr", cfg.engine, mode, A.shape)
     COUNTERS.bump("guarded_calls")

@@ -191,6 +191,8 @@ def _numpy(value):
         return mesh_summary(value)
     if isinstance(value, (tuple, list)):
         return type(value)(_numpy(v) for v in value)
+    if isinstance(value, dict):
+        return {k: _numpy(v) for k, v in value.items()}
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         return dataclasses.replace(value, **{
             f.name: _numpy(getattr(value, f.name))
@@ -221,38 +223,15 @@ def run_calls(device, cases):
     in the seam's report (:func:`_armor_report`). The armor seam's
     degraded labels and wire trips outlive a case, as in a process."""
     import contextlib
-    import importlib
 
-    import dhqr_tpu_torch
-    from dhqr_tpu_torch import armor, faults, parallel
+    from dhqr_tpu_torch import armor, faults
     from dhqr_tpu_torch.parallel import wire
 
-    meshes = {"cols": parallel.column_mesh(device=device),
-              "rows": parallel.row_mesh(device=device)}
-
-    def mesh_of(name):
-        if name not in meshes:  # "pod:<topo>"
-            meshes[name] = parallel.pod_mesh(topo=name[4:],
-                                             device=device)[0]
-        return meshes[name]
-
-    def bind(x):
-        if isinstance(x, Placeholder):  # compared by name: it was pickled
-            return value if x.name == PREV.name else mesh_of(x.name)
-        if isinstance(x, AsTensor):
-            return torch.as_tensor(x.array, device=device)
-        if isinstance(x, (tuple, list)):
-            return type(x)(bind(v) for v in x)
-        if isinstance(x, dict):
-            return {k: bind(v) for k, v in x.items()}
-        return x
-
+    mesh_of = _mesh_getter(device)
     out = []
     for case in cases:
         if not isinstance(case, dict):
             case = {"steps": case}
-        steps = case["steps"]
-        value = None
         scope = faults.injected(case["faults"]) if case.get("faults") \
             else contextlib.nullcontext()
         armed = armor.armored(case["armor"]) if case.get("armor") \
@@ -260,18 +239,7 @@ def run_calls(device, cases):
         try:
             with armed as state, scope, wire.census() as seen:
                 try:
-                    for target, args, kwargs in steps:
-                        args, kwargs = bind(args), bind(kwargs)
-                        if target.startswith("."):
-                            value = getattr(value, target[1:])(*args,
-                                                               **kwargs)
-                            continue
-                        path, _, name = target.rpartition(".")
-                        mod = importlib.import_module(
-                            f"dhqr_tpu_torch.{path}") if path else \
-                            parallel if hasattr(parallel, name) else \
-                            dhqr_tpu_torch
-                        value = getattr(mod, name)(*args, **kwargs)
+                    value = _run_steps(case["steps"], mesh_of, device)
                 except Exception as exc:
                     outcome = ("raised", type(exc).__name__, str(exc))
                     if state is not None:
@@ -287,6 +255,196 @@ def run_calls(device, cases):
         except Exception as exc:  # the case's outcome, for the caller
             out.append(("raised", type(exc).__name__, str(exc)))
     return out
+
+
+def _mesh_getter(device):
+    """``mesh_of(name)``: this rank's column mesh ("cols"), row mesh
+    ("rows") or pod mesh ("pod:<topo>", made at its first use)."""
+    from dhqr_tpu_torch import parallel
+
+    meshes = {"cols": parallel.column_mesh(device=device),
+              "rows": parallel.row_mesh(device=device)}
+
+    def mesh_of(name):
+        if name not in meshes:  # "pod:<topo>"
+            meshes[name] = parallel.pod_mesh(topo=name[4:],
+                                             device=device)[0]
+        return meshes[name]
+
+    return mesh_of
+
+
+def _run_steps(steps, mesh_of, device, inputs=()):
+    """The value of a :func:`run_calls` case's steps; :class:`Arg`
+    placeholders take ``inputs``."""
+    import importlib
+
+    import dhqr_tpu_torch
+    from dhqr_tpu_torch import parallel
+
+    value = None
+
+    def bind(x):
+        if isinstance(x, Arg):
+            return inputs[x.index]
+        if isinstance(x, Placeholder):  # compared by name: it was pickled
+            return value if x.name == PREV.name else mesh_of(x.name)
+        if isinstance(x, AsTensor):
+            return torch.as_tensor(x.array, device=device)
+        if isinstance(x, (tuple, list)):
+            return type(x)(bind(v) for v in x)
+        if isinstance(x, dict):
+            return {k: bind(v) for k, v in x.items()}
+        return x
+
+    for target, args, kwargs in steps:
+        args, kwargs = bind(args), bind(kwargs)
+        if target.startswith("."):
+            value = getattr(value, target[1:])(*args, **kwargs)
+            continue
+        path, _, name = target.rpartition(".")
+        mod = importlib.import_module(f"dhqr_tpu_torch.{path}") if path \
+            else parallel if hasattr(parallel, name) else dhqr_tpu_torch
+        value = getattr(mod, name)(*args, **kwargs)
+    return value
+
+
+class Arg:
+    """The ``index``-th input of a :func:`run_grads` case, in its steps."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def _picked(value, spec):
+    """An output of a case's value: the value itself (None), an item of a
+    tuple (an int) or an attribute (a name)."""
+    if spec is None:
+        return value
+    return value[spec] if isinstance(spec, int) else getattr(value, spec)
+
+
+def _weight(w, value, device):
+    """A loss weight as a tensor: an array, or ``("store", W)``, the
+    natural-order W (the caller's m x n) as this rank's store-order block
+    of the mesh factorization ``value`` (zeros on its padded rows and
+    columns)."""
+    from dhqr_tpu_torch.parallel import sharded_qr
+
+    if not isinstance(w, tuple):
+        return torch.as_tensor(w, device=device)
+    W = torch.as_tensor(w[1], device=device)
+    m_pad, nloc = value.H.shape
+    n_pad = nloc * value.mesh.size
+    Wp = W.new_zeros((m_pad, n_pad))
+    Wp[:W.shape[0], :W.shape[1]] = W
+    return sharded_qr._local_block(Wp, value.mesh, n_pad, value.block_size,
+                                   value.layout)
+
+
+def _inner(ws, xs) -> torch.Tensor:
+    """``sum Re <w, x>`` over the pairs (PyTorch's complex convention)."""
+    return sum(torch.sum(torch.real(w.conj() * x)) for w, x in zip(ws, xs))
+
+
+def run_grads(device, cases):
+    """Worker: differentiate each case on this rank; per case ``("ok",
+    result)`` with tensors as numpy arrays, or ``("raised", exception type
+    name, message)``.
+
+    A case is a dict: ``"inputs"`` (numpy arrays; :class:`Arg` ``(i)`` in
+    the steps stands for the i-th), ``"wrt"`` (the indices autograd
+    follows), ``"steps"`` (as :func:`run_calls`'s), ``"out"`` (the outputs
+    of the steps' value, :func:`_picked` specs; default: the value),
+    ``"weights"`` (one per output, :func:`_weight` specs) and optionally
+    ``"tangents"`` (one per ``wrt`` input) with ``"mode"`` ``"dual"``
+    (forward-AD dual tensors, the default) or ``"func"``
+    (``torch.func.jvp``). This rank's loss is ``sum Re <w, out>`` over the
+    outputs. The result: ``"plain"`` (the outputs with grad off),
+    ``"outs"`` (with grad on), ``"calls"`` (the panel-kernel wrapper's
+    calls in each of the two), ``"losses"`` (``Re <w, out>`` per output),
+    ``"grads"``, and with tangents ``"jvp"`` (the outputs' tangents),
+    ``"wJu"`` (``Re <w, J u>`` per output) and ``"gu"`` (``sum Re <grad,
+    u>``); ``"census"`` holds the wire census's entries of the backward
+    and of the jvp."""
+    import torch.autograd.forward_ad as fwAD
+
+    from dhqr_tpu_torch.ops import blocked
+    from dhqr_tpu_torch.parallel import wire
+
+    mesh_of = _mesh_getter(device)
+    real_kernel = blocked._panel_qr_kernel
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real_kernel(*args, **kwargs)
+
+    def outputs(case, args):
+        value = _run_steps(case["steps"], mesh_of, device, args)
+        return value, [_picked(value, o) for o in case.get("out", [None])]
+
+    out = []
+    blocked._panel_qr_kernel = counting
+    try:
+        for case in cases:
+            try:
+                inputs = [torch.as_tensor(a, device=device)
+                          for a in case["inputs"]]
+                wrt = list(case.get("wrt", range(len(inputs))))
+                calls.clear()
+                with torch.no_grad():
+                    plain = outputs(case, inputs)[1]
+                n_plain = len(calls)
+                leaves = [t.clone().requires_grad_(i in wrt)
+                          for i, t in enumerate(inputs)]
+                value, outs = outputs(case, leaves)
+                n_grad = len(calls) - n_plain
+                ws = [_weight(w, value, device) for w in case["weights"]]
+                losses = [_inner([w], [o]) for w, o in zip(ws, outs)]
+                with wire.census(every_thread=True) as seen:
+                    sum(losses).backward()
+                grads = [leaves[i].grad for i in wrt]
+                result = {"plain": plain, "outs": [o.detach() for o in outs],
+                          "calls": (n_plain, n_grad),
+                          "losses": [x.item() for x in losses],
+                          "grads": grads, "census": {"vjp": seen.entries}}
+                if case.get("tangents") is not None:
+                    us = [torch.as_tensor(u, device=device)
+                          for u in case["tangents"]]
+                    with wire.census() as seen:
+                        jvp = _tangents(case, inputs, wrt, us, outputs,
+                                        fwAD)
+                    result.update(
+                        jvp=jvp, gu=_inner(grads, us).item(),
+                        wJu=[_inner([w], [t]).item()
+                             for w, t in zip(ws, jvp)])
+                    result["census"]["jvp"] = seen.entries
+                out.append(("ok", _numpy(result)))
+            except Exception as exc:  # the case's outcome, for the caller
+                out.append(("raised", type(exc).__name__, str(exc)))
+    finally:
+        blocked._panel_qr_kernel = real_kernel
+    return out
+
+
+def _tangents(case, inputs, wrt, us, outputs, fwAD):
+    """The outputs' tangents along ``us`` (one per ``wrt`` input)."""
+    if case.get("mode", "dual") == "func":
+        def f(*xs):
+            args = list(inputs)
+            for i, x in zip(wrt, xs):
+                args[i] = x
+            return tuple(outputs(case, args)[1])
+
+        return list(torch.func.jvp(f, tuple(inputs[i] for i in wrt),
+                                   tuple(us))[1])
+    with fwAD.dual_level():
+        args = list(inputs)
+        for i, u in zip(wrt, us):
+            args[i] = fwAD.make_dual(inputs[i], u)
+        return [fwAD.unpack_dual(o).tangent
+                for o in outputs(case, args)[1]]
 
 
 def _armor_report(state, exc=None) -> dict:

@@ -11,7 +11,9 @@ words each whatever m is.
 The reductions are dense sums, so ``comms="int8"`` carries them as bf16
 (per-rank scales cannot be added). Under a compressed ``comms`` the solve
 runs :data:`~dhqr_tpu_torch.parallel.wire.CSNE_SWEEPS` corrected
-semi-normal sweeps against the true local rows, as TSQR's does.
+semi-normal sweeps against the true local rows, as TSQR's does. Its
+gradients are TSQR's (:class:`~dhqr_tpu_torch.parallel.sharded_tsqr.
+_RowLstsq`), with R from the last pass.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from dhqr_tpu_torch.parallel.sharded_tsqr import (
     dispatch_label,
     local_rows,
     prepare_rows,
+    row_lstsq_grad,
 )
 from dhqr_tpu_torch.precision import resolve_comms
-from dhqr_tpu_torch.utils.config import check_precision
+from dhqr_tpu_torch.utils.config import check_precision, records_grad
 
 
 def sharded_cholqr_lstsq(A, b, mesh, axis_name=ROW_AXIS,
@@ -54,33 +57,40 @@ def sharded_cholqr_lstsq(A, b, mesh, axis_name=ROW_AXIS,
         raise ValueError(f"lstsq requires m >= n, got {tuple(A.shape)}")
     if m % nproc != 0:
         raise ValueError(f"m={m} must be divisible by mesh size {nproc}")
-    Al, bl = local_rows(A, b, mesh)
-    Bl, restore = as_matrix_rhs(bl)
 
-    def dispatch(wire_comms):
-        def dense_sum(X):
-            return wire.wire_psum(X, mesh, wire_comms, onehot=False,
-                                  axis=axis)
+    def dense_sum(X, wire_comms):
+        return wire.wire_psum(X, mesh, wire_comms, onehot=False, axis=axis)
 
-        def run():
-            Ql, R = _cholqr_passes(
-                Al, lambda X: dense_sum(gemm.matmul(X.mH, X, precision)),
-                precision, bool(shift))
-            C = dense_sum(gemm.matmul(Ql.mH, Bl, precision))
-            x = torch.linalg.solve_triangular(R, C, upper=True)
-            if wire_comms is None:
-                return x
-            return csne_sweeps(Al, Bl, x, R, mesh, axis, wire.CSNE_SWEEPS)
+    def solve(Al, Bl, wire_comms):
+        Ql, R = _cholqr_passes(
+            Al, lambda X: dense_sum(gemm.matmul(X.mH, X, precision),
+                                    wire_comms),
+            precision, bool(shift))
+        C = dense_sum(gemm.matmul(Ql.mH, Bl, precision), wire_comms)
+        x = torch.linalg.solve_triangular(R, C, upper=True)
+        if wire_comms is None:
+            return x, R
+        return csne_sweeps(Al, Bl, x, R, mesh, axis, wire.CSNE_SWEEPS), R
 
+    extra = ",shift" if shift else ""
+
+    def dispatch(wire_comms, A=A, b=b):
+        Al, bl = local_rows(A, b, mesh)
+        Bl, _ = as_matrix_rhs(bl)
         return _pulse.observed_dispatch(
             dispatch_label("cholqr_lstsq", axis, nproc, m, n, wire_comms,
-                           ",shift" if shift else ""),
-            run, mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+                           extra),
+            lambda: solve(Al, Bl, wire_comms), mesh=mesh, n_devices=nproc,
+            wire_format=wire_comms)
 
     base_label = dispatch_label("cholqr_lstsq", axis, nproc, m, n, None,
-                                ",shift" if shift else "")
+                                extra)
     comms = _armor.effective_comms(base_label, comms)
-    x = _armor.checked_solve(
-        base_label, dispatch, A, b, engine="cholqr3" if shift else "cholqr2",
-        comms=comms, plan_shape=("lstsq", m, n, A.dtype, nproc))
-    return restore(x)
+    restore = as_matrix_rhs(b)[1]
+    if records_grad(A, b):
+        return restore(row_lstsq_grad(A, b, dispatch, mesh, axis, comms,
+                                      precision))
+    return restore(_armor.checked_solve(
+        base_label, lambda wire_comms: dispatch(wire_comms)[0], A, b,
+        engine="cholqr3" if shift else "cholqr2", comms=comms,
+        plan_shape=("lstsq", m, n, A.dtype, nproc)))

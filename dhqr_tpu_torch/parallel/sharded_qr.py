@@ -46,11 +46,43 @@ the two-tier schedule. The owner's broadcast carries the panel from its
 diagonal row down (the JAX engines' scanned and lookahead frames also
 carry R rows above it): under a compressed format the two packages round
 the same reflectors, and the JAX package also rounds those R rows.
+
+**Gradients** (reverse mode and forward mode, as the JAX package's
+``jax.grad`` / ``jax.jvp`` through its mesh engines). When autograd follows
+A, the engine call runs with grad off inside :class:`_ShardedHouseholderQR`
+(the same bits and the same panel-kernel launches), and the derivative is
+that of the unblocked recurrence, as on one device
+(``ops.differentiable._factor_vjp`` / ``_factor_jvp``), sharded like the
+forward: per panel the owner broadcasts its reflectors, every rank runs
+the compact-WY adjoint (``_wy_vjp``) or tangent (``_wy_jvp``) on its live
+columns, and in reverse mode the Y-cotangents are summed at the owner
+(``_wy_vjp``'s return is a sum over the trailing columns), which then runs
+the panel's own adjoint (``householder._panel_vjp``). Every collective of a
+derivative goes through :mod:`~dhqr_tpu_torch.parallel.wire` uncompressed.
+The conventions are those of ``shard_map``'s ``out_specs``:
+
+* **inputs**: every rank passes the same A (and b); each rank's ``.grad``
+  is the whole gradient of the one global loss, equal on every rank (not
+  P times it);
+* **replicated outputs** (x of every mesh lstsq, alpha, the natural-order
+  H a call all-gathers): the loss is the same replica on every rank, and
+  the derivative uses its own rank's cotangent once, never summed over the
+  ranks;
+* **sharded outputs** (the store-order block a store-layout factorization
+  leaves on each rank, ``qr(mesh=).H``): the global loss is the sum of the
+  ranks' losses over their blocks, as JAX's global H is the concatenation
+  of its shards; each rank's block cotangent is its own share.
+
+Routes where ``jax.grad`` fails in the JAX package refuse with
+:class:`~dhqr_tpu_torch.utils.config.NotPortedError` quoting that failure
+(:func:`~dhqr_tpu_torch.utils.config.refuse_mesh_grad`): an armed armor
+seam here, refinement on the column mesh in ``models.qr_model``.
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import warnings
 
 import numpy as np
@@ -66,7 +98,13 @@ from dhqr_tpu_torch.ops.blocked import (
     apply_block_reflector_h,
     panel_plan,
 )
-from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION, householder_reflector
+from dhqr_tpu_torch.ops.differentiable import _wy_jvp, _wy_vjp
+from dhqr_tpu_torch.ops.householder import (
+    DEFAULT_PRECISION,
+    _panel_jvp,
+    _panel_vjp,
+    householder_reflector,
+)
 from dhqr_tpu_torch.parallel import wire
 from dhqr_tpu_torch.parallel.layout import (
     cyclic_store_columns,
@@ -85,9 +123,9 @@ from dhqr_tpu_torch.precision import (
     resolve_comms,
 )
 from dhqr_tpu_torch.utils.config import (
-    GRAD_MESH_ITEM,
     DHQRConfig,
-    refuse_grad,
+    records_grad,
+    refuse_mesh_grad,
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
@@ -233,8 +271,8 @@ def _local_block(A: torch.Tensor, mesh, n: int, nb: int, layout: str
     return A.index_select(1, torch.as_tensor(cols, device=A.device))
 
 
-def _gather_natural(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str
-                    ) -> torch.Tensor:
+def _gather_blocks(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str
+                   ) -> torch.Tensor:
     """Every rank's block, all-gathered, in natural column order (m, n):
     the result's relayout (exact, whatever the wire format)."""
     H = wire.wire_all_gather(Hl, mesh, dim=1, relayout=True)
@@ -244,6 +282,68 @@ def _gather_natural(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str
     return H.index_select(1, torch.as_tensor(pos, device=H.device))
 
 
+def _gather_natural(Hl: torch.Tensor, mesh, n: int, nb: int, layout: str
+                    ) -> torch.Tensor:
+    """:func:`_gather_blocks`, differentiable when autograd follows Hl (a
+    sharded input, a replicated output: :class:`_GatherNatural`)."""
+    if records_grad(Hl):
+        return _GatherNatural.apply(Hl, (mesh, n, nb, layout))
+    return _gather_blocks(Hl, mesh, n, nb, layout)
+
+
+class _GatherNatural(torch.autograd.Function):
+    """The all-gather of the store-order blocks into the natural-order
+    matrix: its adjoint is each rank's own block of the (replicated)
+    cotangent, with no collective; its tangent, the tangents gathered."""
+
+    @staticmethod
+    def forward(Hl, geom):
+        return _gather_blocks(Hl, *geom)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.geom = inputs[1]
+
+    @staticmethod
+    def backward(ctx, H_bar):
+        return _local_block(H_bar, *ctx.geom), None
+
+    @staticmethod
+    def jvp(ctx, dHl, _geom):
+        return _gather_blocks(dHl, *ctx.geom)
+
+
+class _LocalBlock(torch.autograd.Function):
+    """This rank's store-order block of a replicated matrix: its adjoint
+    gathers every rank's block cotangent, so each rank's input cotangent is
+    the whole one (the inputs' convention); its tangent, the tangent's
+    block."""
+
+    @staticmethod
+    def forward(A, geom):
+        return _local_block(A, *geom)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.geom = inputs[1]
+
+    @staticmethod
+    def backward(ctx, Al_bar):
+        return _gather_blocks(Al_bar, *ctx.geom), None
+
+    @staticmethod
+    def jvp(ctx, dA, _geom):
+        return _local_block(dA, *ctx.geom)
+
+
+def _local_block_of(A: torch.Tensor, mesh, n: int, nb: int, layout: str
+                    ) -> torch.Tensor:
+    """:func:`_local_block`, differentiable when autograd follows A."""
+    if records_grad(A):
+        return _LocalBlock.apply(A, (mesh, n, nb, layout))
+    return _local_block(A, mesh, n, nb, layout)
+
+
 def _prepare(A, mesh, axis_name, layout):
     """(A on the mesh's device, resolved axis, rank count) with the checks
     every rank makes before any collective."""
@@ -251,7 +351,6 @@ def _prepare(A, mesh, axis_name, layout):
     _check_layout(layout)
     A = as_tensor(A, mesh.device)
     check_fp32_matmul(A.device)
-    refuse_grad(A, "the mesh engines", GRAD_MESH_ITEM, None)
     axis_name = resolve_axis(mesh, axis_name)
     return A, axis_name, axis_size(mesh, axis_name)
 
@@ -272,7 +371,7 @@ def _factor_result(label, dispatch, comms, Ap, mesh, n_pad, nb, layout,
 
     def attempt(wire_comms):
         Hl, alpha = dispatch(wire_comms)
-        H = _gather_natural(Hl, mesh, n_pad, nb, layout) \
+        H = _gather_blocks(Hl, mesh, n_pad, nb, layout) \
             if armed or not store_output else None
         return Hl, alpha, H
 
@@ -289,6 +388,138 @@ def _factor_result(label, dispatch, comms, Ap, mesh, n_pad, nb, layout,
     if store_output:
         return Hl, alpha
     return H[:m, :n], alpha[:n]
+
+
+# -- the derivative ---------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Geometry:
+    """What a factorization's derivative needs of its forward: the mesh
+    and axis of the collectives, the padded width ``n``, the panel width
+    ``nb`` (the store blocks' and the derivative's), the layout and the
+    precision of the derivative's products."""
+
+    mesh: object
+    axis: object
+    n: int
+    nb: int
+    layout: str
+    precision: str
+
+    @property
+    def blocks(self):
+        """The arguments of :func:`_local_block` / :func:`_gather_blocks`
+        after the matrix."""
+        return (self.mesh, self.n, self.nb, self.layout)
+
+
+def _factor_vjp_shard(Hl, alpha, Hl_bar, alpha_bar, g: _Geometry):
+    """The padded A's cotangent (m, n), natural order, on every rank: the
+    adjoint of the unblocked recurrence (``_factor_vjp``) a panel at a
+    time in reverse, each rank rebuilding its own block of the state from
+    its block of H. Per panel: the owner broadcasts Y, every rank runs
+    ``_wy_vjp`` on its live columns, the Y-cotangents are summed (the
+    owner takes the sum) and the owner runs the panel's adjoint."""
+    m, nloc = Hl.shape
+    nb, prec, p = g.nb, g.precision, g.mesh.rank
+    gidx = _local_gidx(p, g.n, nloc, nb, g.layout)
+    S = Hl.clone()
+    G = torch.zeros_like(Hl) if Hl_bar is None else Hl_bar.clone()
+    a_bar = torch.zeros_like(alpha) if alpha_bar is None else alpha_bar
+    for k in reversed(range(0, g.n, nb)):
+        owner, kl = _panel_owner(k, g.n, nloc, nb, g.layout)
+        mine = p == owner
+        if k + nb < g.n:
+            Y = torch.tril(S[k:, kl:kl + nb]) if mine \
+                else S.new_empty((m - k, nb))
+            Y = wire.wire_broadcast(Y, owner, g.mesh, axis=g.axis)
+            c0 = bisect.bisect_left(gidx, k + nb)
+            Y_bar = _wy_vjp(Y, S[k:, c0:], G[k:, c0:], prec) \
+                if c0 < nloc else torch.zeros_like(Y)
+            Y_bar = wire.wire_psum(Y_bar, g.mesh, onehot=False, axis=g.axis)
+            if mine:
+                G[k:, kl:kl + nb] += torch.tril(Y_bar)
+        if mine:
+            _panel_vjp(S[k:, kl:kl + nb], G[k:, kl:kl + nb],
+                       alpha[k:k + nb], a_bar[k:k + nb], prec)
+    return _gather_blocks(G, *g.blocks)
+
+
+def _factor_jvp_shard(Al, dAl, Hl, alpha, g: _Geometry):
+    """``(dHl, dalpha)``: the tangent of the unblocked recurrence
+    (``_factor_jvp``) in the forward's order, this rank's block of it.
+    Per panel: the owner runs the panel's tangent (``_panel_jvp``) and
+    broadcasts Y, its tangent and alpha's; every rank runs ``_wy_jvp`` on
+    its live columns."""
+    m, nloc = Hl.shape
+    nb, prec, p = g.nb, g.precision, g.mesh.rank
+    gidx = _local_gidx(p, g.n, nloc, nb, g.layout)
+    S, dS = Al.clone(), dAl.clone()
+    dalpha = torch.zeros_like(alpha)
+    for k in range(0, g.n, nb):
+        owner, kl = _panel_owner(k, g.n, nloc, nb, g.layout)
+        if p == owner:
+            da = _panel_jvp(S[k:, kl:kl + nb], dS[k:, kl:kl + nb],
+                            Hl[k:, kl:kl + nb], alpha[k:k + nb], prec)
+            parts = [torch.tril(Hl[k:, kl:kl + nb]),
+                     torch.tril(dS[k:, kl:kl + nb]), da]
+        else:
+            parts = [Hl.new_empty((m - k, nb)), Hl.new_empty((m - k, nb)),
+                     alpha.new_empty(nb)]
+        Y, dY, dalpha[k:k + nb] = wire.wire_broadcast(parts, owner, g.mesh,
+                                                      axis=g.axis)
+        c0 = bisect.bisect_left(gidx, k + nb)
+        if c0 < nloc:
+            _wy_jvp(Y, dY, S[k:, c0:], dS[k:, c0:], prec)
+    return dS, dalpha
+
+
+class _ShardedHouseholderQR(torch.autograd.Function):
+    """This rank's store-order block of H and the (padded) alpha of the
+    padded A, by the engine ``run`` dispatches (every schedule, layout and
+    wire format), with the sharded derivative of the unblocked recurrence
+    (module docstring). Saves the block and alpha for ``backward`` (and A
+    for ``jvp``): no per-panel state."""
+
+    @staticmethod
+    def forward(Ap, run, geom):
+        return run(Ap, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Ap, _run, geom = inputs
+        ctx.geom = geom
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(Ap, *output)
+
+    @staticmethod
+    def backward(ctx, Hl_bar, alpha_bar):
+        Hl, alpha = ctx.saved_tensors
+        return (_factor_vjp_shard(Hl, alpha, Hl_bar, alpha_bar, ctx.geom),
+                None, None)
+
+    @staticmethod
+    def jvp(ctx, dAp, _run, _geom):
+        Ap, Hl, alpha = ctx.saved_tensors
+        g = ctx.geom
+        return _factor_jvp_shard(_local_block(Ap, *g.blocks),
+                                 _local_block(dAp, *g.blocks), Hl, alpha, g)
+
+
+def _factored(run, Ap, g: _Geometry, shape, store_output: bool):
+    """``run(Ap, store_output)``, the engine's dispatch; when autograd
+    follows Ap, the same call with grad off inside
+    :class:`_ShardedHouseholderQR` (its natural H gathered by
+    :class:`_GatherNatural`), refused while the armor seam is armed."""
+    if not records_grad(Ap):
+        return run(Ap, store_output)
+    if _armor.active() is not None:
+        refuse_mesh_grad("an armed mesh factorization", "armor", Ap)
+    Hl, alpha = _ShardedHouseholderQR.apply(Ap, run, g)
+    if store_output:
+        return Hl, alpha
+    m, n = shape
+    return _gather_natural(Hl, *g.blocks)[:m, :n], alpha[:n]
 
 
 # -- unblocked --------------------------------------------------------------
@@ -366,20 +597,25 @@ def sharded_householder_qr(A, mesh, axis_name=DEFAULT_AXIS,
                   f"{n_pad},{layout}]")
     comms = _armor.effective_comms(base_label, comms)
 
-    def dispatch(wire_comms):
-        return _pulse.observed_dispatch(
-            base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
-            + "]",
-            lambda: _unblocked_shard(
-                _local_block(Ap, mesh, n_pad, store_nb, layout), n_pad,
-                mesh, precision, layout, store_nb, norm, wire_comms,
-                axis_name),
-            mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+    def run(Ap, store_output):
+        def dispatch(wire_comms):
+            return _pulse.observed_dispatch(
+                base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
+                + "]",
+                lambda: _unblocked_shard(
+                    _local_block(Ap, mesh, n_pad, store_nb, layout), n_pad,
+                    mesh, precision, layout, store_nb, norm, wire_comms,
+                    axis_name),
+                mesh=mesh, n_devices=nproc, wire_format=wire_comms)
 
-    return _factor_result(
-        base_label, dispatch, comms, Ap, mesh, n_pad, store_nb, layout,
-        nproc, (m, n), A.dtype, _store_layout_output,
-        _verify_store or not _store_layout_output, min(32, n_pad))
+        return _factor_result(
+            base_label, dispatch, comms, Ap, mesh, n_pad, store_nb, layout,
+            nproc, (m, n), A.dtype, store_output,
+            _verify_store or not _store_layout_output, min(32, n_pad))
+
+    return _factored(run, Ap, _Geometry(mesh, axis_name, n_pad, store_nb,
+                                        layout, precision),
+                     (m, n), _store_layout_output)
 
 
 # -- blocked ----------------------------------------------------------------
@@ -707,18 +943,23 @@ def sharded_blocked_qr(A, mesh, block_size: int = 128,
                   + (f",{sched}" if sched else "") + "]")
     comms = _armor.effective_comms(base_label, comms)
 
-    def dispatch(wire_comms):
-        return _pulse.observed_dispatch(
-            base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
-            + "]",
-            lambda: _blocked_shard(
-                _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb, mesh,
-                layout, plan, precision, trailing_precision, norm,
-                panel_impl, lookahead, agg_panels, depth, wire_comms,
-                axis_name),
-            mesh=mesh, n_devices=nproc, wire_format=wire_comms)
+    def run(Ap, store_output):
+        def dispatch(wire_comms):
+            return _pulse.observed_dispatch(
+                base_label[:-1] + (f",w{wire_comms}" if wire_comms else "")
+                + "]",
+                lambda: _blocked_shard(
+                    _local_block(Ap, mesh, n_pad, nb, layout), n_pad, nb,
+                    mesh, layout, plan, precision, trailing_precision, norm,
+                    panel_impl, lookahead, agg_panels, depth, wire_comms,
+                    axis_name),
+                mesh=mesh, n_devices=nproc, wire_format=wire_comms)
 
-    return _factor_result(
-        base_label, dispatch, comms, Ap, mesh, n_pad, nb, layout, nproc,
-        (m, n), A.dtype, _store_layout_output,
-        _verify_store or not _store_layout_output, nb)
+        return _factor_result(
+            base_label, dispatch, comms, Ap, mesh, n_pad, nb, layout, nproc,
+            (m, n), A.dtype, store_output,
+            _verify_store or not _store_layout_output, nb)
+
+    return _factored(run, Ap, _Geometry(mesh, axis_name, n_pad, nb, layout,
+                                        precision),
+                     (m, n), _store_layout_output)

@@ -386,26 +386,40 @@ class WireCensus:
 
 
 _SCOPES = threading.local()
+# Scopes that see every thread's collectives (``census(every_thread=True)``)
+_SHARED_SCOPES: "list[WireCensus]" = []
+_SHARED_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
-def census() -> Iterator[WireCensus]:
+def census(every_thread: bool = False) -> Iterator[WireCensus]:
     """Record every collective of the calling thread while the scope is
-    open (scopes nest; each open scope sees every collective)."""
-    stack = getattr(_SCOPES, "stack", None)
-    if stack is None:
-        stack = _SCOPES.stack = []
+    open (scopes nest; each open scope sees every collective), or with
+    ``every_thread`` those of every thread: autograd runs a backward on
+    CUDA tensors on a thread of its own."""
+    if every_thread:
+        stack, lock = _SHARED_SCOPES, _SHARED_LOCK
+    else:
+        stack = getattr(_SCOPES, "stack", None)
+        if stack is None:
+            stack = _SCOPES.stack = []
+        lock = contextlib.nullcontext()
     scope = WireCensus()
-    stack.append(scope)
+    with lock:
+        stack.append(scope)
     try:
         yield scope
     finally:
-        stack.remove(scope)
+        with lock:
+            stack.remove(scope)
 
 
 def _record(family, leg, mesh, comms, parts, wire, nbytes, raw, launches,
             crosses_dcn, onehot=True):
-    stack = getattr(_SCOPES, "stack", None)
+    stack = getattr(_SCOPES, "stack", None) or []
+    if _SHARED_SCOPES:
+        with _SHARED_LOCK:
+            stack = stack + _SHARED_SCOPES
     if not stack:
         return
     entry = {"family": family, "leg": leg, "comms": comms, "onehot": onehot,

@@ -45,8 +45,26 @@ class NotPortedError(NotImplementedError):
             f"(arrives with ROADMAP.md {roadmap})")
 
 
-# Where gradients through the mesh engines arrive.
-GRAD_MESH_ITEM = "Queue A item 29 (gradients through the mesh)"
+# The ROADMAP item that brought gradients through the mesh: the mesh
+# routes where the JAX package's jax.grad fails refuse by design, citing it.
+GRAD_MESH_ITEM = ("Not ported by design (Queue A item 29, gradients "
+                  "through the mesh)")
+# What the JAX package's jax.grad raises on each mesh route the port
+# refuses to differentiate (the reasons of :func:`refuse_mesh_grad`).
+JAX_MESH_GRAD_FAILURES = {
+    "refine": ("ValueError: Received incompatible devices for jitted "
+               "computation (the refinement's residual mixes the mesh's "
+               "sharded x with a replicated A)"),
+    "armor": ("ConcretizationTypeError: Abstract tracer value encountered "
+              "where concrete value is expected (the armor checksum's "
+              "verdict is read on the host)"),
+    "probe": ("TracerArrayConversionError: The numpy.ndarray conversion "
+              "method __array__() was called on traced array (the "
+              "residual probe solves on the host)"),
+    "cond": ("ConcretizationTypeError: Abstract tracer value encountered "
+             "where concrete value is expected (the condition bound is "
+             "read on the host)"),
+}
 # Why a panel engine refuses a matrix that records gradients when it is
 # called directly: the differentiable route goes around it.
 GRAD_BY_DESIGN = ("it writes its factors in place, where autograd cannot "
@@ -76,10 +94,21 @@ def refuse_grad(tensor: torch.Tensor, engine: str,
     """Raise :class:`NotPortedError` when autograd follows ``tensor`` into
     ``engine``, rather than return a wrong gradient. The panel engines
     (plain loop, reconstruct, the kernel's wrapper) and the batched engine
-    refuse by design; the mesh engines pass ``roadmap=GRAD_MESH_ITEM,
-    reason=None``."""
+    refuse by design."""
     if records_grad(tensor):
         raise NotPortedError(f"gradients through {engine}", roadmap, reason)
+
+
+def refuse_mesh_grad(route: str, failure: str, *tensors) -> None:
+    """Raise :class:`NotPortedError` when autograd follows any of
+    ``tensors`` into a mesh ``route`` where the JAX package's ``jax.grad``
+    fails too: ``failure`` keys :data:`JAX_MESH_GRAD_FAILURES`, whose
+    error the reason quotes."""
+    if records_grad(*tensors):
+        raise NotPortedError(
+            f"gradients through {route}", GRAD_MESH_ITEM,
+            "the JAX package's jax.grad fails on the same call with "
+            + JAX_MESH_GRAD_FAILURES[failure])
 
 
 @dataclasses.dataclass(frozen=True)

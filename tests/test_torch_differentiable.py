@@ -278,28 +278,116 @@ def test_factoring_entry_points_refuse_a_matrix_that_requires_grad(name):
         call(At, torch.from_numpy(b))
 
 
+def _mesh_refusals(cols, rows, At, bt):
+    """The mesh routes that refuse a matrix autograd follows, each with the
+    JAX package's error that its reason quotes."""
+    from dhqr_tpu_torch import armor
+
+    def armed(call):
+        def run():
+            with armor.armored():
+                return call()
+        return run
+
+    return [
+        (lambda: dt.lstsq(At, bt, mesh=cols, block_size=8, refine=1),
+         "incompatible devices"),
+        (lambda: dt.lstsq(At, bt, mesh=cols, block_size=8, comms="bf16"),
+         "incompatible devices"),
+        (lambda: dt.qr(At, mesh=cols, block_size=8,
+                       policy="balanced").solve(bt),
+         "incompatible devices"),
+        (lambda: dt.guarded_lstsq(At, bt, mesh=cols, block_size=8,
+                                  guards="full"),
+         "TracerArrayConversionError"),
+        (lambda: dt.guarded_qr(At, mesh=cols, block_size=8, guards="full"),
+         "ConcretizationTypeError"),
+        (armed(lambda: dt.qr(At, mesh=cols, block_size=8)),
+         "ConcretizationTypeError"),
+        (armed(lambda: dt.lstsq(At, bt, mesh=cols, block_size=8)),
+         "ConcretizationTypeError"),
+        (armed(lambda: dt.lstsq(At, bt, mesh=rows, engine="tsqr")),
+         "ConcretizationTypeError")]
+
+
 def test_mesh_engines_refuse_a_matrix_that_requires_grad():
-    """The mesh engines refuse before any collective and cite ROADMAP item
-    29 (gradients through the mesh: jax.grad works through
-    lstsq(mesh=...), so this is a gap, not a design)."""
+    """The mesh routes where the JAX package's jax.grad fails refuse before
+    any collective, cite ROADMAP item 29 and quote JAX's error: the column
+    mesh with refine (a compressed comms= forces its floor of CSNE
+    sweeps), guards="full" and the armed armor seam. With grad off they
+    run; the other mesh routes differentiate, the guarded ones with the
+    other modes too (here on one rank, against the single-device gradient
+    to 1e-9)."""
     from dhqr_tpu_torch.analysis.jaxpr_pass import solo_meshes
 
     A, b = random_problem(48, 16, np.float64, seed=58)
     At = torch.tensor(A, requires_grad=True)
     bt = torch.tensor(b, requires_grad=True)
+    w = torch.from_numpy(_weights((16,), np.float64, seed=59))
+
+    def grads(fn):
+        At.grad = bt.grad = None
+        torch.sum(fn() * w).backward()
+        return At.grad.numpy().copy(), bt.grad.numpy().copy()
+
+    ref = grads(lambda: dt.lstsq_diff(At, bt, 8, device="cpu"))
     with solo_meshes(torch.device("cpu")) as (meshes, _):
         cols, rows = meshes["cols"], meshes["rows"]
-        for call in (lambda: dt.qr(At, mesh=cols, block_size=8),
-                     lambda: dt.lstsq(At, bt, mesh=cols, block_size=8),
-                     lambda: dt.lstsq(At, bt, mesh=cols, blocked=False),
-                     lambda: dt.lstsq(At, bt, mesh=rows, engine="tsqr"),
-                     lambda: dt.lstsq(At, bt, mesh=rows, engine="cholqr2"),
-                     lambda: dt.qr(A, mesh=cols, block_size=8).solve(bt)):
-            with pytest.raises(dt.NotPortedError, match="item 29"):
+        for call, jax_error in _mesh_refusals(cols, rows, At, bt):
+            with pytest.raises(dt.NotPortedError, match="item 29") as err:
                 call()
+            assert jax_error in str(err.value) and err.value.reason
+        for fn in (lambda: dt.lstsq(At, bt, mesh=cols, block_size=8),
+                   lambda: dt.lstsq(At, bt, mesh=cols, blocked=False),
+                   lambda: dt.lstsq(At, bt, mesh=rows, engine="tsqr"),
+                   lambda: dt.lstsq(At, bt, mesh=rows, engine="cholqr2"),
+                   lambda: dt.qr(At, mesh=cols, block_size=8).solve(bt),
+                   lambda: dt.guarded_lstsq(At, bt, mesh=cols, block_size=8,
+                                            guards="fallback").x,
+                   lambda: dt.guarded_qr(At, mesh=cols, block_size=8,
+                                         guards="screen")
+                   .factorization.solve(bt)):
+            for got, want in zip(grads(fn), ref):
+                assert _rel(got, want) <= 1e-9
         with torch.no_grad():
-            x = dt.lstsq(At, bt, mesh=cols, block_size=8)
+            x = dt.lstsq(At, bt, mesh=cols, block_size=8, refine=1)
     assert _rel(x.numpy(), dt.lstsq(A, b, block_size=8, device="cpu")) <= 1e-9
+
+
+_JAX_MESH_FAILURES = {  # the JAX package's route and the error it raises
+    "refine": (lambda A, b, mesh: dhqr_tpu.lstsq(
+        A, b, mesh=mesh, block_size=8, refine=1), "incompatible devices"),
+    "bf16": (lambda A, b, mesh: dhqr_tpu.lstsq(
+        A, b, mesh=mesh, block_size=8, comms="bf16"),
+        "incompatible devices"),
+    "guards_full": (lambda A, b, mesh: dhqr_tpu.guarded_lstsq(
+        A, b, mesh=mesh, block_size=8, guards="full").x,
+        "TracerArrayConversion"),
+    "armed": (lambda A, b, mesh: _jax_armed(
+        lambda: dhqr_tpu.lstsq(A, b, mesh=mesh, block_size=8)),
+        "Abstract tracer value"),
+}
+
+
+def _jax_armed(call):
+    from dhqr_tpu import armor as jarmor
+
+    with jarmor.armored():
+        return call()
+
+
+@pytest.mark.parametrize("name", sorted(_JAX_MESH_FAILURES))
+def test_jax_grad_fails_where_the_mesh_refuses(name):
+    """The refusals above are by design: the JAX package's jax.grad fails
+    on the same calls, on the conftest's CPU mesh."""
+    from dhqr_tpu.parallel import column_mesh
+
+    A, b = random_problem(64, 32, np.float64, seed=58)
+    b = jnp.asarray(b)
+    fn, error = _JAX_MESH_FAILURES[name]
+    with pytest.raises(Exception, match=error):
+        jax.grad(lambda A: jnp.sum(fn(A, b, column_mesh(2)) ** 2))(
+            jnp.asarray(A))
 
 
 @pytest.mark.parametrize("name", ["lstsq_unblocked", "tsqr_lstsq"])
