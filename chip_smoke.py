@@ -23,13 +23,22 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    launch, and at the main path's shapes and the streamed ones its time,
    the plain version's time, ``torch.geqrf``'s time on the same panel (a
    yardstick the port never calls) and the card's bound for the work;
+   then the panels past 32-bit indices (``TALL_CASES``: the 16-wide
+   streamed leaf at 2^27 + 8191 rows, f32 and c64, more than 2^31
+   elements, and one f32 column of 2^31 + 4097 rows), made on the card
+   from a seeded generator, each held against its plain version in
+   pieces with a bit-identical repeat, with its grid, registers, spills,
+   the same times (``torch.geqrf`` where its output and workspace fit the
+   free memory, else the reason) and its peak device memory;
 2. main path, float32, square: ``qr`` and ``solve`` (each timed on its
    first call, which holds first-use set-up, and on a steady-state second
    call) and ``lstsq`` at 16384 x 16384, backward error and kernel launch
    counts;
-3. main path, float32, tall: ``lstsq`` at 65536 x 256 and at 524288 x 128
-   (streamed 16-wide leaves) against ``torch.linalg.lstsq`` (yardstick) on
-   the normal-equations residual;
+3. main path, float32, tall: ``lstsq`` at 65536 x 256, at 524288 x 128
+   (streamed 16-wide leaves) and at (2^27 + 8191) x 16 (one streamed leaf
+   of more than 2^31 elements: one launch) against ``torch.linalg.lstsq``
+   (yardstick) on the normal-equations residual, evaluated in float64 a
+   block of rows at a time, with each call's peak device memory;
 4. main path, complex64: ``qr`` (first and second call) -> ``solve`` at
    8192 x 4096;
 5. the reference's criterion: ``lstsq`` at 4400 x 4000, float32 and
@@ -344,6 +353,14 @@ KERNEL_SOURCE = "dhqr_tpu_torch/csrc/panel_qr.cu"
 _SHARED: dict = {}
 REPLACES = {"panel_qr_f32": "dhqr_tpu/ops/pallas_panel.py:192",
             "panel_qr_c64": "dhqr_tpu/ops/pallas_panel.py:247"}
+# Phase 1's panels past 32-bit indices, (kernel, m, nb, offset): the
+# blocked engine's 16-wide streamed leaf at 2^27 + 8191 rows (2^31 + 131056
+# elements; 8.6 GB f32, 17.2 GB c64) and one column of 2^31 + 4097 rows
+# (8.6 GB), whose row index itself passes 32 bits.
+TALL_CASES = (("panel_qr_f32", 2**27 + 8191, 16, 3),
+              ("panel_qr_c64", 2**27 + 8191, 16, 3),
+              ("panel_qr_f32", 2**31 + 4097, 1, 5))
+PIECE = 2**26   # elements per piece of a comparison over such a panel
 
 
 def emit(obj) -> None:
@@ -362,6 +379,19 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def once_ms(fn):
+    """(result, device ms) of one call of ``fn``, with no warm-up: for work
+    of seconds, where one call is the measurement."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def wall(fn):
@@ -566,7 +596,100 @@ def phase_kernels(seed):
                                            "bound_ms", "bound_by")})
         del panel, pf, pf2, at, pf_p
     torch.cuda.empty_cache()
+    for case in TALL_CASES:
+        abs_err = phase_kernel_tall(hp, seed, *case)
+        st = stats.setdefault(case[0], {"max_abs_err": 0.0})
+        st["max_abs_err"] = max(st["max_abs_err"], abs_err)
     return stats
+
+
+def _diff_in_pieces(a, b):
+    """(max|a - b|, max|b|, a all finite) of two contiguous tensors of one
+    shape, ``PIECE`` elements at a time: no temporary of their size."""
+    fa, fb = a.view(-1), b.view(-1)
+    diff = top = 0.0
+    finite = True
+    for i in range(0, fa.numel(), PIECE):
+        x, y = fa[i:i + PIECE], fb[i:i + PIECE]
+        diff = max(diff, float((x - y).abs().max()))
+        top = max(top, float(y.abs().max()))
+        finite = finite and bool(torch.isfinite(x).all())
+    return diff, top, finite
+
+
+# Heights cuSOLVER's geqrf takes: its 64-bit API (cusolverDnXgeqrf, which
+# torch.geqrf calls) returned CUSOLVER_STATUS_INVALID_VALUE for 2^31 + 4097
+# rows on an H100 with CUDA 12.8.
+GEQRF_MAX_ROWS = 2**31 - 1
+# Elements of A that torch.linalg.lstsq takes: its Q^H b, cuSOLVER's
+# 32-bit ormqr, returned CUSOLVER_STATUS_INVALID_VALUE for (2^27 + 8191) x
+# 16 f32 on the same card and CUDA.
+LSTSQ_MAX_ELEMENTS = 2**31 - 1
+
+
+def geqrf_room(m, nb, dtype):
+    """(fits, reason): whether ``torch.geqrf`` takes a resident (m, nb)
+    panel here, decided before the call: a height cuSOLVER takes, and room
+    in the free device memory (the cache emptied) for its output (a copy
+    of the panel), tau and an allowance of one more panel of workspace."""
+    if m > GEQRF_MAX_ROWS:
+        return False, (f"{m} rows > {GEQRF_MAX_ROWS}: cuSOLVER's geqrf "
+                       "refuses the height")
+    torch.cuda.empty_cache()
+    need = (2 * m * nb + nb) * (8 if dtype == torch.complex64 else 4)
+    free = torch.cuda.mem_get_info()[0]
+    return need <= free, (f"needs {need} B (output, tau and a panel of "
+                          f"workspace), {free} B free")
+
+
+def phase_kernel_tall(hp, seed, name, m, nb, off):
+    """Phase 1 on a panel past 32-bit indices: the kernel against its plain
+    version, compared in pieces (the panel and its copies take up to 51 GB
+    of the card), a bit-identical repeat, and the times; returns the
+    largest absolute difference."""
+    dtype = torch.float32 if name.endswith("f32") else torch.complex64
+    tol = TOL_F32 if dtype == torch.float32 else TOL_C64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid = hp.kernel_launch_info(m, nb, off, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + m + nb)
+    panel = torch.randn((m, nb), generator=g, device="cuda", dtype=dtype)
+    pf, alpha = hp._panel_qr_kernel(panel, off)
+    pf2, alpha2 = hp._panel_qr_kernel(panel, off)
+    torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(pf, pf2) and torch.equal(alpha, alpha2))
+    del pf2, alpha2
+    at = panel.T.contiguous()
+    alpha_p, plain_ms = once_ms(lambda: hp._PLAIN[dtype](at, off))
+    abs_pf, top_pf, finite = _diff_in_pieces(pf.T, at)
+    abs_alpha = float((alpha - alpha_p).abs().max())
+    err_pf = abs_pf / max(top_pf, 1e-30)
+    err_alpha = abs_alpha / max(float(alpha_p.abs().max()), 1e-30)
+    kept = bool(torch.equal(pf[:off], panel[:off]))
+    del pf, alpha, at, alpha_p
+    ms = cuda_ms(lambda: hp._panel_qr_kernel(panel, off), 3)
+    peak = torch.cuda.max_memory_allocated()
+    fits, room = geqrf_room(m, nb, dtype)
+    library_ms = once_ms(lambda: torch.geqrf(panel))[1] if fits else None
+    bound_ms, bound_by = panel_bound(m, nb, dtype == torch.complex64)
+    row = {"phase": 1, "kernel": name, "m": m, "nb": nb, "offset": off,
+           "elements": m * nb, "cta_cap": None, "grid": grid,
+           "rel_err_pf": err_pf, "rel_err_alpha": err_alpha,
+           "max_abs_err": max(abs_pf, abs_alpha), "tol": tol,
+           "rows_above_kept": kept, "repeat_bit_identical": repeat_equal,
+           "finite": finite, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "geqrf_room": room,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "peak_bytes": peak,
+           "peak_bytes_with_geqrf": torch.cuda.max_memory_allocated()}
+    row["ok"] = (err_pf <= tol and err_alpha <= tol and kept and finite
+                 and repeat_equal and not grid["resident"])
+    emit(row)
+    del panel
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        raise AssertionError(f"kernel check failed: {row}")
+    return row["max_abs_err"]
 
 
 def expected_launches(m, n, dtype):
@@ -637,10 +760,41 @@ def phase_square(dt, hp, seed, n=16384):
         raise AssertionError(f"main path f32 square failed: {row}")
 
 
-def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128))):
+def ne_residual_f64(A, x, b, rows=2**22):
+    """||A^H (A x - b)|| in float64, ``rows`` rows of A at a time: no
+    float64 copy of a tall A."""
+    x64 = x.to(torch.complex128 if x.is_complex() else torch.float64)
+    grad = torch.zeros_like(x64)
+    for i in range(0, A.shape[0], rows):
+        Ai = A[i:i + rows].to(x64.dtype)
+        grad += Ai.mH @ (Ai @ x64 - b[i:i + rows].to(x64.dtype))
+    return float(torch.linalg.vector_norm(grad))
+
+
+def gels_lstsq(A, b):
+    """``torch.linalg.lstsq``'s algorithm on the card (gels: geqrf, Q^H b,
+    the triangular solve) with Q^H b spelled out, one reflector of
+    ``torch.geqrf``'s at a time, for an A past the elements its ormqr takes
+    (``LSTSQ_MAX_ELEMENTS``). A yardstick the port never calls."""
+    a, tau = torch.geqrf(A)
+    n = A.shape[1]
+    c = b.clone()
+    for j in range(n):
+        v = a[j:, j].clone()
+        v[0] = 1
+        c[j:] -= (tau[j].conj() * (v.conj() @ c[j:])) * v
+    R = torch.triu(a[:n])
+    return torch.linalg.solve_triangular(R, c[:n, None], upper=True)[:, 0]
+
+
+def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128),
+                                     (2**27 + 8191, 16))):
     """The second shape is too tall for any leaf's slices to fit shared
-    memory: its panel runs as streamed 16-wide leaves."""
+    memory: its panel runs as streamed 16-wide leaves. The third is one
+    such leaf of more than 2^31 elements (8.6 GB), on the kernel's 64-bit
+    indices."""
     for i, (m, n) in enumerate(shapes):
+        torch.cuda.reset_peak_memory_stats()
         g = torch.Generator(device="cuda").manual_seed(seed + 1 + 10 * i)
         A = torch.rand((m, n), generator=g, device="cuda", dtype=torch.float32)
         b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
@@ -648,26 +802,37 @@ def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128))):
         l0 = hp.LAUNCHES["panel_qr_f32"]
         x, t_lstsq = wall(lambda: dt.lstsq(A, b))
         l_run = hp.LAUNCHES["panel_qr_f32"] - l0
-        x_ref, t_ref = wall(
-            lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
-        A64, b64 = A.double(), b.double()
-
-        def ne_res(xx):
-            return float(torch.linalg.vector_norm(
-                A64.T @ (A64 @ xx.double() - b64)))
-
-        res, res_ref = ne_res(x), ne_res(x_ref)
-        row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n],
-               "lstsq_s": t_lstsq, "torch_lstsq_s": t_ref,
-               "normal_eq_residual": res, "torch_lstsq_residual": res_ref,
-               "ratio": res / res_ref, "criterion": CRITERION,
-               "launches": l_run, "expected": expect}
+        peak_lstsq = torch.cuda.max_memory_allocated()
+        res = ne_residual_f64(A, x, b)
+        row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n]}
+        if m * n <= LSTSQ_MAX_ELEMENTS:
+            x_ref, t_ref = wall(
+                lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
+            # the spelled-out gels beside it, where both run
+            x_gels, t_gels = wall(lambda: gels_lstsq(A, b))
+            row.update(gels_s=t_gels, gels_residual=ne_residual_f64(
+                A, x_gels, b))
+            del x_gels
+        else:
+            x_ref, t_ref = wall(lambda: gels_lstsq(A, b))
+            row["yardstick"] = (
+                f"torch.geqrf + reflectors: {m * n} elements > "
+                f"{LSTSQ_MAX_ELEMENTS}, torch.linalg.lstsq's ormqr refuses "
+                "them")
+        res_ref = ne_residual_f64(A, x_ref, b)
+        row.update({"lstsq_s": t_lstsq, "torch_lstsq_s": t_ref,
+                    "normal_eq_residual": res,
+                    "torch_lstsq_residual": res_ref,
+                    "ratio": res / res_ref, "criterion": CRITERION,
+                    "launches": l_run, "expected": expect,
+                    "peak_bytes_lstsq": peak_lstsq,
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
         row["ok"] = bool(np.isfinite(res)) and res <= CRITERION * res_ref \
             and l_run == expect
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"main path f32 tall failed: {row}")
-        del A, b, A64, b64, x, x_ref
+        del A, b, x, x_ref
         torch.cuda.empty_cache()
 
 
@@ -5409,10 +5574,14 @@ def main(argv=None) -> int:
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
                 "guarded", "wire", "tune_armor", "harness", "graph")
+    # the main path's phases that launch each kernel (c64: 4 and 5)
+    main_phases = {"panel_qr_f32": {2, 3, 5}, "panel_qr_c64": {4, 5}}
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
         for key in on_paths + (("update", "serve_async")
                                if name == "panel_qr_f32" else ()):
+            if key == "main" and not phases & main_phases[name]:
+                continue
             if key in paths and paths[key][name] < 1:
                 raise AssertionError(f"{name} never launched on the {key} "
                                      "path")

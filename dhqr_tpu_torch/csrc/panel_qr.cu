@@ -81,6 +81,14 @@
 //   * Determinism: merges run in a fixed order whose float additions are
 //     the same on every CTA (and commutative where lanes swap operands), so
 //     two launches on the same input give bit-identical results.
+//   * Indices: the panel's height and offset, each CTA's first row and a
+//     streamed slice's column stride (the height) are 64-bit, so a panel
+//     past 2^31 elements or 2^31 rows (8.6 GB of f32: it fits the card)
+//     runs like any other. A CTA's own rows, the column index and the
+//     resident slice's offsets stay 32-bit (a CTA holds at most
+//     ceil(m / 132) rows), and rows are compared with the pivot in the
+//     slice's own 32-bit coordinates, so the row loops gain no 64-bit
+//     arithmetic beyond the streamed slice's column offsets.
 //   * Each launcher returns the launch's error (cudaGetLastError()).
 //
 // Built with -DDHQR_PANEL_PROFILE, thread 0 of each CTA also counts the SM
@@ -92,6 +100,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -309,7 +318,7 @@ template <typename T, bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
 panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
                 float* __restrict__ scratch, unsigned* __restrict__ bar,
-                int m, int nb, int off, Grid g) {
+                long long m, int nb, long long off, Grid g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T sh_w[kMaxWidth];
   __shared__ T sh_red[kMergeGroups][kMaxWidth];
@@ -319,18 +328,27 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cta = blockIdx.x, ctas = gridDim.x;
-  const int row0 = off + cta * g.rows;
-  const int nrows = min(g.rows, m - row0);
+  const long long row0 = off + static_cast<long long>(cta) * g.rows;
+  const int nrows = static_cast<int>(min(static_cast<long long>(g.rows),
+                                         m - row0));
+  // The slice's first row counted from the panel's first active row, capped
+  // where it no longer matters (every pivot row off + jl then lies above).
+  const int first = static_cast<int>(
+      min(static_cast<long long>(cta) * g.rows,
+          static_cast<long long>(kMaxWidth) + 2));
   const long long slot = slot_floats<T>(nb);
   const long long half = parity_floats<T>(ctas, nb);
-  // The slice: row r of column k at S[k * ld + r].
+  // The slice: row r of column k at S[k * ld + r]; a streamed slice's
+  // column stride is the panel's height, so its offsets are 64-bit.
+  using Index = std::conditional_t<kResident, int, long long>;
   T* S = kResident ? reinterpret_cast<T*>(smem_raw) : at + row0;
-  const int ld = kResident ? g.rows : m;
+  const Index ld = kResident ? static_cast<Index>(g.rows)
+                             : static_cast<Index>(m);
 
   if constexpr (kResident) {  // load the slice of every column once
     for (int k = 0; k < nb; ++k)
       for (int r = tid; r < nrows; r += kThreads)
-        S[k * ld + r] = at[static_cast<size_t>(k) * m + row0 + r];
+        S[k * ld + r] = at[static_cast<long long>(k) * m + row0 + r];
     __syncthreads();
   }
 
@@ -340,7 +358,10 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
   // this slice, and publish column jl+1's partials (jl + 1 < nb).
   for (int jl = -1; jl < nb; ++jl) {
     const bool apply = jl >= 0, next = jl + 1 < nb;
-    const int j = off + jl, jn = j + 1;
+    // The pivot row off + jl as a row of this slice, clamped into
+    // [-2, nrows]: row r is at or past the pivot when r >= jr, the pivot
+    // when r == jr, past it when r > jr, the next pivot when r == jr + 1.
+    const int jr = min(max(jl - first, -2), nrows);
 
     if (apply) {  // -- merge, in the same order on every CTA
       // Thread (grp, kk) sums column k = jl+1+kk over CTA group grp; the
@@ -404,8 +425,8 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
 
     float* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
     T* rowj_n = reinterpret_cast<T*>(part_n + ctas * slot);
-    T* Sv = S + (apply ? jl : 0) * ld;  // column jl   (read when apply)
-    T* Sx = S + (jl + 1) * ld;          // column jl+1 (read when next)
+    T* Sv = S + static_cast<Index>(apply ? jl : 0) * ld;  // column jl
+    T* Sx = S + static_cast<Index>(jl + 1) * ld;  // column jl+1 (if next)
     const T alpha = apply ? sh_alpha : zero<T>();
     const float f = apply ? sh_f : 0.f;
 
@@ -413,20 +434,19 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
     const T w1 = apply && next ? sh_w[jl + 1] : zero<T>();
     float s = 0.f, err = 0.f;
     for (int r = tid; r < nrows; r += kThreads) {
-      const int i = row0 + r;
       T v = zero<T>();
-      if (apply && i >= j) {
-        v = i == j ? pivot(Sv[r], alpha, f) : scale(Sv[r], f);
+      if (apply && r >= jr) {
+        v = r == jr ? pivot(Sv[r], alpha, f) : scale(Sv[r], f);
         Sv[r] = v;
       }
       if (next) {
         T x = Sx[r];
-        if (apply && i >= j) {
+        if (apply && r >= jr) {
           x = sub_scaled(x, w1, v);
           Sx[r] = x;
         }
-        if (i >= jn) acc_sq(s, err, x);
-        if (i == jn) __stcg(rowj_n + jl + 1, x);
+        if (r > jr) acc_sq(s, err, x);
+        if (r == jr + 1) __stcg(rowj_n + jl + 1, x);
       }
     }
     if (!next) break;  // last column: v is written, nothing trails it
@@ -451,28 +471,32 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
     T* dots_n = reinterpret_cast<T*>(part_n + cta * slot + 2);
     const int kbase = jl + 2 + warp;
     T wq[kColsPerWarp], dq[kColsPerWarp];
+    // A streamed slice's columns lie 64-bit strides apart: each trailing
+    // column's base is formed once per step, so a row adds only its r.
+    T* col[kColsPerWarp];
 #pragma unroll
     for (int q = 0; q < kColsPerWarp; ++q) {
       const int k = kbase + q * kWarps;
       wq[q] = apply && k < nb ? sh_w[k] : zero<T>();
       dq[q] = zero<T>();
+      col[q] = S + static_cast<Index>(k) * ld;
     }
     for (int r = lane; r < nrows; r += 32) {
-      const int i = row0 + r;
-      const bool upd = apply && i >= j;
+      const bool upd = apply && r >= jr;
       const T v = upd ? Sv[r] : zero<T>();
       const T x = Sx[r];
 #pragma unroll
       for (int q = 0; q < kColsPerWarp; ++q) {
         const int k = kbase + q * kWarps;
         if (k < nb) {
-          T y = S[k * ld + r];
+          T* yp = kResident ? S + (k * ld + r) : col[q] + r;
+          T y = *yp;
           if (upd) {
             y = sub_scaled(y, wq[q], v);
-            S[k * ld + r] = y;
+            *yp = y;
           }
-          if (i >= jn) acc_dot(dq[q], x, y);
-          if (i == jn) __stcg(rowj_n + k, y);
+          if (r > jr) acc_dot(dq[q], x, y);
+          if (r == jr + 1) __stcg(rowj_n + k, y);
         }
       }
     }
@@ -493,7 +517,7 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
   if constexpr (kResident) {  // write the slice back once
     for (int k = 0; k < nb; ++k)
       for (int r = tid; r < nrows; r += kThreads)
-        at[static_cast<size_t>(k) * m + row0 + r] = S[k * ld + r];
+        at[static_cast<long long>(k) * m + row0 + r] = S[k * ld + r];
   }
 }
 
@@ -503,15 +527,15 @@ const void* kernel_for(bool resident) {
                   : reinterpret_cast<const void*>(panel_qr_kernel<T, false>);
 }
 
-// A panel the kernel cannot take: width, offset, or int32 element indices.
-bool bad_shape(int m, int nb, int off) {
-  return nb < 1 || nb > kMaxWidth || m < nb || off < 0 || off > m - nb ||
-         static_cast<long long>(m) * nb >= (1LL << 31);
+// A panel the kernel cannot take: its width or its offset. Its height has
+// no limit of its own: every index that can pass 2^31 is 64-bit.
+bool bad_shape(long long m, int nb, long long off) {
+  return nb < 1 || nb > kMaxWidth || m < nb || off < 0 || off > m - nb;
 }
 
 // A grid that does not cut the active rows into g.ctas non-empty slices of
 // at most g.rows rows, on at most one CTA per SM.
-bool bad_grid(Grid g, int active, int sms) {
+bool bad_grid(Grid g, long long active, int sms) {
   return g.ctas < 1 || g.ctas > kMaxCtas || g.ctas > sms || g.rows < 1 ||
          static_cast<long long>(g.ctas - 1) * g.rows >= active ||
          static_cast<long long>(g.ctas) * g.rows < active;
@@ -521,7 +545,7 @@ bool bad_grid(Grid g, int active, int sms) {
 // device: its dynamic shared memory, whether the card takes it, and the
 // kernel's attributes.
 template <typename T>
-cudaError_t check(int m, int nb, int off, Grid g, bool resident,
+cudaError_t check(long long m, int nb, long long off, Grid g, bool resident,
                   size_t* bytes, cudaFuncAttributes* fa, int* per_sm) {
   if (bad_shape(m, nb, off)) return cudaErrorInvalidValue;
   const void* fn = kernel_for<T>(resident);
@@ -551,8 +575,8 @@ cudaError_t check(int m, int nb, int off, Grid g, bool resident,
 
 template <typename T>
 int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
-           void* bar, int m, int nb, int off, int ctas, int rows,
-           int resident, void* stream) {
+           void* bar, long long m, int nb, long long off, int ctas,
+           int rows, int resident, void* stream) {
   Grid g{ctas, rows};
   size_t bytes = 0;
   cudaFuncAttributes fa;
@@ -574,7 +598,8 @@ int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
 }
 
 template <typename T>
-int info(int m, int nb, int off, int ctas, int rows, int resident, int* out) {
+int info(long long m, int nb, long long off, int ctas, int rows,
+         int resident, int* out) {
   size_t bytes = 0;
   cudaFuncAttributes fa{};
   int per_sm = 0;
@@ -593,21 +618,22 @@ int info(int m, int nb, int off, int ctas, int rows, int resident, int* out) {
 extern "C" {
 
 // Launchers: raw device pointers, the scratch (its length in floats) and
-// the zeroed barrier counter, the panel, the caller's grid (CTAs, rows per
-// CTA, and 1 for the slice resident in shared memory, 0 for streamed), and
-// the stream; each returns the cudaError_t of the launch (0 = cudaSuccess).
+// the zeroed barrier counter, the panel (its height and offset 64-bit),
+// the caller's grid (CTAs, rows per CTA, and 1 for the slice resident in
+// shared memory, 0 for streamed), and the stream; each returns the
+// cudaError_t of the launch (0 = cudaSuccess).
 int dhqr_panel_qr_f32(void* at, void* alpha, void* scratch,
-                      long long scratch_floats, void* bar, int m, int nb,
-                      int off, int ctas, int rows, int resident,
-                      void* stream) {
+                      long long scratch_floats, void* bar, long long m,
+                      int nb, long long off, int ctas, int rows,
+                      int resident, void* stream) {
   return launch<float>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
                        ctas, rows, resident, stream);
 }
 
 int dhqr_panel_qr_c64(void* at, void* alpha, void* scratch,
-                      long long scratch_floats, void* bar, int m, int nb,
-                      int off, int ctas, int rows, int resident,
-                      void* stream) {
+                      long long scratch_floats, void* bar, long long m,
+                      int nb, long long off, int ctas, int rows,
+                      int resident, void* stream) {
   return launch<float2>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
                         ctas, rows, resident, stream);
 }
@@ -622,8 +648,8 @@ long long dhqr_panel_qr_scratch_floats(int complex64, int ctas, int nb) {
 // out[5]: dynamic and static shared bytes per CTA, registers per thread,
 // local (spill) bytes per thread, resident CTAs per SM. Returns the
 // cudaError_t the launch would meet before it runs.
-int dhqr_panel_qr_info(int complex64, int m, int nb, int off, int ctas,
-                       int rows, int resident, int* out) {
+int dhqr_panel_qr_info(int complex64, long long m, int nb, long long off,
+                       int ctas, int rows, int resident, int* out) {
   return complex64 ? info<float2>(m, nb, off, ctas, rows, resident, out)
                    : info<float>(m, nb, off, ctas, rows, resident, out);
 }

@@ -45,7 +45,6 @@ from dhqr_tpu_torch.ops.householder import (
 )
 from dhqr_tpu_torch.precision import apply_policy_to_factor_args
 from dhqr_tpu_torch.utils.config import (
-    NotPortedError,
     check_precision,
     records_grad,
     refuse_grad,
@@ -58,8 +57,6 @@ DEFAULT_BLOCK_SIZE = 128
 # for a 128-wide slice to fit each CTA's shared memory, split into narrower
 # kernel leaves by the geqrt3 recursion (hopper_panel.kernel_flat_width).
 KERNEL_FLAT_WIDTH = KERNEL_MAX_WIDTH
-# Where panels too tall for the kernel's int32 element indices arrive.
-_TALL_PANELS_ITEM = "Queue B2 item 7 (64-bit element indices in the panel kernel)"
 
 
 def wy_upper(Y: torch.Tensor, precision: str = DEFAULT_PRECISION
@@ -180,11 +177,11 @@ def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
     "auto" stays on the XLA path off-TPU). "always": yes — on a CPU tensor
     the wrapper then runs the kernel's plain version, the analogue of the
     Pallas interpreter; raises ValueError for another dtype. "never": no.
-    Every height the kernel takes a leaf of runs on it (streamed past
-    shared memory); a taller one raises :class:`NotPortedError` rather than
-    leave the kernel on the card. There is no lowering probe: a CUDA kernel
-    that fails to build or launch raises instead of degrading to another
-    path.
+    Every height runs on the kernel: resident in shared memory where a
+    leaf's slices fit, streamed past that, with 64-bit row and element
+    indices past 2^31 (the height is never a reason to leave the kernel).
+    There is no lowering probe: a CUDA kernel that fails to build or
+    launch raises instead of degrading to another path.
     """
     if mode not in ("auto", "always", "never"):
         raise ValueError(
@@ -195,9 +192,6 @@ def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
     if dtype not in KERNELS:
         raise KernelRefusal(f"use_pallas='always' but the panel kernel takes "
                          f"float32/complex64 only, got {dtype}")
-    if kernel_flat_width(m, dtype, *device_limits(device)) == 0:
-        raise NotPortedError(f"a panel kernel leaf of {m} rows",
-                             _TALL_PANELS_ITEM)
     return True
 
 

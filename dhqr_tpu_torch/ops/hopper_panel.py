@@ -15,7 +15,9 @@ per column. This module holds, per kernel:
 * the **plain versions** :func:`_panel_qr_plain` and
   :func:`_panel_qr_plain_c64` — the TPU kernels' algorithm step by step in
   eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch rounds
-  every op on its own, so the Veltkamp split holds as written);
+  every op on its own, so the Veltkamp split holds as written), a row at a
+  time in pieces of :data:`PLAIN_CHUNK` elements, so that the plain twin
+  of a panel that fills much of the card fits beside it;
 * the **schedule model** :func:`_panel_qr_grid_model` — the CUDA kernel's
   row partition and one-round merge in eager PyTorch (tests, and
   ``chip_smoke.py`` as a leaf of the blocked engine on the card);
@@ -23,7 +25,8 @@ per column. This module holds, per kernel:
   :func:`kernel_flat_width` — the kernel's row partition, whether the
   slices fit shared memory, and the leaf width the blocked engine plans
   with, each for the card's SMs or a cap on them
-  (:data:`LOOKAHEAD_CTAS`). The launcher only checks the plan it is given;
+  (:data:`LOOKAHEAD_CTAS`), at any height (the kernel's row and element
+  indices are 64-bit). The launcher only checks the plan it is given;
 * the **launch counts** :data:`LAUNCHES`, one integer per kernel, which
   the wrapper raises by one per launch and nowhere else.
 """
@@ -34,7 +37,6 @@ import ctypes
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dhqr_tpu_torch.analysis import oplog as _oplog
 from dhqr_tpu_torch.ops import _build, gemm
@@ -56,8 +58,6 @@ H100_SMEM_PER_BLOCK = 232448
 # Shared memory set aside for the kernel's static arrays (ptxas: 2.7 KB
 # f32, 5.3 KB c64); the launcher checks the fit with the real figure.
 KERNEL_STATIC_SMEM = 8192
-# The kernel indexes a panel's elements with int32.
-KERNEL_MAX_ELEMENTS = 2**31 - 1
 # CTA cap of a panel launched beside a trailing GEMM (the lookahead
 # schedule's side stream, ops/blocked.py): the cooperative grid must be
 # resident at once, so it takes at most this many SMs and leaves the rest
@@ -120,12 +120,12 @@ def kernel_resident(rows: int, nb: int, dtype, sms: int = H100_SMS,
 
 def panel_kernel_supported(m: int, nb: int, dtype) -> bool:
     """True when the kernel takes an (m, nb) panel of ``dtype``: float32 or
-    complex64, 1 <= nb <= :data:`KERNEL_MAX_WIDTH`, m >= nb, and int32
-    element indices. Any height that passes runs on the card: resident in
-    shared memory where it fits (:func:`kernel_resident`), streamed where
-    it does not."""
-    return (dtype in KERNELS and 1 <= nb <= KERNEL_MAX_WIDTH and m >= nb
-            and m * nb <= KERNEL_MAX_ELEMENTS)
+    complex64, 1 <= nb <= :data:`KERNEL_MAX_WIDTH` and m >= nb. The height
+    has no limit of its own (the kernel's row and element indices are
+    64-bit): any panel that fits the card runs on it, resident in shared
+    memory where its slices fit (:func:`kernel_resident`), streamed where
+    they do not."""
+    return dtype in KERNELS and 1 <= nb <= KERNEL_MAX_WIDTH and m >= nb
 
 
 def kernel_flat_width(rows: int, dtype, sms: int = H100_SMS,
@@ -133,52 +133,70 @@ def kernel_flat_width(rows: int, dtype, sms: int = H100_SMS,
     """The leaf width the blocked engine gives the kernel for panels of
     ``rows`` rows (its recursion splits a wider panel into leaves this
     wide): the widest in :data:`KERNEL_LEAF_WIDTHS` whose slices fit the
-    shared memory of a card of ``sms`` SMs; past that, the narrowest, which
-    the kernel streams; 0 for a ``dtype`` the kernel does not take or a
-    leaf past int32 element indices.
+    shared memory of a card of ``sms`` SMs; past that, at any height, the
+    narrowest, which the kernel streams; 0 for a ``dtype`` the kernel does
+    not take (or no rows).
 
     On an H100: 16384 rows f32 -> 128 (125 rows x 512 B per CTA); 65536
     rows f32 -> 64 (497 rows x 256 B; 512 B would not fit 227 KB); from
-    ~462k rows f32 -> 16, streamed.
+    ~462k rows f32 -> 16, streamed, up to 2^27 rows and past them (a leaf
+    of more than 2^31 elements).
     """
-    narrow = KERNEL_LEAF_WIDTHS[-1]
-    if dtype not in KERNELS or not 1 <= rows * narrow <= KERNEL_MAX_ELEMENTS:
+    if dtype not in KERNELS or rows < 1:
         return 0
     for width in KERNEL_LEAF_WIDTHS:
         if kernel_resident(rows, width, dtype, sms, smem_per_block):
             return width
-    return narrow
+    return KERNEL_LEAF_WIDTHS[-1]
 
 
 # -- plain versions ---------------------------------------------------------
+
+# Elements in one temporary of the plain versions: a row longer than this
+# is worked through in pieces this size, so that the plain version of a
+# panel that fills much of the card (2^31 rows of f32 are 8.6 GB) runs
+# beside it. The pieces change no element's arithmetic, only the order in
+# which the compensated norm's error terms are summed.
+PLAIN_CHUNK = 1 << 26
+
+
+def _pieces(n: int, chunk: int) -> "list[slice]":
+    return [slice(i, min(n, i + chunk)) for i in range(0, n, chunk)]
+
 
 def _sumsq_compensated(x: torch.Tensor) -> torch.Tensor:
     """Compensated sum of squares of a 1-D float32 row, as the TPU kernel
     computes it: a Veltkamp split (constant 2^12 + 1) makes every square
     exact as p + e; the p plane is zero-padded to the next power of two
     (widths >= 256) and summed by a contiguous-halving TwoSum tree down to
-    128 lanes with the errors folded into a scalar; a plain sum ends it."""
-    p = x * x
-    c = x * 4097.0
-    hi = c - (c - x)
-    lo = x - hi
-    e = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
-    err = torch.sum(e)
-    w = p.shape[0]
+    128 lanes with the errors folded into a scalar; a plain sum ends it.
+
+    The tree halves p in place, :data:`PLAIN_CHUNK` lanes at a time, and
+    never forms the pad: a pad lane adds exactly 0 to its partner and to
+    the error, so only the lanes that meet a live partner are summed."""
+    w = x.shape[0]
+    p = torch.empty_like(x)
+    err = x.new_zeros(())
+    for sl in _pieces(w, PLAIN_CHUNK):
+        xc = x[sl]
+        pc = torch.mul(xc, xc, out=p[sl])
+        c = xc * 4097.0
+        hi = c - (c - xc)
+        lo = xc - hi
+        e = ((hi * hi - pc) + 2.0 * hi * lo) + lo * lo
+        err = err + torch.sum(e)
     if w >= 256:
-        w2 = 1 << (w - 1).bit_length()
-        if w2 != w:
-            p = F.pad(p, (0, w2 - w))
-            w = w2
-        while w > 128:
-            h = w // 2
-            a, b = p[:h], p[h:]
-            s = a + b
-            z = s - a
-            err = err + torch.sum((a - (s - z)) + (b - z))  # TwoSum error
-            p = s
-            w = h
-    return torch.sum(p) + err
+        live, h = w, 1 << ((w - 1).bit_length() - 1)  # half the padded width
+        while h >= 128:  # lanes [h, live) fold onto [0, live - h)
+            for sl in _pieces(live - h, PLAIN_CHUNK):
+                a, b = p[sl], p[sl.start + h:sl.stop + h]
+                s = a + b
+                z = s - a
+                err = err + torch.sum((a - (s - z)) + (b - z))  # TwoSum error
+                a.copy_(s)
+            live, h = h, h // 2
+        w = 128
+    return torch.sum(p[:w]) + err
 
 
 def _inv_scale(s: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
@@ -187,65 +205,77 @@ def _inv_scale(s: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, denom, 1.0)), 0.0)
 
 
+def _reflector(x: torch.Tensor, j: int, x_jj, alpha_j, f) -> torch.Tensor:
+    """v = (x - alpha_j e_j) f in place of the masked row ``x``, elementwise
+    as the TPU kernel forms it (x - alpha_j * 0 off the pivot)."""
+    x.sub_(alpha_j * 0.0)
+    x[j] = x_jj - alpha_j
+    return x.mul_(f)
+
+
 def _panel_qr_plain(at: torch.Tensor, offset: int) -> torch.Tensor:
     """Float32 kernel, plain: factor the transposed panel ``at`` (nb, m) in
-    place; returns alpha (nb,)."""
+    place; returns alpha (nb,). Its temporaries are a few rows (the
+    trailing update goes :data:`PLAIN_CHUNK` elements at a time)."""
     nb, m = at.shape
-    lane = torch.arange(m, device=at.device)
     alpha = at.new_zeros(nb)
+    step = max(1, PLAIN_CHUNK // m)  # trailing rows per update piece
     for jl in range(nb):
         j = offset + jl
-        row = at[jl].clone()
-        rmask = lane >= j
-        rowm = torch.where(rmask, row, 0.0)
-        s = torch.sqrt(_sumsq_compensated(rowm))
-        a_jj = row[j]
+        v = at[jl].clone()
+        v[:j] = 0.0  # the masked row x, rows < j zero
+        s = torch.sqrt(_sumsq_compensated(v))
+        a_jj = v[j].clone()
         alpha_j = torch.where(a_jj >= 0, -s, s)
-        f = _inv_scale(s, a_jj.abs())
-        v = (rowm - alpha_j * (lane == j).to(at.dtype)) * f
-        W = gemm.matmul(at[jl + 1:], v, "highest")  # partial dots
-        at[jl + 1:] -= W[:, None] * v[None, :]
-        at[jl] = torch.where(rmask, v, row)
+        _reflector(v, j, a_jj, alpha_j, _inv_scale(s, a_jj.abs()))
+        if jl + 1 < nb:
+            W = gemm.matmul(at[jl + 1:], v, "highest")  # partial dots
+            for k in range(0, nb - jl - 1, step):
+                rows = slice(jl + 1 + k, jl + 1 + k + step)
+                at[rows] -= W[k:k + step, None] * v[None, :]
+        at[jl, j:] = v[j:]
         alpha[jl] = alpha_j
     return alpha
 
 
 def _panel_qr_plain_c64(at: torch.Tensor, offset: int) -> torch.Tensor:
     """Complex64 kernel, plain, in real-plane arithmetic: factor ``at``
-    (nb, m) in place; returns alpha (nb,)."""
+    (nb, m) in place; returns alpha (nb,). Temporaries as the float32
+    version's."""
     nb, m = at.shape
     planes = torch.view_as_real(at)
     ar, ai = planes[..., 0], planes[..., 1]
-    lane = torch.arange(m, device=at.device)
     alpha = at.new_zeros(nb)
+    step = max(1, PLAIN_CHUNK // m)
     for jl in range(nb):
         j = offset + jl
-        rowr, rowi = ar[jl].clone(), ai[jl].clone()
-        rmask = lane >= j
-        rowmr = torch.where(rmask, rowr, 0.0)
-        rowmi = torch.where(rmask, rowi, 0.0)
-        s = torch.sqrt(_sumsq_compensated(rowmr) + _sumsq_compensated(rowmi))
-        ar_jj, ai_jj = rowr[j], rowi[j]
+        vr, vi = ar[jl].clone(), ai[jl].clone()
+        vr[:j] = 0.0
+        vi[:j] = 0.0
+        s = torch.sqrt(_sumsq_compensated(vr) + _sumsq_compensated(vi))
+        ar_jj, ai_jj = vr[j].clone(), vi[j].clone()
         mag = torch.sqrt(ar_jj * ar_jj + ai_jj * ai_jj)
         live = mag > 0
         inv = torch.where(live, 1.0 / torch.where(live, mag, 1.0), 0.0)
         alr = s * torch.where(live, -ar_jj * inv, -1.0)
         ali = s * torch.where(live, -ai_jj * inv, 0.0)
         f = _inv_scale(s, mag)
-        ej = (lane == j).to(ar.dtype)
-        vr = (rowmr - alr * ej) * f
-        vi = (rowmi - ali * ej) * f
-        tr, ti = ar[jl + 1:], ai[jl + 1:]
-        Wr = (gemm.matmul(tr, vr, "highest")
-              + gemm.matmul(ti, vi, "highest"))[:, None]
-        Wi = (gemm.matmul(ti, vr, "highest")
-              - gemm.matmul(tr, vi, "highest"))[:, None]
-        new_r = tr - (Wr * vr - Wi * vi)
-        new_i = ti - (Wr * vi + Wi * vr)
-        tr.copy_(new_r)
-        ti.copy_(new_i)
-        ar[jl] = torch.where(rmask, vr, rowr)
-        ai[jl] = torch.where(rmask, vi, rowi)
+        _reflector(vr, j, ar_jj, alr, f)
+        _reflector(vi, j, ai_jj, ali, f)
+        if jl + 1 < nb:
+            tr, ti = ar[jl + 1:], ai[jl + 1:]
+            Wr = (gemm.matmul(tr, vr, "highest")
+                  + gemm.matmul(ti, vi, "highest"))[:, None]
+            Wi = (gemm.matmul(ti, vr, "highest")
+                  - gemm.matmul(tr, vi, "highest"))[:, None]
+            for k in range(0, nb - jl - 1, step):
+                rows = slice(k, k + step)
+                new_r = tr[rows] - (Wr[rows] * vr - Wi[rows] * vi)
+                new_i = ti[rows] - (Wr[rows] * vi + Wi[rows] * vr)
+                tr[rows] = new_r
+                ti[rows] = new_i
+        ar[jl, j:] = vr[j:]
+        ai[jl, j:] = vi[j:]
         alpha[jl] = torch.complex(alr, ali)
     return alpha
 
@@ -382,6 +412,23 @@ def _panel_qr_plain_leaf(panel: torch.Tensor, offset: int,
 
 _LIBS: "dict[bool, ctypes.CDLL]" = {}
 
+# The C signatures of the launchers (``dhqr_panel_qr_f32`` / ``_c64``) and
+# of ``dhqr_panel_qr_info`` in csrc/panel_qr.cu, by parameter. A panel's
+# height and offset are 64-bit there and here: a 32-bit ctypes int would cut
+# a height past 2^31 short without a word.
+LAUNCH_ARGS = (
+    ("at", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
+    ("scratch", ctypes.c_void_p), ("scratch_floats", ctypes.c_longlong),
+    ("barrier", ctypes.c_void_p), ("m", ctypes.c_longlong),
+    ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
+    ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
+    ("resident", ctypes.c_int), ("stream", ctypes.c_void_p))
+INFO_ARGS = (
+    ("complex64", ctypes.c_int), ("m", ctypes.c_longlong),
+    ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
+    ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
+    ("resident", ctypes.c_int), ("out", ctypes.POINTER(ctypes.c_int)))
+
 # Sections of a column step timed by the build with -DDHQR_PANEL_PROFILE.
 PROFILE_SECTIONS = ("merge", "column_pass", "trailing_pass", "barrier")
 
@@ -394,16 +441,13 @@ def _library(profile: bool = False) -> ctypes.CDLL:
                           ("DHQR_PANEL_PROFILE",) if profile else ())
         lib.dhqr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dhqr_cuda_error_string.restype = ctypes.c_char_p
-        lib.dhqr_panel_qr_info.argtypes = [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_int)]
+        lib.dhqr_panel_qr_info.argtypes = [t for _, t in INFO_ARGS]
         lib.dhqr_panel_qr_info.restype = ctypes.c_int
         lib.dhqr_panel_qr_scratch_floats.argtypes = [ctypes.c_int] * 3
         lib.dhqr_panel_qr_scratch_floats.restype = ctypes.c_longlong
         for kname in KERNELS.values():
             fn = getattr(lib, f"dhqr_{kname}")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_void_p,
-                           *[ctypes.c_int] * 6, ctypes.c_void_p]
+            fn.argtypes = [t for _, t in LAUNCH_ARGS]
             fn.restype = ctypes.c_int
         if profile:
             lib.dhqr_panel_qr_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -516,9 +560,9 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
         raise KernelRefusal(
-            f"the panel kernel takes float32/complex64 panels with m >= nb, "
-            f"nb <= {KERNEL_MAX_WIDTH} and at most 2^31 - 1 elements, got "
-            f"{tuple(panel.shape)} {panel.dtype}")
+            f"the panel kernel takes float32/complex64 panels with m >= nb "
+            f"and nb <= {KERNEL_MAX_WIDTH}, got {tuple(panel.shape)} "
+            f"{panel.dtype}")
     if not 0 <= offset <= m - nb:
         raise KernelRefusal(f"panel offset {offset} out of range for "
                          f"{tuple(panel.shape)}")

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time the Hopper panel kernels of one checkout of dhqr_tpu_torch, so that
+two checkouts can be compared in turns on one card.
+
+    cd <checkout> && python3 <path to>/panel_ab.py TAG [--sections]
+
+Imports ``dhqr_tpu_torch`` from the current directory (whichever checkout
+that is: this script may live in another), builds its kernels, and prints
+one JSON line ``{"tag": TAG, "rows": {...}}``: for each of ``chip_smoke.py``
+phase 1's timed shapes, five device times in ms, each the mean of ten
+launches of the kernel wrapper (CUDA events, after one warm-up). With
+``--sections`` it prints ``{"tag": TAG, "cycles": {...}}`` instead: the
+SM cycles per column of each section of a column step (merge, column pass,
+trailing pass, grid barrier), the mean over the CTAs, from three launches
+of the timed build (``hopper_panel.kernel_section_cycles``) after one.
+Run parent, change, change, parent in one call and compare medians. Needs
+one CUDA card.
+"""
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import torch  # noqa: E402
+
+from dhqr_tpu_torch.ops import hopper_panel as hp  # noqa: E402
+
+SHAPES = [("f32", 16384, 128, 0, None), ("f32", 65536, 128, 0, None),
+          ("f32", 524288, 16, 0, None), ("c64", 8192, 128, 0, None),
+          ("c64", 32768, 128, 7, None), ("c64", 262144, 16, 3, None),
+          ("f32", 16384, 128, 0, 66), ("c64", 8192, 128, 0, 66)]
+SECTION_SHAPES = [("f32", 16384, 128), ("c64", 8192, 128),
+                  ("f32", 524288, 16), ("c64", 262144, 16)]
+
+
+def _panel(g, name, m, nb):
+    dtype = torch.float32 if name == "f32" else torch.complex64
+    return torch.randn((m, nb), generator=g, device="cuda", dtype=dtype)
+
+
+def times(g) -> dict:
+    out = {}
+    for name, m, nb, off, cap in SHAPES:
+        panel = _panel(g, name, m, nb)
+
+        def launch():
+            return hp._panel_qr_kernel(panel, off, cap)
+
+        launch()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                launch()
+            stop.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(stop) / 10)
+        out[f"{name} {m}x{nb} off{off} cap{cap}"] = ts
+    return out
+
+
+def sections(g) -> dict:
+    out = {}
+    for name, m, nb in SECTION_SHAPES:
+        panel = _panel(g, name, m, nb)
+        reps = [hp.kernel_section_cycles(panel) for _ in range(4)][1:]
+        out[f"{name} {m}x{nb}"] = {
+            s: [round(r["mean"][s], 1) for r in reps]
+            for s in hp.PROFILE_SECTIONS}
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) < 1 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if "--sections" in argv[1:]:
+        print(json.dumps({"tag": argv[0], "cycles": sections(g)}), flush=True)
+    else:
+        print(json.dumps({"tag": argv[0], "rows": times(g)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

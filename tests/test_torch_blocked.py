@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import dhqr_tpu  # noqa: E402
+import dhqr_tpu_torch as dt  # noqa: E402
 from dhqr_tpu.ops import blocked as jbl  # noqa: E402
 from dhqr_tpu.utils.testing import random_problem  # noqa: E402
 from dhqr_tpu_torch.ops import blocked as tbl  # noqa: E402
@@ -60,6 +62,25 @@ def test_blocked_complex64_always_matches_jax():
                                             use_pallas="never")
     _close(H, H0, 5e-4)
     _close(alpha, alpha0, 5e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+def test_narrow_tall_leaf_matches_jax(dtype):
+    """4096 x 16 is one 16-wide panel: the narrow leaf that the card
+    streams past shared memory, past 2^31 elements too. The port's kernel
+    route runs the kernel's plain version on these CPU tensors, the JAX
+    package its Pallas kernel in interpret mode; the factors and the
+    least-squares solution agree to 5e-4 (the file's f32/c64 bar)."""
+    A, b = random_problem(4096, 16, dtype, seed=16)
+    H, alpha = tbl.blocked_householder_qr(A, 128, use_pallas="always",
+                                          device="cpu")
+    H0, alpha0 = jbl.blocked_householder_qr(jnp.asarray(A), 128,
+                                            use_pallas="always")
+    _close(H, H0, 5e-4)
+    _close(alpha, alpha0, 5e-4)
+    x = dt.lstsq(A, b, use_pallas="always", device="cpu")
+    x0 = dhqr_tpu.lstsq(jnp.asarray(A), jnp.asarray(b), use_pallas="always")
+    _close(x, x0, 5e-4)
 
 
 def test_donate_factors_in_place():
@@ -124,8 +145,10 @@ def test_kernel_routing_modes():
         tbl._resolve_kernel("always", 1024, torch.float64, cpu)
     with pytest.raises(ValueError):
         tbl._resolve_kernel("sometimes", 1024, torch.float32, cpu)
-    with pytest.raises(NotImplementedError):  # NotPortedError: int32 indices
-        tbl._resolve_kernel("auto", 2**27, torch.float32, cuda)
+    # past 2^31 elements (2^27 x 16) and 2^31 rows: still the kernel, whose
+    # row and element indices are 64-bit
+    assert tbl._resolve_kernel("auto", 2**27, torch.float32, cuda)
+    assert tbl._resolve_kernel("auto", 2**31 + 4097, torch.complex64, cuda)
 
 
 def test_engine_follows_its_panel_plan(monkeypatch):

@@ -35,9 +35,16 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("piece", [None, 64])
 @pytest.mark.parametrize("dtype", [np.float32, np.complex64])
-@pytest.mark.parametrize("shape", [(33, 7), (160, 32)])
-def test_plain_kernel_matches_pallas_interpret(shape, dtype):
+@pytest.mark.parametrize("shape", [(33, 7), (160, 32), (1000, 16)])
+def test_plain_kernel_matches_pallas_interpret(shape, dtype, piece,
+                                               monkeypatch):
+    """``piece``: the plain versions work a row in pieces of that many
+    elements (as they do a row of more than ``PLAIN_CHUNK`` on the card),
+    which changes no element's arithmetic."""
+    if piece:
+        monkeypatch.setattr(hp, "PLAIN_CHUNK", piece)
     P = _panel(*shape, dtype, seed=7)
     before = dict(hp.LAUNCHES)
     pf, alpha = hp.panel_qr_kernel(torch.from_numpy(P))
@@ -110,7 +117,7 @@ def test_supported_predicate():
     assert not hp.panel_kernel_supported(8192, 128, torch.complex128)
     assert not hp.panel_kernel_supported(8192, 256, torch.float32)
     assert not hp.panel_kernel_supported(64, 128, torch.float32)
-    assert not hp.panel_kernel_supported(2**25, 128, torch.float32)
+    assert hp.panel_kernel_supported(2**25, 128, torch.float32)  # 2^32 elems
     assert hp.panel_kernel_supported(65536, 128, torch.float32)
     assert not hp.kernel_resident(65536, 128, torch.float32)
     assert hp.kernel_resident(65536, 64, torch.float32)

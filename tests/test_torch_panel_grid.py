@@ -10,6 +10,8 @@ summation orders differ). The leaf-width rule that plans the blocked
 engine's kernel leaves is checked at the main path's shapes.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -20,7 +22,6 @@ import jax.numpy as jnp  # noqa: E402
 from dhqr_tpu.ops import pallas_panel as jpp  # noqa: E402
 from dhqr_tpu_torch.ops import blocked as tbl  # noqa: E402
 from dhqr_tpu_torch.ops import hopper_panel as hp  # noqa: E402
-from dhqr_tpu_torch.utils.config import NotPortedError  # noqa: E402
 
 TOL = {np.float32: 2e-5, np.complex64: 5e-5}
 SLICES = [1, 3, 7, 132]
@@ -167,7 +168,7 @@ def test_kernel_flat_width_at_the_main_path_shapes():
     assert hp.kernel_flat_width(65536, c64) == 32
     assert hp.kernel_flat_width(2**24, f32) == 16   # too tall at any leaf:
     assert not hp.kernel_resident(2**24, 16, f32)   # streamed
-    assert hp.kernel_flat_width(2**27, f32) == 0    # past int32 indices
+    assert hp.kernel_flat_width(2**27, f32) == 16   # 2^31 elements: 64-bit
     assert hp.kernel_flat_width(1024, torch.float64) == 0
     assert hp.kernel_flat_width(5, f32) == 128      # a panel shorter than 16
     # the card's own values decide: fewer SMs, taller slices
@@ -190,8 +191,9 @@ def test_panel_plan_at_the_main_path_shapes(m, n, dtype, leaves, width):
 def test_panel_plan_routes_too_tall_panels_off_the_kernel():
     """Only ``kernel=False`` routes a panel off the kernel. A panel whose
     slices do not fit shared memory even at the narrowest leaf stays on
-    it, streamed, at that leaf; one past int32 element indices raises
-    NotPortedError on a card instead of taking the plain engine there."""
+    it, streamed, at that leaf, and so does one past 2^31 elements (the
+    kernel's indices are 64-bit): on a card it never takes the plain
+    engine for its height."""
     rows_at_16 = (hp.H100_SMEM_PER_BLOCK - hp.KERNEL_STATIC_SMEM) // (16 * 4)
     m = 132 * rows_at_16 + 1000
     plan = tbl.panel_plan(m, 2048, 128, True, torch.float32)
@@ -200,20 +202,26 @@ def test_panel_plan_routes_too_tall_panels_off_the_kernel():
                                                    torch.float32)
     assert tbl._resolve_kernel("auto", m, torch.float32, torch.device("cuda"))
     assert tbl._resolve_kernel("always", m, torch.float32, "cpu")
-    with pytest.raises(NotPortedError, match="Queue B2"):
-        tbl._resolve_kernel("auto", 2**27, torch.float32, torch.device("cuda"))
+    assert tbl._resolve_kernel("auto", 2**27, torch.float32,
+                               torch.device("cuda"))
+    assert tbl.panel_plan(2**27, 2048, 128, True, torch.float32)[0] == \
+        (0, 128, 16)
     assert not tbl._resolve_kernel("auto", 2**27, torch.float32, "cpu")
     assert all(leaf == 0 for _, _, leaf in
                tbl.panel_plan(4096, 256, 128, False, torch.float32))
 
 
 def test_wrapper_refuses_a_panel_too_tall_for_shared_memory():
-    """Too tall for shared memory is no longer a refusal (the kernel
-    streams the slice); the wrapper refuses only a panel past int32
-    element indices, before it allocates anything."""
+    """Too tall for shared memory, or for 32-bit indices, is no refusal
+    (the kernel streams the slice, with 64-bit row and element indices): a
+    panel of 2^31 elements passes every shape check, and a meta tensor of
+    that shape is refused for its device alone, before any launch."""
     assert hp.panel_kernel_supported(65536, 128, torch.float32)
-    with pytest.raises(ValueError, match="2\\^31"):
+    assert hp.panel_kernel_supported(2**24, 128, torch.float32)
+    before = dict(hp.LAUNCHES)
+    with pytest.raises(ValueError, match="device meta"):
         hp._panel_qr_kernel(torch.zeros((2**24, 128), device="meta"), 0)
+    assert hp.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype,rows,resident_widths", [
@@ -233,6 +241,30 @@ def test_kernel_resident_rule(dtype, rows, resident_widths):
             (width in resident_widths)
     expect = max(resident_widths, default=hp.KERNEL_LEAF_WIDTHS[-1])
     assert hp.kernel_flat_width(rows, dtype) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("m", [2**27, 2**27 + 8191, 2**31 + 4097])
+def test_leaf_past_32_bit_indices_plans_onto_the_kernel(m, dtype):
+    """Leaves of 2^31 elements and more (2^27 x 16) and of more than 2^31
+    rows (one column of 2^31 + 4097) plan like any streamed leaf, on H100
+    values and without allocating: one 16-wide launch on 132 CTAs, each
+    CTA's rows 32-bit, the height and offset 64-bit at the C boundary."""
+    cuda = torch.device("cuda")  # only its type is read; no card needed
+    assert hp.panel_kernel_supported(m, 16, dtype)
+    assert hp.kernel_flat_width(m, dtype) == 16
+    assert tbl._resolve_kernel("auto", m, dtype, cuda)
+    assert tbl.panel_plan(m, 16, 128, True, dtype) == [(0, 16, 16)]
+    assert tbl.kernel_leaves(16, 16) == 1
+    ctas, per = hp.kernel_grid(m)
+    assert ctas <= hp.H100_SMS and (ctas - 1) * per < m <= ctas * per
+    assert per < 2**31
+    assert hp._plan(m, 16, 3, dtype, "cpu") == (*hp.kernel_grid(m - 3),
+                                                False)
+    for args in (dict(hp.LAUNCH_ARGS), dict(hp.INFO_ARGS)):
+        assert args["m"] is ctypes.c_longlong
+        assert args["offset"] is ctypes.c_longlong
+        assert args["nb"] is ctypes.c_int
 
 
 def test_tall_lstsq_plans_streamed_leaves():
