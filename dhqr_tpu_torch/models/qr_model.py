@@ -60,6 +60,7 @@ from dhqr_tpu_torch.utils.config import (
     refuse_unported,
 )
 from dhqr_tpu_torch.utils.device import as_tensor, check_fp32_matmul
+from dhqr_tpu_torch.utils.profiling import phase
 
 LSTSQ_ENGINES = ENGINES
 
@@ -195,25 +196,26 @@ class QRFactorization:
         original ``matrix``; under a compressed ``comms`` the sweeps are
         corrected semi-normal ones with this factorization's R (plain
         refinement stalls at the bias of the perturbed Q^H)."""
-        steps = self.refine if refine is None else int(refine)
-        b = self._rhs(b)
-        if steps and self.mesh is not None:
-            refuse_mesh_grad("refinement on the column mesh", "refine",
-                             self.H, self.alpha, b, self.matrix)
-        x = self._solve_once(b)
-        if steps:
-            if self.matrix is None:
-                raise ValueError(
-                    "refinement needs the original matrix: factor with "
-                    "qr(A, policy=...) (policy.refine > 0 keeps A on the "
-                    "factorization), or pass refine=0")
-            if self.comms is not None:
-                return _csne_refine(self.matrix, self.r_matrix(), x, b,
-                                    steps)
-            for _ in range(steps):
-                x = x + self._solve_once(
-                    b - _gemm.matmul(self.matrix, x, "highest"))
-        return x
+        with phase("dhqr.solve"):
+            steps = self.refine if refine is None else int(refine)
+            b = self._rhs(b)
+            if steps and self.mesh is not None:
+                refuse_mesh_grad("refinement on the column mesh", "refine",
+                                 self.H, self.alpha, b, self.matrix)
+            x = self._solve_once(b)
+            if steps:
+                if self.matrix is None:
+                    raise ValueError(
+                        "refinement needs the original matrix: factor with "
+                        "qr(A, policy=...) (policy.refine > 0 keeps A on the "
+                        "factorization), or pass refine=0")
+                if self.comms is not None:
+                    return _csne_refine(self.matrix, self.r_matrix(), x, b,
+                                        steps)
+                for _ in range(steps):
+                    x = x + self._solve_once(
+                        b - _gemm.matmul(self.matrix, x, "highest"))
+            return x
 
     def matmul_q(self, b) -> torch.Tensor:
         """Q @ b (b of length m, or (m, k)); on a mesh, on every rank
@@ -447,69 +449,73 @@ def qr(A, config: Optional[DHQRConfig] = None, donate: bool = False,
     :func:`~dhqr_tpu_torch.numeric.ladder.guarded_qr` and returns its
     factorization.
     """
-    cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
-    if cfg.guards is not None:
-        # Numeric guardrails: screening, breakdown detection, policy
-        # escalation, typed refusal; guarded_qr has the provenance.
-        if donate:
-            raise ValueError(
-                "donate=True cannot be combined with guards=: escalation "
-                "must be able to re-read A, which donation invalidates"
-            )
-        from dhqr_tpu_torch.numeric.ladder import guarded_qr
+    with phase("dhqr.qr"):
+        cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
+        if cfg.guards is not None:
+            # Numeric guardrails: screening, breakdown detection, policy
+            # escalation, typed refusal; guarded_qr has the provenance.
+            if donate:
+                raise ValueError(
+                    "donate=True cannot be combined with guards=: escalation "
+                    "must be able to re-read A, which donation invalidates"
+                )
+            from dhqr_tpu_torch.numeric.ladder import guarded_qr
 
-        return guarded_qr(A, config=cfg, mesh=mesh,
-                          device=device).factorization
-    cfg, pol = _resolved(cfg, mesh, device, "qr", A)
-    cfg = _with_block_size(cfg)
-    if cfg.engine != "householder":
-        raise ValueError(
-            f"qr() supports only engine='householder' (got {cfg.engine!r}): "
-            "the factorization object stores packed reflectors; the "
-            "tsqr/cholqr/sketch engines are lstsq-only fast paths")
-    if cfg.refine:
-        raise ValueError(
-            "refine applies to lstsq() only — qr() returns the raw "
-            "factorization; use lstsq(A, b, refine=...), or pass a policy= "
-            "with refine > 0 (which arms refinement on the solves)")
-    solve_refine = pol.refine if pol is not None else 0
-    if solve_refine and donate:
-        raise ValueError(
-            "donate=True cannot be combined with a refining policy: "
-            "refinement must keep the original A, which donation "
-            "invalidates")
-    A = as_tensor(A, device if mesh is None else mesh.device)
-    check_fp32_matmul(A.device)
-    if mesh is not None:
-        if donate:
+            return guarded_qr(A, config=cfg, mesh=mesh,
+                              device=device).factorization
+        cfg, pol = _resolved(cfg, mesh, device, "qr", A)
+        cfg = _with_block_size(cfg)
+        if cfg.engine != "householder":
             raise ValueError(
-                "donate=True is not supported on the mesh path (the input is "
-                "re-placed onto the mesh, so donation cannot honor its contract)"
-            )
-        H, alpha, nb = _qr_mesh(A, cfg, mesh)
+                "qr() supports only engine='householder' (got "
+                f"{cfg.engine!r}): the factorization object stores packed "
+                "reflectors; the tsqr/cholqr/sketch engines are lstsq-only "
+                "fast paths")
+        if cfg.refine:
+            raise ValueError(
+                "refine applies to lstsq() only — qr() returns the raw "
+                "factorization; use lstsq(A, b, refine=...), or pass a "
+                "policy= with refine > 0 (which arms refinement on the "
+                "solves)")
+        solve_refine = pol.refine if pol is not None else 0
+        if solve_refine and donate:
+            raise ValueError(
+                "donate=True cannot be combined with a refining policy: "
+                "refinement must keep the original A, which donation "
+                "invalidates")
+        A = as_tensor(A, device if mesh is None else mesh.device)
+        check_fp32_matmul(A.device)
+        if mesh is not None:
+            if donate:
+                raise ValueError(
+                    "donate=True is not supported on the mesh path (the "
+                    "input is re-placed onto the mesh, so donation cannot "
+                    "honor its contract)")
+            H, alpha, nb = _qr_mesh(A, cfg, mesh)
+            return QRFactorization(
+                H, alpha, block_size=nb,
+                precision=cfg.apply_precision or cfg.precision,
+                refine=solve_refine, matrix=A if solve_refine else None,
+                mesh=mesh, layout=cfg.layout, comms=cfg.comms)
+        if cfg.blocked:
+            H, alpha = _blocked.blocked_householder_qr(
+                A, cfg.block_size, donate=donate, precision=cfg.precision,
+                use_pallas=cfg.use_pallas, norm=cfg.norm,
+                panel_impl=cfg.panel_impl,
+                trailing_precision=cfg.trailing_precision,
+                lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
+                device=A.device)
+        else:
+            if donate:
+                raise ValueError(
+                    "donate=True is only supported on the blocked path")
+            _reject_nonblocked_knobs(cfg)
+            H, alpha = _hh.householder_qr(A, precision=cfg.precision,
+                                          norm=cfg.norm, device=A.device)
         return QRFactorization(
-            H, alpha, block_size=nb,
+            H, alpha, block_size=cfg.block_size,
             precision=cfg.apply_precision or cfg.precision,
-            refine=solve_refine, matrix=A if solve_refine else None,
-            mesh=mesh, layout=cfg.layout, comms=cfg.comms)
-    if cfg.blocked:
-        H, alpha = _blocked.blocked_householder_qr(
-            A, cfg.block_size, donate=donate, precision=cfg.precision,
-            use_pallas=cfg.use_pallas, norm=cfg.norm,
-            panel_impl=cfg.panel_impl,
-            trailing_precision=cfg.trailing_precision,
-            lookahead=cfg.lookahead, agg_panels=cfg.agg_panels,
-            device=A.device)
-    else:
-        if donate:
-            raise ValueError("donate=True is only supported on the blocked path")
-        _reject_nonblocked_knobs(cfg)
-        H, alpha = _hh.householder_qr(A, precision=cfg.precision,
-                                      norm=cfg.norm, device=A.device)
-    return QRFactorization(
-        H, alpha, block_size=cfg.block_size,
-        precision=cfg.apply_precision or cfg.precision, refine=solve_refine,
-        matrix=A if solve_refine else None)
+            refine=solve_refine, matrix=A if solve_refine else None)
 
 
 def solve(fact: QRFactorization, b) -> torch.Tensor:
@@ -759,55 +765,57 @@ def lstsq(A, b, config: Optional[DHQRConfig] = None, mesh=None, device=None,
     health check, the engine and policy ladder, typed refusal) and
     returns its ``x``.
     """
-    cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
-    if cfg.guards is not None:
-        from dhqr_tpu_torch.numeric.ladder import guarded_lstsq
+    with phase("dhqr.lstsq"):
+        cfg = dataclasses.replace(config or DHQRConfig(), **overrides)
+        if cfg.guards is not None:
+            from dhqr_tpu_torch.numeric.ladder import guarded_lstsq
 
-        return guarded_lstsq(A, b, config=cfg, mesh=mesh, device=device).x
-    cfg, pol = _resolved(cfg, mesh, device, "lstsq", A)
-    A = as_tensor(A, device if mesh is None else mesh.device)
-    b = as_tensor(b, A.device, A.dtype)
-    check_fp32_matmul(A.device)
-    if cfg.refine < 0:
-        raise ValueError(f"refine must be >= 0, got {cfg.refine}")
-    m, n = A.shape
-    if m < n and (cfg.engine != "householder" or mesh is not None):
-        raise ValueError(
-            f"m < n (got {tuple(A.shape)}) is supported only on the "
-            "single-device householder path (minimum-norm solve)")
-    if cfg.engine == "sketch":  # before the block-size default, as in JAX
-        return _lstsq_sketch(A, b, cfg, mesh)
-    cfg = _with_block_size(cfg)
-    if m < n:
-        if not cfg.blocked or cfg.use_pallas != "auto" \
-                or cfg.trailing_precision is not None or cfg.lookahead \
-                or cfg.agg_panels or cfg.apply_precision is not None:
+            return guarded_lstsq(A, b, config=cfg, mesh=mesh, device=device).x
+        cfg, pol = _resolved(cfg, mesh, device, "lstsq", A)
+        A = as_tensor(A, device if mesh is None else mesh.device)
+        b = as_tensor(b, A.device, A.dtype)
+        check_fp32_matmul(A.device)
+        if cfg.refine < 0:
+            raise ValueError(f"refine must be >= 0, got {cfg.refine}")
+        m, n = A.shape
+        if m < n and (cfg.engine != "householder" or mesh is not None):
             raise ValueError(
-                "m < n supports only the default blocked path "
-                f"(got blocked={cfg.blocked}, use_pallas={cfg.use_pallas!r}, "
-                f"trailing_precision={cfg.trailing_precision!r}, "
-                f"lookahead={cfg.lookahead}, agg_panels={cfg.agg_panels}, "
-                f"apply_precision={cfg.apply_precision!r})")
+                f"m < n (got {tuple(A.shape)}) is supported only on the "
+                "single-device householder path (minimum-norm solve)")
+        if cfg.engine == "sketch":  # before the block-size default, as in JAX
+            return _lstsq_sketch(A, b, cfg, mesh)
+        cfg = _with_block_size(cfg)
+        if m < n:
+            if not cfg.blocked or cfg.use_pallas != "auto" \
+                    or cfg.trailing_precision is not None or cfg.lookahead \
+                    or cfg.agg_panels or cfg.apply_precision is not None:
+                raise ValueError(
+                    "m < n supports only the default blocked path "
+                    f"(got blocked={cfg.blocked}, "
+                    f"use_pallas={cfg.use_pallas!r}, "
+                    f"trailing_precision={cfg.trailing_precision!r}, "
+                    f"lookahead={cfg.lookahead}, agg_panels={cfg.agg_panels}, "
+                    f"apply_precision={cfg.apply_precision!r})")
+            if cfg.refine:
+                raise ValueError(
+                    "refine is not supported for m < n (the minimum-norm "
+                    "solve is already exact to working precision)")
+            return _minimum_norm_impl(A, b, cfg.block_size, cfg.precision,
+                                      norm=cfg.norm)
+        if cfg.comms is not None and mesh is not None \
+                and cfg.engine == "householder":
+            # A compressed wire's factorization carries its rounding: the
+            # solve refines by CSNE sweeps, at least the format's floor.
+            floor = CSNE_MODEL_SWEEPS.get(cfg.comms, 2)
+            if cfg.refine < floor:
+                cfg = dataclasses.replace(cfg, refine=floor)
         if cfg.refine:
-            raise ValueError(
-                "refine is not supported for m < n (the minimum-norm solve "
-                "is already exact to working precision)")
-        return _minimum_norm_impl(A, b, cfg.block_size, cfg.precision,
-                                  norm=cfg.norm)
-    if cfg.comms is not None and mesh is not None \
-            and cfg.engine == "householder":
-        # A compressed wire's factorization carries its rounding: the
-        # solve refines by CSNE sweeps, at least the format's floor.
-        floor = CSNE_MODEL_SWEEPS.get(cfg.comms, 2)
-        if cfg.refine < floor:
-            cfg = dataclasses.replace(cfg, refine=floor)
-    if cfg.refine:
-        return _lstsq_refined(A, b, cfg, mesh)
-    if cfg.engine != "householder":
-        return _lstsq_alt_engine(A, b, cfg, mesh)
-    if mesh is not None:
-        return _lstsq_mesh(A, b, cfg, mesh)
-    return _lstsq_impl(A, b, cfg)
+            return _lstsq_refined(A, b, cfg, mesh)
+        if cfg.engine != "householder":
+            return _lstsq_alt_engine(A, b, cfg, mesh)
+        if mesh is not None:
+            return _lstsq_mesh(A, b, cfg, mesh)
+        return _lstsq_impl(A, b, cfg)
 
 
 def _lstsq_mesh(A, b, cfg: DHQRConfig, mesh):

@@ -50,6 +50,7 @@ from dhqr_tpu_torch.utils.config import (
     refuse_grad,
 )
 from dhqr_tpu_torch.utils.device import as_tensor
+from dhqr_tpu_torch.utils.profiling import phase
 
 DEFAULT_BLOCK_SIZE = 128
 
@@ -251,47 +252,52 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     loop, each panel step and trailing update one batched op (the serving
     tier's twin of the JAX engine's ``vmap``); a stack takes the plain
     panel engines and the default schedule only."""
-    m, n = H.shape[-2:]
-    alpha = H.new_zeros(H.shape[:-2] + (n,))
-    leaf = _panel_qr_kernel if leaf is None else leaf
-    if H.ndim != 2 and (kernel or lookahead or agg_panels):
-        raise ValueError("a stack of matrices takes the plain panel engines "
-                         "and the default schedule only")
+    with phase("dhqr.factor"):
+        m, n = H.shape[-2:]
+        alpha = H.new_zeros(H.shape[:-2] + (n,))
+        leaf = _panel_qr_kernel if leaf is None else leaf
+        if H.ndim != 2 and (kernel or lookahead or agg_panels):
+            raise ValueError("a stack of matrices takes the plain panel "
+                             "engines and the default schedule only")
 
-    def factor(k, b, width_leaf, sms=None):
-        """Factor the panel H[k:, k:k+b] in place (alpha[k:k+b] too), by
-        the plan's route, the kernel on at most ``sms`` SMs; returns the
-        factored panel."""
-        panel = H[..., k:, k:k + b]
-        if width_leaf:
-            kleaf = leaf if sms is None else functools.partial(leaf, sms=sms)
-            pf, alpha_k = _panel_factor_kernel(panel, 0, width_leaf,
-                                               precision, kleaf)
-        else:
-            pf, alpha_k = _panel_factor(panel, 0, precision, norm,
-                                        panel_impl)
-        panel.copy_(pf)
-        alpha[..., k:k + b] = alpha_k
-        return pf
+        def factor(k, b, width_leaf, sms=None):
+            """Factor the panel H[k:, k:k+b] in place (alpha[k:k+b] too),
+            by the plan's route, the kernel on at most ``sms`` SMs; returns
+            the factored panel. One ``dhqr.panel`` span."""
+            with phase("dhqr.panel"):
+                panel = H[..., k:, k:k + b]
+                if width_leaf:
+                    kleaf = leaf if sms is None \
+                        else functools.partial(leaf, sms=sms)
+                    pf, alpha_k = _panel_factor_kernel(panel, 0, width_leaf,
+                                                       precision, kleaf)
+                else:
+                    pf, alpha_k = _panel_factor(panel, 0, precision, norm,
+                                                panel_impl)
+                panel.copy_(pf)
+                alpha[..., k:k + b] = alpha_k
+                return pf
 
-    if lookahead:
+        if lookahead:
+            plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device,
+                              lookahead_ctas, flat)
+            _lookahead_schedule(H, plan, factor, precision,
+                                trailing_precision, lookahead_ctas)
+            return H, alpha
         plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device,
-                          lookahead_ctas, flat)
-        _lookahead_schedule(H, plan, factor, precision, trailing_precision,
-                            lookahead_ctas)
+                          flat=flat)
+        if agg_panels:
+            _grouped_schedule(H, plan, agg_panels, factor, precision,
+                              trailing_precision)
+            return H, alpha
+        for k, b, width_leaf in plan:
+            pf = factor(k, b, width_leaf)
+            if k + b < n:  # trailing update, in place in H
+                with phase("dhqr.trailing"):
+                    apply_block_reflector_h(torch.tril(pf),
+                                            H[..., k:, k + b:], precision,
+                                            trailing_precision, inplace=True)
         return H, alpha
-    plan = panel_plan(m, n, block_size, kernel, H.dtype, H.device, flat=flat)
-    if agg_panels:
-        _grouped_schedule(H, plan, agg_panels, factor, precision,
-                          trailing_precision)
-        return H, alpha
-    for k, b, width_leaf in plan:
-        pf = factor(k, b, width_leaf)
-        if k + b < n:  # trailing update, in place in H
-            apply_block_reflector_h(torch.tril(pf), H[..., k:, k + b:],
-                                    precision, trailing_precision,
-                                    inplace=True)
-    return H, alpha
 
 
 def refuse_batched_grad(t) -> None:
@@ -345,11 +351,15 @@ def _grouped_schedule(H, plan, k, factor, precision, tprec) -> None:
         for kk, b, width_leaf in group:
             pf = factor(kk, b, width_leaf)
             if kk + b < end:  # the group's interior update
-                apply_block_reflector_h(torch.tril(pf), H[kk:, kk + b:end],
-                                        precision, tprec, inplace=True)
+                with phase("dhqr.trailing"):
+                    apply_block_reflector_h(torch.tril(pf),
+                                            H[kk:, kk + b:end], precision,
+                                            tprec, inplace=True)
         if end < n:  # one trailing update for the whole group
-            apply_block_reflector_h(torch.tril(H[kg:, kg:end]), H[kg:, end:],
-                                    precision, tprec, inplace=True)
+            with phase("dhqr.trailing"):
+                apply_block_reflector_h(torch.tril(H[kg:, kg:end]),
+                                        H[kg:, end:], precision, tprec,
+                                        inplace=True)
 
 
 _SIDE_STREAMS: "dict[int, torch.cuda.Stream]" = {}
@@ -394,9 +404,10 @@ def _lookahead_schedule(H, plan, factor, precision, tprec, ctas) -> None:
     kp, bp, leaf0 = plan[0]  # the pending panel: factored, not yet applied
     factor(kp, bp, leaf0)
     for i, (k1, b1, leaf1) in enumerate(plan[1:], 1):
-        Y = torch.tril(H[kp:, kp:kp + bp])
-        apply_block_reflector_h(Y, H[kp:, k1:k1 + b1], precision, tprec,
-                                inplace=True)  # (1)
+        with phase("dhqr.trailing"):  # (1)
+            Y = torch.tril(H[kp:, kp:kp + bp])
+            apply_block_reflector_h(Y, H[kp:, k1:k1 + b1], precision, tprec,
+                                    inplace=True)
         beside = _beside_gemm(i, k1, b1, n)
         if side is not None:
             side.wait_stream(torch.cuda.current_stream(H.device))
@@ -404,8 +415,9 @@ def _lookahead_schedule(H, plan, factor, precision, tprec, ctas) -> None:
                 else contextlib.nullcontext():  # (2)
             factor(k1, b1, leaf1, ctas if beside else None)
         if beside:  # (3)
-            apply_block_reflector_h(Y, H[kp:, k1 + b1:], precision, tprec,
-                                    inplace=True)
+            with phase("dhqr.trailing"):
+                apply_block_reflector_h(Y, H[kp:, k1 + b1:], precision,
+                                        tprec, inplace=True)
         if side is not None:
             torch.cuda.current_stream(H.device).wait_stream(side)
         kp, bp = k1, b1
@@ -534,9 +546,11 @@ def _apply_panels(H, b, block_size, order, apply, precision):
 
 def _apply_qt_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,
                    precision: str = DEFAULT_PRECISION):
-    """Q^H b panel by panel; shapes as :func:`_apply_panels`."""
-    return _apply_panels(H, b, block_size, iter, apply_block_reflector_h,
-                         precision)
+    """Q^H b panel by panel, one ``dhqr.apply_qt`` span; shapes as
+    :func:`_apply_panels`."""
+    with phase("dhqr.apply_qt"):
+        return _apply_panels(H, b, block_size, iter,
+                             apply_block_reflector_h, precision)
 
 
 def _apply_q_impl(H: torch.Tensor, b: torch.Tensor, block_size: int,

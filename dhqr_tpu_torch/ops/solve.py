@@ -11,6 +11,7 @@ from dhqr_tpu_torch.ops.householder import DEFAULT_PRECISION
 from dhqr_tpu_torch.ops.summation import accurate_vdot
 from dhqr_tpu_torch.utils.config import check_precision
 from dhqr_tpu_torch.utils.device import as_tensor
+from dhqr_tpu_torch.utils.profiling import phase
 
 
 def _reflector_column(H: torch.Tensor, j: int) -> torch.Tensor:
@@ -72,13 +73,14 @@ def r_matrix(H: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 def _back_substitute(H, alpha, c):
-    """Solve R x = c[:n]; ``c`` is (m,) or (m, k), or for a stack H
-    (B, m, n) a (B, m) or (B, m, k) stack."""
-    n = H.shape[-1]
-    vec = c.ndim == H.ndim - 1
-    C = c[..., :n, None] if vec else c[..., :n, :]
-    x = torch.linalg.solve_triangular(r_matrix(H, alpha), C, upper=True)
-    return x[..., 0] if vec else x
+    """Solve R x = c[:n], one ``dhqr.back_substitute`` span; ``c`` is (m,)
+    or (m, k), or for a stack H (B, m, n) a (B, m) or (B, m, k) stack."""
+    with phase("dhqr.back_substitute"):
+        n = H.shape[-1]
+        vec = c.ndim == H.ndim - 1
+        C = c[..., :n, None] if vec else c[..., :n, :]
+        x = torch.linalg.solve_triangular(r_matrix(H, alpha), C, upper=True)
+        return x[..., 0] if vec else x
 
 
 def back_substitute(H, alpha, c, device=None):

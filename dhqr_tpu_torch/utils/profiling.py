@@ -1,8 +1,14 @@
 """Tracing and profiling — port of ``dhqr_tpu/utils/profiling.py``.
 
-* :func:`phase` — a ``torch.profiler.record_function`` region, so the
-  engine's phases (``panel_factor``, ``trailing_update``,
-  ``back_substitute``) carry their names in profiler traces;
+* :func:`phase` — a named region of the profiler's timeline while a
+  profiler runs, one shared no-op context otherwise (a flag check per
+  span). The single-device main path names its steps with it:
+  ``dhqr.qr``, ``dhqr.lstsq`` and ``dhqr.solve`` around the entry
+  points, ``dhqr.factor`` around the blocked engine, ``dhqr.panel``
+  around each panel step (the kernel's launches and the geqrt3
+  recursion), ``dhqr.trailing`` around each trailing update,
+  ``dhqr.apply_qt`` around Q^H b and ``dhqr.back_substitute`` around
+  R x = c;
 * :func:`sync` — a device fence on the card(s) the given tensors live on
   (``torch.cuda.synchronize``), a no-op for CPU tensors;
 * :class:`PhaseTimer` — wall-clock per-phase timing that fences on the
@@ -25,13 +31,28 @@ import time
 from typing import Dict, Iterator, List, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+# The profiler's light span: recorded as an operator, so a kernel launched
+# in it with no ATen op of its own (the panel kernel, through ctypes) is
+# linked to it in the trace; a ``record_function`` span is a user
+# annotation, which the profiler does not link kernels to.
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
 
 
-@contextlib.contextmanager
-def phase(name: str) -> Iterator[None]:
-    """Name a region in the profiler timeline."""
-    with torch.profiler.record_function(name):
-        yield
+def phase(name: str):
+    """Name a region in the profiler timeline: ``with phase(name): ...``.
+
+    While no profiler runs this is one flag check and a shared no-op
+    context: a span then adds no op to the program and enters no
+    ``record_function``. Under ``torch.profiler`` (:func:`trace`) the
+    region is recorded on the profiler's clock, in the same trace as the
+    device's kernels, and each kernel launched in it outside any ATen op
+    is linked to it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def _tensors(tree) -> "list[torch.Tensor]":
