@@ -16,11 +16,14 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    sharded ``lstsq``'s 125-wide panels (its first and last), and at the
    shapes that stress the kernel's grid (an
    offset inside a CTA's slice, a ragged last CTA, a panel on a few CTAs,
-   the tall 64-wide leaf, 12-decade data over every SM, and panels too
-   tall for shared memory, which the kernel streams, and the lookahead
-   schedule's launches capped at ``LOOKAHEAD_CTAS`` SMs), with its grid,
-   residency, shared memory, registers and spills, a bit-identical repeat
-   launch, and at the main path's shapes and the streamed ones its time,
+   the tall 64-wide leaf, the tall ``lstsq``'s 32-wide leaves, 12-decade
+   data over every SM, slices past the registers, which the kernel keeps
+   in shared memory, and panels too tall for shared memory, which it
+   streams, and the lookahead schedule's launches capped at
+   ``LOOKAHEAD_CTAS`` SMs), with its grid, variant (registers with no
+   spill, shared or streamed), shared memory, registers and spills, a
+   bit-identical repeat launch, and at the main path's shapes, the
+   ``lstsq`` leaves and the shared, streamed and capped ones its time,
    the plain version's time, ``torch.geqrf``'s time on the same panel (a
    yardstick the port never calls) and the card's bound for the work;
    then the panels past 32-bit indices (``TALL_CASES``: the 16-wide
@@ -493,51 +496,64 @@ def phase_kernels(seed):
 
     rng = np.random.default_rng(seed)
     cases = [  # (kernel, m, nb, offset, 12-decade data, main-path shape,
-        #        slice resident in shared memory)
-        ("panel_qr_f32", 16384, 128, 0, False, True, True),
-        ("panel_qr_f32", 16384, 128, 64, False, False, True),  # mid-slice
-        ("panel_qr_f32", 8193, 128, 0, False, False, True),    # ragged last
-        ("panel_qr_f32", 129, 128, 0, False, False, True),     # a few CTAs
-        ("panel_qr_f32", 65536, 64, 0, False, False, True),    # the tall leaf
-        ("panel_qr_f32", 4096, 32, 5, False, False, True),
-        ("panel_qr_f32", 767, 8, 0, True, False, True),
-        ("panel_qr_f32", 16384, 8, 0, True, False, True),      # 132 CTAs
-        ("panel_qr_f32", 65536, 128, 0, False, False, False),  # streamed
-        ("panel_qr_f32", 524288, 16, 0, False, False, False),  # streamed leaf
+        #        where each CTA keeps its slice: hp.VARIANTS)
+        ("panel_qr_f32", 16384, 128, 0, False, True, "registers"),
+        ("panel_qr_f32", 16384, 128, 64, False, False, "registers"),  # mid-slice
+        ("panel_qr_f32", 8193, 128, 0, False, False, "registers"),    # ragged last
+        ("panel_qr_f32", 129, 128, 0, False, False, "registers"),     # a few CTAs
+        ("panel_qr_f32", 65536, 64, 0, False, False, "registers"),    # the tall leaf
+        ("panel_qr_f32", 4096, 32, 5, False, False, "registers"),
+        ("panel_qr_f32", 767, 8, 0, True, False, "registers"),
+        ("panel_qr_f32", 16384, 8, 0, True, False, "registers"),      # 132 CTAs
+        # the tall lstsq's leaves (131072 x 512: 16 leaves 32 wide, 993
+        # rows per CTA), the first and the fourth, and 12-decade data
+        ("panel_qr_f32", 131072, 32, 0, False, False, "registers"),
+        ("panel_qr_f32", 131072, 32, 96, False, False, "registers"),
+        ("panel_qr_f32", 131072, 32, 0, True, False, "registers"),
+        # slices past the registers' 64 floats per thread: shared memory
+        ("panel_qr_f32", 100000, 64, 0, False, False, "shared"),
+        ("panel_qr_f32", 65536, 128, 0, False, False, "streamed"),
+        ("panel_qr_f32", 524288, 16, 0, False, False, "streamed"),  # leaf
         # the leading panels of the TSQR path (phase 9: leaves of 8192 rows,
         # a 2048-row combine on 64 and 60 CTAs) and of the gradient path
         # (phase 10: 4096 rows)
-        ("panel_qr_f32", 8192, 128, 0, False, False, True),
-        ("panel_qr_f32", 8064, 128, 0, False, False, True),
-        ("panel_qr_f32", 2048, 128, 0, False, False, True),
-        ("panel_qr_f32", 1920, 128, 0, False, False, True),
-        ("panel_qr_f32", 4096, 128, 0, False, False, True),
+        ("panel_qr_f32", 8192, 128, 0, False, False, "registers"),
+        ("panel_qr_f32", 8064, 128, 0, False, False, "registers"),
+        ("panel_qr_f32", 2048, 128, 0, False, False, "registers"),
+        ("panel_qr_f32", 1920, 128, 0, False, False, "registers"),
+        ("panel_qr_f32", 4096, 128, 0, False, False, "registers"),
         # the sharded lstsq's panels (phase 14: 4400 x 4000 on 4 ranks,
         # nb = 125, one leaf each): the first and the last
-        ("panel_qr_f32", 4400, 125, 0, False, False, True),
-        ("panel_qr_f32", 525, 125, 0, False, False, True),
-        ("panel_qr_c64", 8192, 128, 0, False, True, True),
-        ("panel_qr_c64", 4096, 32, 5, False, False, True),
-        ("panel_qr_c64", 131, 128, 3, False, False, True),
-        ("panel_qr_c64", 32768, 128, 7, False, False, False),  # streamed
-        ("panel_qr_c64", 262144, 16, 3, False, False, False),  # streamed leaf
+        ("panel_qr_f32", 4400, 125, 0, False, False, "registers"),
+        ("panel_qr_f32", 525, 125, 0, False, False, "registers"),
+        ("panel_qr_c64", 8192, 128, 0, False, True, "registers"),
+        ("panel_qr_c64", 4096, 32, 5, False, False, "registers"),
+        ("panel_qr_c64", 131, 128, 3, False, False, "registers"),
+        # the lsq leaf's CTA slice in c64: 497 rows x 32 x 2 floats
+        ("panel_qr_c64", 65536, 32, 3, False, False, "registers"),
+        ("panel_qr_c64", 100000, 32, 0, False, False, "shared"),
+        ("panel_qr_c64", 32768, 128, 7, False, False, "streamed"),
+        ("panel_qr_c64", 262144, 16, 3, False, False, "streamed"),  # leaf
         # TSQR (leaves of 4096 rows, a 2048-row combine) and gradient
         # (2048 rows) panels
-        ("panel_qr_c64", 4096, 128, 0, False, False, True),
-        ("panel_qr_c64", 3968, 128, 0, False, False, True),
-        ("panel_qr_c64", 2048, 128, 0, False, False, True),
-        ("panel_qr_c64", 1920, 128, 0, False, False, True),
-        ("panel_qr_c64", 4400, 125, 0, False, False, True),
-        ("panel_qr_c64", 525, 125, 0, False, False, True),
+        ("panel_qr_c64", 4096, 128, 0, False, False, "registers"),
+        ("panel_qr_c64", 3968, 128, 0, False, False, "registers"),
+        ("panel_qr_c64", 2048, 128, 0, False, False, "registers"),
+        ("panel_qr_c64", 1920, 128, 0, False, False, "registers"),
+        ("panel_qr_c64", 4400, 125, 0, False, False, "registers"),
+        ("panel_qr_c64", 525, 125, 0, False, False, "registers"),
     ]
+    # timed beside the main-path shapes, the streamed, shared and capped
+    # launches: the lsq leaves
+    timed = {("panel_qr_f32", 131072, 32), ("panel_qr_c64", 65536, 32)}
     # the last field: the CTA cap; the lookahead schedule's capped launches
     # at the main path's panels (phase 11)
     cap = hp.LOOKAHEAD_CTAS
     cases = [case + (None,) for case in cases] + [
-        ("panel_qr_f32", 16384, 128, 0, False, False, True, cap),
-        ("panel_qr_c64", 8192, 128, 0, False, False, True, cap)]
+        ("panel_qr_f32", 16384, 128, 0, False, False, "registers", cap),
+        ("panel_qr_c64", 8192, 128, 0, False, False, "registers", cap)]
     stats = {}
-    for name, m, nb, off, decades, main_shape, resident, sms in cases:
+    for name, m, nb, off, decades, main_shape, variant, sms in cases:
         dtype = torch.float32 if name.endswith("f32") else torch.complex64
         tol = TOL_F32 if dtype == torch.float32 else TOL_C64
         grid = hp.kernel_launch_info(m, nb, off, dtype, sms=sms)
@@ -562,7 +578,8 @@ def phase_kernels(seed):
                "max_abs_err": abs_err, "tol": tol, "rows_above_kept": kept,
                "repeat_bit_identical": repeat_equal, "finite": finite}
         ok = (err_pf <= tol and err_alpha <= tol and kept and finite
-              and repeat_equal and grid["resident"] == resident)
+              and repeat_equal and grid["variant"] == variant
+              and (variant != "registers" or (grid["spill_bytes"] == 0)))
         if m <= 1024:  # the schedule model at the kernel's grid
             at_m = panel.T.contiguous()
             alpha_m = hp._panel_qr_grid_model(at_m, off, grid["ctas"])
@@ -574,7 +591,8 @@ def phase_kernels(seed):
             dev = abs(abs(float(alpha[0])) - s64) / s64
             row.update(alpha0_rel_dev=dev, tol_decades=TOL_DECADES)
             ok = ok and dev < TOL_DECADES
-        if main_shape or not resident or sms:
+        if (main_shape or variant != "registers" or sms
+                or ((name, m, nb) in timed and not decades)):
             row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off, sms),
                                 5)
             at2 = panel.T.contiguous()
@@ -683,7 +701,7 @@ def phase_kernel_tall(hp, seed, name, m, nb, off):
            "peak_bytes": peak,
            "peak_bytes_with_geqrf": torch.cuda.max_memory_allocated()}
     row["ok"] = (err_pf <= tol and err_alpha <= tol and kept and finite
-                 and repeat_equal and not grid["resident"])
+                 and repeat_equal and grid["variant"] == "streamed")
     emit(row)
     del panel
     torch.cuda.empty_cache()
@@ -721,8 +739,10 @@ def phase_square(dt, hp, seed, n=16384):
     b = torch.rand((n,), generator=g, device="cuda", dtype=torch.float32)
     expect = expected_launches(n, n, torch.float32)
     l0 = hp.LAUNCHES["panel_qr_f32"]
+    v0 = dict(hp.VARIANT_LAUNCHES)
     fact, t_factor_first = wall(lambda: dt.qr(A))  # first-use set-up inside
     l_qr = hp.LAUNCHES["panel_qr_f32"] - l0
+    variants_qr = {k: hp.VARIANT_LAUNCHES[k] - v0[k] for k in v0}
     del fact
     fact, t_factor = wall(lambda: dt.qr(A))
     x, t_solve_first = wall(lambda: fact.solve(b))  # first-use set-up inside
@@ -751,10 +771,12 @@ def phase_square(dt, hp, seed, n=16384):
            "backward_error": backward, "tol_backward": TOL_BACKWARD_F32,
            "x_vs_lstsq": agree, "bit_equal": bool(torch.equal(x, x2)),
            "launches_qr": l_qr, "launches_qr_lstsq": l_all,
+           "variant_launches_qr": variants_qr,
            "expected_per_factorization": expect, "finite": finite}
     row["ok"] = (backward < TOL_BACKWARD_F32 and agree <= TOL_SOLVE_AGREE
                  and finite and expect >= 1 and l_qr == expect
-                 and l_all == 3 * expect)
+                 and l_all == 3 * expect
+                 and sum(variants_qr.values()) == l_qr)
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"main path f32 square failed: {row}")
@@ -800,11 +822,14 @@ def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128),
         b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
         expect = expected_launches(m, n, torch.float32)
         l0 = hp.LAUNCHES["panel_qr_f32"]
+        v0 = dict(hp.VARIANT_LAUNCHES)
         x, t_lstsq = wall(lambda: dt.lstsq(A, b))
         l_run = hp.LAUNCHES["panel_qr_f32"] - l0
+        row_variants = {k: hp.VARIANT_LAUNCHES[k] - v0[k] for k in v0}
         peak_lstsq = torch.cuda.max_memory_allocated()
         res = ne_residual_f64(A, x, b)
-        row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n]}
+        row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n],
+               "variant_launches": row_variants}
         if m * n <= LSTSQ_MAX_ELEMENTS:
             x_ref, t_ref = wall(
                 lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
@@ -921,19 +946,26 @@ def phase_kernel_profile(seed):
     from dhqr_tpu_torch.ops import hopper_panel as hp
 
     rng = np.random.default_rng(seed + 7)
-    for name, m, nb in (("panel_qr_f32", 129, 128), ("panel_qr_f32", 4224, 128),
-                        ("panel_qr_f32", 16384, 128), ("panel_qr_f32", 65536, 64),
-                        ("panel_qr_c64", 8192, 128),
-                        ("panel_qr_f32", 65536, 128),  # streamed
-                        ("panel_qr_f32", 524288, 16)):  # streamed leaf
+    for name, m, nb, off in (
+            ("panel_qr_f32", 129, 128, 0), ("panel_qr_f32", 4224, 128, 0),
+            ("panel_qr_f32", 16384, 128, 0), ("panel_qr_f32", 65536, 64, 0),
+            ("panel_qr_c64", 8192, 128, 0),
+            # the tall lstsq's leaves (131072 x 512: 16 leaves 32 wide, the
+            # first and the fourth) and a c64 leaf of the same CTA slice
+            ("panel_qr_f32", 131072, 32, 0), ("panel_qr_f32", 131072, 32, 96),
+            ("panel_qr_c64", 65536, 32, 3),
+            ("panel_qr_f32", 65536, 128, 0),  # streamed
+            ("panel_qr_f32", 524288, 16, 0)):  # streamed leaf
         dtype = torch.float32 if name.endswith("f32") else torch.complex64
         panel = random_panel(rng, m, nb, dtype)
-        grid = hp.kernel_launch_info(m, nb, 0, dtype)
-        ms = cuda_ms(lambda: hp._panel_qr_kernel(panel, 0), 10)
-        cycles = hp.kernel_section_cycles(panel)
+        grid = hp.kernel_launch_info(m, nb, off, dtype)
+        ms = cuda_ms(lambda: hp._panel_qr_kernel(panel, off), 10)
+        cycles = hp.kernel_section_cycles(panel, off)
         emit({"phase": 7, "name": "kernel_profile", "kernel": name, "m": m,
-              "nb": nb, "ctas": grid["ctas"], "rows_per_cta": grid["rows_per_cta"],
-              "resident": grid["resident"],
+              "nb": nb, "offset": off, "ctas": grid["ctas"],
+              "rows_per_cta": grid["rows_per_cta"],
+              "variant": grid["variant"], "registers": grid["registers"],
+              "spill_bytes": grid["spill_bytes"],
               "ms": ms, "us_per_column": 1e3 * ms / nb,
               "cycles_per_column": cycles})
     clocks = subprocess.run(

@@ -73,7 +73,9 @@ class OpEvent:
     of the gathered outputs for a gather: the JAX census's output-aval
     convention), the process ``group``'s name and the mesh ``axes`` the
     log registered for it (empty for a group the log does not know).
-    Kernel events carry ``path`` and ``offset``. ``sync`` names why the op
+    Kernel events carry ``path``, ``offset`` and, for a launch on the card,
+    the ``variant`` that held the slice (``hopper_panel.VARIANTS``; not
+    part of the signature). ``sync`` names why the op
     reads a value back to the host; ``where`` is the port's function that
     issued a syncing op or one that promotes to double precision."""
 
@@ -89,6 +91,7 @@ class OpEvent:
     axes: "tuple[str, ...]" = ()
     path: str = ""
     offset: int = 0
+    variant: str = ""
     sync: str = ""
     where: str = ""
 
@@ -315,12 +318,14 @@ def scoped(name: str, thunk, input_bytes: int = 0):
     return run
 
 
-def kernel(name: str, path: str, shape, dtype, offset: int) -> None:
+def kernel(name: str, path: str, shape, dtype, offset: int,
+           variant: str = "") -> None:
     """Record one launch of the panel kernel ``name`` (or of its plain
-    version, ``path="plain"``) in every armed log."""
+    version, ``path="plain"``) in every armed log, with the ``variant``
+    that held the slice on the card."""
     event = OpEvent("kernel", name, out_dtypes=(str(dtype).replace(
         "torch.", ""),), out_shapes=(tuple(int(d) for d in shape),),
-        path=path, offset=int(offset))
+        path=path, offset=int(offset), variant=variant)
     for log in _STACK:
         log.add(event)
 

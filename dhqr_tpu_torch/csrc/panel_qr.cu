@@ -28,44 +28,72 @@
 // and kept on chip. One persistent cooperative grid, at most one CTA per SM
 // (at least 32 rows per CTA, so a short panel takes a few CTAs), splits the
 // active rows [off, m) into contiguous slices. Each CTA loads its slice of
-// all nb columns into dynamic shared memory once, keeps it there for the
-// whole panel and writes it back once at the end, so HBM sees the panel's
-// bytes once each way (16384 x 128 f32: 125 rows x 512 B = 64 KB per CTA).
-// A panel whose slices do not fit shared memory takes the same body with
-// the slice left in place in At (the streamed variant, kResident = false):
-// each column step then reads and writes the CTA's trailing rows through
-// L2/HBM instead of shared memory. Per column there is ONE grid barrier:
-// before it, each CTA publishes to a global scratch slot its compensated
-// (s, err) over its rows >= j and its partial dots <x, At[k]> for every
-// trailing column k, and the CTA owning row j publishes that row; after
-// it, every CTA merges
-// all slots in the same fixed CTA order (TwoSum for the norm), so every CTA
-// derives bit-identical alpha, f and W, and applies v and y -= W v to its
-// own rows. The rank-1 update of column jl and the partial dots of column
-// jl+1 share one pass over the slice (the column jl+1 is updated first,
-// then each warp updates its trailing columns and dots them with it). The
-// scratch is double-buffered by column parity: a CTA that is one column
-// ahead writes the other half. Co-residency of the grid, which the barrier
-// needs, comes from cudaLaunchCooperativeKernel: a grid that cannot be
-// resident is a launch error, never a hang. The grid is planned on the
-// Python side (ops/hopper_panel: kernel_grid for the row partition,
-// kernel_resident for the variant, kernel_flat_width for the leaf widths
-// the blocked engine asks for); the launcher only checks the plan it is
-// given (partition, SM count, shared-memory fit, occupancy) and returns
+// all nb columns once, keeps it on chip for the whole panel and writes it
+// back once at the end, so HBM sees the panel's bytes once each way. Where
+// it keeps the slice is the variant, chosen by the slice's size (Python
+// plans it: ops/hopper_panel.kernel_variant; the launcher's int):
+//   * registers (2), where the slice fits 64 floats per thread: warp w owns
+//     the contiguous rows [w R, (w + 1) R), R = ceil(rows / 16) rounded up
+//     to 4, and lane c of every warp columns c, c + 32, ... of them, in
+//     registers from load to write-back (staged through shared memory both
+//     ways for coalesced loads and stores). 131072 x 32 f32 (the tall
+//     lstsq's leaf): 993 rows per CTA, 64 x 1 per thread; 16384 x 128: 125
+//     rows, 8 x 4; 8192 x 128 c64: 63 rows, 4 x 4 x 2; 16384 x 128 capped
+//     at 66 CTAs: 249 rows, 16 x 4; 65536 x 64: 497 rows, 32 x 2.
+//   * shared (1), a taller slice that fits dynamic shared memory (100000 x
+//     64 f32: 758 rows x 256 B): all 512 threads walk the slice there.
+//   * streamed (0), a slice too tall for shared memory: the same body with
+//     the slice left in place in At, each column step reading and writing
+//     the CTA's trailing rows through L2/HBM (65536 x 128 f32, 524288 x 16).
+// Per column there is ONE grid barrier: before it, each CTA publishes to a
+// global scratch slot its compensated (s, err) over its rows >= j and its
+// partial dots <x, At[k]> for every trailing column k, and the CTA owning
+// row j publishes that row; after it, every CTA merges all slots in the
+// same fixed CTA order (TwoSum for the norm), so every CTA derives
+// bit-identical alpha, f and W, and applies v and y -= W v to its own rows.
+// The rank-1 update of column jl and the partial dots of column jl+1 share
+// one pass over the slice: in the shared and streamed variants the column
+// jl+1 is updated first by all threads, then each warp updates 8 trailing
+// columns over every row of the slice and dots them with it, and a shuffle
+// tree sums each column's dots over the warp's lanes. In the register
+// variant the owner lane of column jl+1 writes it to a per-warp row of
+// shared memory, the warp's lanes (a row or two each) form v, the updated
+// column jl+1 and its norm and write both to the staging copy (which so
+// holds each finished column for the write-back), and then every lane
+// runs one pass over its warp's rows from registers, v and x read four
+// rows at a time from the warp's broadcast rows: y -= W v on each column it
+// owns and <x, y> summed in its own registers, then one sum per column over
+// the 16 warps in warp order. The scratch is double-buffered by column
+// parity: a CTA that is one column ahead writes the other half.
+// Co-residency of the grid, which the barrier needs, comes from
+// cudaLaunchCooperativeKernel: a grid that cannot be resident is a launch
+// error, never a hang. The grid is planned on the Python side
+// (ops/hopper_panel: kernel_grid for the row partition, kernel_variant for
+// the variant, kernel_flat_width for the leaf widths the blocked engine
+// asks for); the launcher only checks the plan it is given (partition, SM
+// count, register and shared-memory fit, occupancy) and returns
 // cudaErrorInvalidValue for one it cannot run. The scratch layout is this
 // file's alone: dhqr_panel_qr_scratch_floats sizes it for the wrapper.
 //
 // What is left: the steps stay serial, and each pays a grid barrier and a
 // merge in which every CTA reads every CTA's partials (ctas^2 x nb words
 // of L2 reads per column, 8.9 MB at 132 CTAs and nb = 128). On an H100
-// 80GB HBM3 at 700 W (chip_smoke.py phase 7) a 16384 x 128 f32 panel takes
-// about 6 us per column: ~2.0 us merge (L2-bandwidth-bound), ~1.9 us
-// trailing pass, ~1.0 us barrier, ~0.4 us column pass. Pre-reducing the
-// partials inside thread-block clusters is the next step. The streamed
-// variant pays a pass over its trailing rows through L2/HBM per column; the
-// blocked engine gives it only the narrowest leaf (16 columns), past the
-// heights where any leaf's slices fit shared memory (~462k rows f32, ~231k
-// c64 on an H100).
+// 80GB HBM3 at 700 W, SM clock 1980 MHz (chip_smoke.py phase 7, panel_ab.py
+// --sections), cycles per column, merge / column pass / trailing or
+// register pass / barrier (the register variant stages the next column
+// inside the barrier's wait):
+//   131072 x 32 f32, registers  4712 / 1168 / 2132 / 2498 = 10511 (5.3 us)
+//                    shared     3875 / 1332 / 14337 / 2342 = 21885
+//   16384 x 128 f32, registers  4923 / 1020 / 1084 / 2618 = 9645 (4.9 us)
+//                    shared     4119 / 990 / 3864 / 2091 = 11065
+// so the merge is now the largest section, and in the register variant
+// it reads ~800 cycles (c64 ~1300) more than the same code in the shared
+// one, the slice holding 64 of each thread's 128 registers. Pre-reducing
+// the partials inside thread-block clusters is the next step. The streamed
+// variant pays a pass over its trailing rows through L2/HBM per column
+// (524288 x 16: 88k of 110k cycles); the blocked engine gives it only the
+// narrowest leaf (16 columns), past the heights where any leaf's slices
+// fit shared memory (~462k rows f32, ~231k c64 on an H100).
 //
 // Hazards handled:
 //   * nvcc contracts a*b+c into an FMA by default, which would break a
@@ -93,8 +121,11 @@
 //
 // Built with -DDHQR_PANEL_PROFILE, thread 0 of each CTA also counts the SM
 // cycles of four sections of every column step (merge, column pass,
-// trailing pass, grid barrier); ops/hopper_panel.kernel_section_cycles
-// reads them. The default build has no timers.
+// trailing pass, grid barrier; in the register variant the column pass is
+// the lanes' pass over columns jl and jl+1, the trailing pass the one
+// register pass with the CTA's sums, and the barrier holds the next
+// column's staging); ops/hopper_panel.kernel_section_cycles reads them.
+// The default build has no timers.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -113,11 +144,49 @@ constexpr int kMergeGroups = kThreads / kMaxWidth;  // CTA groups in the merge
 constexpr int kMergeBatch = kMaxCtas / kMergeGroups;  // loads in flight, f32
 constexpr int kNormPerLane = (kMaxCtas + 31) / 32;
 static_assert(kColsPerWarp == 8, "the trailing reduction halves 8 values");
+// The register variant: slice floats one thread holds (rows x columns x
+// floats per element), and so the floats of each warp's broadcast row.
+constexpr int kRegFloats = 64;
+
+// Where a CTA keeps its slice; the launchers' int names it.
+enum Variant : int { kStreamed = 0, kShared = 1, kRegisters = 2 };
 
 struct Grid {
   int ctas;  // CTAs in the launch
   int rows;  // rows per CTA (the last CTA may hold fewer)
 };
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The register variant's split of a CTA's slice: lane c of every warp owns
+// columns c, c + 32, ... (cols_per_lane of them: 1, 2 or 4, one kernel
+// each), warp w the contiguous rows [w * R, (w + 1) * R) with R = warp_rows
+// (a multiple of 4, so the warp's broadcast rows load four at a time).
+__host__ __device__ constexpr int cols_per_lane(int nb) {
+  return nb <= 32 ? 1 : nb <= 64 ? 2 : 4;
+}
+__host__ __device__ constexpr int warp_rows(int rows) {
+  return (ceil_div(rows, kWarps) + 3) & ~3;
+}
+template <typename T>
+__host__ __device__ constexpr bool fits_registers(int rows, int nb) {
+  return warp_rows(rows) * cols_per_lane(nb) *
+             static_cast<int>(sizeof(T) / sizeof(float)) <= kRegFloats;
+}
+// Its dynamic shared memory: the slice's staging copy (column stride
+// rows | 1, odd, so lane c reading S[c * ld + r] hits 32 banks), each
+// warp's two broadcast rows (v, x) and the warps' partial dots.
+__host__ __device__ constexpr int register_ld(int rows) { return rows | 1; }
+template <typename T>
+__host__ __device__ constexpr size_t register_smem_staging(int rows, int nb) {
+  return (static_cast<size_t>(nb) * register_ld(rows) * sizeof(T) + 15) & ~size_t{15};
+}
+template <typename T>
+__host__ __device__ constexpr size_t register_smem_bytes(int rows, int nb) {
+  return register_smem_staging<T>(rows, nb) +
+         static_cast<size_t>(kWarps) * 2 * kRegFloats * sizeof(float) +
+         static_cast<size_t>(kWarps) * nb * sizeof(T);
+}
 
 // Scratch, in floats: per column parity, one slot per CTA ((s, err) and the
 // nb partial dots) and the pivot row's nb entries.
@@ -206,6 +275,25 @@ __device__ __forceinline__ void halve(T (&v)[kColsPerWarp], int lane) {
   }
 }
 
+// Four consecutive elements through one or two 16-byte accesses.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const float2* p, float2 (&v)[4]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = make_float2(a.x, a.y); v[1] = make_float2(a.z, a.w);
+  v[2] = make_float2(b.x, b.y); v[3] = make_float2(b.z, b.w);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(float2* p, const float2 (&v)[4]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[2].x, v[2].y, v[3].x, v[3].y);
+}
+
 // (s, err) += |x|^2
 __device__ __forceinline__ void acc_sq(float& s, float& err, float x) {
   acc_square(s, err, x);
@@ -276,15 +364,26 @@ __device__ __forceinline__ float2 w_coef(float2 d, float2 a, float2 y, float f) 
 
 // Every CTA adds one to the counter and waits until it reaches ``target``
 // (= ctas x barriers so far); the counter only grows within a launch.
-__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned target) {
+// Between grid_arrive and grid_wait a CTA may work on what no other CTA
+// reads before the barrier.
+__device__ __forceinline__ void grid_arrive(unsigned* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
     cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(*bar);
     count.fetch_add(1u, cuda::memory_order_release);
+  }
+}
+__device__ __forceinline__ void grid_wait(unsigned* bar, unsigned target) {
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(*bar);
     while (count.load(cuda::memory_order_acquire) < target) {
     }
   }
   __syncthreads();
+}
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned target) {
+  grid_arrive(bar);
+  grid_wait(bar, target);
 }
 
 // -- optional section timers (built with -DDHQR_PANEL_PROFILE only) --------
@@ -310,22 +409,324 @@ __device__ unsigned long long g_prof[1024][kProfSections];
 #define PROF_STORE()
 #endif
 
-// -- the kernel -------------------------------------------------------------
+// -- the merge --------------------------------------------------------------
+
+// Merge column jl's partials from ``part`` (its parity's half of the
+// scratch), in the same order on every CTA: alpha and f of column jl, and
+// W of every trailing column, into shared memory (alpha_out[jl] from CTA
+// 0). Thread (grp, kk) sums column k = jl+1+kk over CTA group grp; the last
+// warp merges the norm. Every load is issued before its use.
+template <typename T>
+__device__ __forceinline__ void merge_column(
+    const float* __restrict__ part, long long slot, int jl, int nb,
+    T* __restrict__ alpha_out, T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha,
+    float& sh_f) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cta = blockIdx.x, ctas = gridDim.x;
+  const T* rowj = reinterpret_cast<const T*>(part + ctas * slot);
+  const int kk = tid % kMaxWidth, grp = tid / kMaxWidth, k = jl + 1 + kk;
+  const bool live = k < nb;
+  const int cbeg = grp * ctas / kMergeGroups;
+  const int cend = (grp + 1) * ctas / kMergeGroups;
+  const T yj = live && grp == 0 ? __ldcg(rowj + k) : zero<T>();
+  const bool norm_warp = warp == kWarps - 1;
+  float ns[kNormPerLane], ne[kNormPerLane];
+  T a_jj = zero<T>();
+  if (norm_warp) {
+    const int cb = lane * ctas / 32, ce = (lane + 1) * ctas / 32;
+#pragma unroll
+    for (int u = 0; u < kNormPerLane; ++u) {
+      ns[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot) : 0.f;
+      ne[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot + 1) : 0.f;
+    }
+    if (lane == 0) a_jj = __ldcg(rowj + jl);
+  }
+  constexpr int kBatch = kMergeBatch * sizeof(float) / sizeof(T);
+  T d = zero<T>();
+  for (int c0 = cbeg; c0 < cend; c0 += kBatch) {
+    T vals[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      vals[u] = live && c0 + u < cend
+          ? __ldcg(reinterpret_cast<const T*>(part + (c0 + u) * slot + 2) + k)
+          : zero<T>();
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) d = add(d, vals[u]);
+  }
+  sh_red[grp][kk] = d;
+  if (norm_warp) {
+    float s = 0.f, err = 0.f;
+#pragma unroll
+    for (int u = 0; u < kNormPerLane; ++u) comp_merge(s, err, ns[u], ne[u]);
+    warp_comp_merge(s, err);
+    if (lane == 0) {
+      const float sn = __fsqrt_rn(__fadd_rn(s, err));
+      float mag;
+      const T alpha = make_alpha(sn, a_jj, mag);
+      sh_alpha = alpha;
+      sh_f = inv_scale(sn, mag);
+      if (cta == 0) alpha_out[jl] = alpha;
+    }
+  }
+  __syncthreads();
+  if (grp == 0 && live) {
+    T dsum = sh_red[0][kk];
+#pragma unroll
+    for (int g2 = 1; g2 < kMergeGroups; ++g2) dsum = add(dsum, sh_red[g2][kk]);
+    sh_w[k] = w_coef(dsum, sh_alpha, yj, sh_f);
+  }
+  __syncthreads();
+}
+
+// The CTA's compensated norm over the warps' (s, err), merged by the last
+// warp in warp order and published to its scratch slot.
+__device__ __forceinline__ void publish_norm(float* __restrict__ slot_p,
+                                             const float* sh_s,
+                                             const float* sh_e) {
+  const int lane = threadIdx.x & 31;
+  float s = lane < kWarps ? sh_s[lane] : 0.f;
+  float err = lane < kWarps ? sh_e[lane] : 0.f;
+  warp_comp_merge(s, err);
+  if (lane == 0) {
+    __stcg(slot_p, s);
+    __stcg(slot_p + 1, err);
+  }
+}
+
+// -- the register variant -----------------------------------------------------
+
+// Column q of row rr of a thread's registers, q picked at run time by an
+// unrolled select (a dynamically indexed register array would go to local
+// memory).
+template <int NC, int N, typename T>
+__device__ __forceinline__ T pick(const T (&y)[N], int rr, int q) {
+  T v = y[rr * NC];
+#pragma unroll
+  for (int p = 1; p < NC; ++p)
+    if (q == p) v = y[rr * NC + p];
+  return v;
+}
+
+// One pass over the warp's rows from registers: y -= W v on every column
+// this lane owns, and <x, y> summed per column in the lane's own
+// registers. v and x come four rows at a time from the warp's broadcast
+// rows: v is 0 above the pivot and past the slice, x (column jl+1, already
+// updated) 0 at and above it and past the slice. kEdge: the warp holds
+// rows at or above the next pivot, so a row is updated only at or past
+// the pivot (rows above it are R's and stay bit for bit), and the entries
+// of the next pivot row jp (-1 when it is not in the slice) are
+// published; off the edge every row takes both.
+template <bool kEdge, int NC, int kRows, typename T>
+__device__ __forceinline__ void register_pass(
+    T (&y)[kRows * NC], T (&dq)[NC], const T (&wq)[NC], const T* bv,
+    const T* bx, int R, int wrow, int jr, int jp, int jl, int nb, int lane,
+    T* __restrict__ rowj_n) {
+#pragma unroll
+  for (int rr = 0; rr < kRows; rr += 4) {
+    if (rr >= R) break;
+    T v4[4], x4[4];
+    load4(bv + rr, v4);
+    load4(bx + rr, x4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wrow + rr + i;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        T& yy = y[(rr + i) * NC + q];
+        if (!kEdge || r >= jr) yy = sub_scaled(yy, wq[q], v4[i]);
+        acc_dot(dq[q], x4[i], yy);
+        if (kEdge && r == jp) {
+          const int k = lane + 32 * q;
+          if (k >= jl + 2 && k < nb) __stcg(rowj_n + k, yy);
+        }
+      }
+    }
+  }
+}
+
+// Column k leaves its owner's registers (lane k % 32, column k / 32 of the
+// lane's): the owner writes its warp's rows of it to the warp's broadcast
+// row x, four at a time.
+template <int NC, int kRows, typename T>
+__device__ __forceinline__ void stage_column(const T (&y)[kRows * NC], T* bx,
+                                             int k, int R, int lane) {
+  if (lane != (k & 31)) return;
+  const int q = k >> 5;
+#pragma unroll
+  for (int rr = 0; rr < kRows; rr += 4) {
+    if (rr >= R) break;
+    T x4[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x4[i] = pick<NC>(y, rr + i, q);
+    store4(bx + rr, x4);
+  }
+}
+
+// The register variant of the kernel's body (NC = columns per lane, 1, 2
+// or 4): the CTA's slice is staged through shared memory with coalesced
+// loads, moved into registers once, and each column step makes one pass
+// over the warp's rows from registers. Columns leave the registers as they
+// are reached: the owner of column jl+1 writes it to its warp's broadcast
+// row x (during the barrier before the step), the warp's lanes (a row or
+// two each) form v over column jl, the updated column jl+1 and its norm,
+// and write both into the staging copy, which so holds every finished
+// column and is written back at the end. A register of a finished column
+// is never read again, so the pass may update it with W = 0.
+template <typename T, int NC>
+__device__ __forceinline__ void register_slice(
+    T* __restrict__ at, T* __restrict__ alpha_out, float* __restrict__ scratch,
+    unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
+    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, float& sh_f, float* sh_s,
+    float* sh_e) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kEl = sizeof(T) / sizeof(float);
+  constexpr int kRows = (kRegFloats / kEl / NC) & ~3;  // most rows per warp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cta = blockIdx.x, ctas = gridDim.x;
+  const long long row0 = off + static_cast<long long>(cta) * g.rows;
+  const int nrows = static_cast<int>(min(static_cast<long long>(g.rows),
+                                         m - row0));
+  const int first = static_cast<int>(
+      min(static_cast<long long>(cta) * g.rows,
+          static_cast<long long>(kMaxWidth) + 2));
+  const long long slot = slot_floats<T>(nb);
+  const long long half = parity_floats<T>(ctas, nb);
+  const int ld = register_ld(g.rows);
+  const int R = warp_rows(g.rows), wrow = warp * R;
+  T* S = reinterpret_cast<T*>(smem_raw);
+  float* bcast = reinterpret_cast<float*>(
+      smem_raw + register_smem_staging<T>(g.rows, nb));
+  T* bv = reinterpret_cast<T*>(bcast + warp * 2 * kRegFloats);
+  T* bx = bv + kRegFloats / kEl;
+  T* sh_dot = reinterpret_cast<T*>(bcast + kWarps * 2 * kRegFloats);
+
+  for (int k = 0; k < nb; ++k)  // load the slice of every column once
+    for (int r = tid; r < nrows; r += kThreads)
+      S[k * ld + r] = at[static_cast<long long>(k) * m + row0 + r];
+  __syncthreads();
+  T y[kRows * NC];
+#pragma unroll
+  for (int i = 0; i < kRows * NC; ++i) y[i] = zero<T>();
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (rr >= R) break;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int k = lane + 32 * q, r = wrow + rr;
+      if (k < nb && r < nrows) y[rr * NC + q] = S[k * ld + r];
+    }
+  }
+
+  stage_column<NC, kRows>(y, bx, 0, R, lane);
+  __syncwarp();
+
+  unsigned barriers = 0;
+  PROF_INIT();
+  for (int jl = -1; jl < nb; ++jl) {
+    const bool apply = jl >= 0, next = jl + 1 < nb;
+    const int jr = min(max(jl - first, -2), nrows);  // see slice_body
+    if (apply)
+      merge_column<T>(scratch + (jl & 1) * half, slot, jl, nb, alpha_out,
+                      sh_w, sh_red, sh_alpha, sh_f);
+    PROF_MARK(0);
+
+    float* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
+    T* rowj_n = reinterpret_cast<T*>(part_n + ctas * slot);
+    const T alpha = apply ? sh_alpha : zero<T>();
+    const float f = apply ? sh_f : 0.f;
+    const T w1 = apply && next ? sh_w[jl + 1] : zero<T>();
+
+    // -- v over column jl; column jl+1 (staged in bx) updated, its norm;
+    // a row or two per lane
+    float s = 0.f, err = 0.f;
+#pragma unroll
+    for (int h = 0; h < kRows; h += 32) {
+      const int rr = lane + h, r = wrow + rr;
+      if (rr >= R) break;
+      T v = zero<T>(), x = zero<T>();
+      if (r < nrows) {
+        if (apply && r >= jr) {
+          const T a = S[jl * ld + r];
+          v = r == jr ? pivot(a, alpha, f) : scale(a, f);
+          S[jl * ld + r] = v;
+        }
+        if (next) {
+          x = bx[rr];
+          if (apply && r >= jr) x = sub_scaled(x, w1, v);
+          S[(jl + 1) * ld + r] = x;
+          if (r > jr) acc_sq(s, err, x);
+          if (r == jr + 1) __stcg(rowj_n + jl + 1, x);
+        }
+      }
+      bv[rr] = v;
+      bx[rr] = r > jr ? x : zero<T>();
+    }
+    if (!next) break;  // last column: v is written, nothing trails it
+    warp_comp_merge(s, err);
+    if (lane == 0) {
+      sh_s[warp] = s;
+      sh_e[warp] = err;
+    }
+    __syncwarp();  // the broadcast rows, to every lane of the warp
+    PROF_MARK(1);
+
+    // -- the register pass over the columns past jl+1
+    T wq[NC], dq[NC];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int k = lane + 32 * q;
+      wq[q] = apply && k >= jl + 2 && k < nb ? sh_w[k] : zero<T>();
+      dq[q] = zero<T>();
+    }
+    const int jp = jr + 1 < nrows ? jr + 1 : -1;
+    if (wrow > jr + 1)
+      register_pass<false, NC, kRows>(y, dq, wq, bv, bx, R, wrow, jr, jp, jl,
+                                      nb, lane, rowj_n);
+    else
+      register_pass<true, NC, kRows>(y, dq, wq, bv, bx, R, wrow, jr, jp, jl,
+                                     nb, lane, rowj_n);
+
+    // -- the CTA's partials: each column's dots summed over the warps in
+    // warp order, the norm by the last warp
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int k = lane + 32 * q;
+      if (k >= jl + 2 && k < nb) sh_dot[warp * nb + k] = dq[q];
+    }
+    __syncthreads();
+    if (tid >= jl + 2 && tid < nb) {
+      T d = sh_dot[tid];
+      for (int w = 1; w < kWarps; ++w) d = add(d, sh_dot[w * nb + tid]);
+      __stcg(reinterpret_cast<T*>(part_n + cta * slot + 2) + tid, d);
+    }
+    if (warp == kWarps - 1) publish_norm(part_n + cta * slot, sh_s, sh_e);
+    PROF_MARK(2);
+    grid_arrive(bar);
+    // column jl+2, the next step's x, leaves the registers while the grid
+    // gathers
+    if (jl + 2 < nb) stage_column<NC, kRows>(y, bx, jl + 2, R, lane);
+    grid_wait(bar, ++barriers * static_cast<unsigned>(ctas));
+    PROF_MARK(3);
+  }
+  __syncthreads();
+  PROF_STORE();
+
+  for (int k = 0; k < nb; ++k)  // write the slice back once
+    for (int r = tid; r < nrows; r += kThreads)
+      at[static_cast<long long>(k) * m + row0 + r] = S[k * ld + r];
+}
+
+// -- the shared and streamed variants -----------------------------------------
 
 // kResident: the slice lives in dynamic shared memory; otherwise it is
 // streamed in place from At (a panel too tall for shared memory).
 template <typename T, bool kResident>
-__global__ void __launch_bounds__(kThreads, 1)
-panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
-                float* __restrict__ scratch, unsigned* __restrict__ bar,
-                long long m, int nb, long long off, Grid g) {
+__device__ __forceinline__ void slice_body(
+    T* __restrict__ at, T* __restrict__ alpha_out, float* __restrict__ scratch,
+    unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
+    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, float& sh_f, float* sh_s,
+    float* sh_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T sh_w[kMaxWidth];
-  __shared__ T sh_red[kMergeGroups][kMaxWidth];
-  __shared__ T sh_alpha;
-  __shared__ float sh_f;
-  __shared__ float sh_s[kWarps], sh_e[kWarps];
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cta = blockIdx.x, ctas = gridDim.x;
   const long long row0 = off + static_cast<long long>(cta) * g.rows;
@@ -363,64 +764,9 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
     // when r == jr, past it when r > jr, the next pivot when r == jr + 1.
     const int jr = min(max(jl - first, -2), nrows);
 
-    if (apply) {  // -- merge, in the same order on every CTA
-      // Thread (grp, kk) sums column k = jl+1+kk over CTA group grp; the
-      // last warp merges the norm. Every load is issued before its use.
-      const float* part = scratch + (jl & 1) * half;
-      const T* rowj = reinterpret_cast<const T*>(part + ctas * slot);
-      const int kk = tid % kMaxWidth, grp = tid / kMaxWidth, k = jl + 1 + kk;
-      const bool live = k < nb;
-      const int cbeg = grp * ctas / kMergeGroups;
-      const int cend = (grp + 1) * ctas / kMergeGroups;
-      const T yj = live && grp == 0 ? __ldcg(rowj + k) : zero<T>();
-      const bool norm_warp = warp == kWarps - 1;
-      float ns[kNormPerLane], ne[kNormPerLane];
-      T a_jj = zero<T>();
-      if (norm_warp) {
-        const int cb = lane * ctas / 32, ce = (lane + 1) * ctas / 32;
-#pragma unroll
-        for (int u = 0; u < kNormPerLane; ++u) {
-          ns[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot) : 0.f;
-          ne[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot + 1) : 0.f;
-        }
-        if (lane == 0) a_jj = __ldcg(rowj + jl);
-      }
-      constexpr int kBatch = kMergeBatch * sizeof(float) / sizeof(T);
-      T d = zero<T>();
-      for (int c0 = cbeg; c0 < cend; c0 += kBatch) {
-        T vals[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          vals[u] = live && c0 + u < cend
-              ? __ldcg(reinterpret_cast<const T*>(part + (c0 + u) * slot + 2) + k)
-              : zero<T>();
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) d = add(d, vals[u]);
-      }
-      sh_red[grp][kk] = d;
-      if (norm_warp) {
-        float s = 0.f, err = 0.f;
-#pragma unroll
-        for (int u = 0; u < kNormPerLane; ++u) comp_merge(s, err, ns[u], ne[u]);
-        warp_comp_merge(s, err);
-        if (lane == 0) {
-          const float sn = __fsqrt_rn(__fadd_rn(s, err));
-          float mag;
-          const T alpha = make_alpha(sn, a_jj, mag);
-          sh_alpha = alpha;
-          sh_f = inv_scale(sn, mag);
-          if (cta == 0) alpha_out[jl] = alpha;
-        }
-      }
-      __syncthreads();
-      if (grp == 0 && live) {
-        T dsum = sh_red[0][kk];
-#pragma unroll
-        for (int g2 = 1; g2 < kMergeGroups; ++g2) dsum = add(dsum, sh_red[g2][kk]);
-        sh_w[k] = w_coef(dsum, sh_alpha, yj, sh_f);
-      }
-      __syncthreads();
-    }
+    if (apply)
+      merge_column<T>(scratch + (jl & 1) * half, slot, jl, nb, alpha_out,
+                      sh_w, sh_red, sh_alpha, sh_f);
     PROF_MARK(0);
 
     float* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
@@ -457,15 +803,7 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
     }
     __syncthreads();  // also publishes v and column jl+1 to every warp
     PROF_MARK(1);
-    if (warp == 0) {
-      s = lane < kWarps ? sh_s[lane] : 0.f;
-      err = lane < kWarps ? sh_e[lane] : 0.f;
-      warp_comp_merge(s, err);
-      if (lane == 0) {
-        __stcg(part_n + cta * slot, s);
-        __stcg(part_n + cta * slot + 1, err);
-      }
-    }
+    if (warp == 0) publish_norm(part_n + cta * slot, sh_s, sh_e);
 
     // -- each warp: y -= W v on its trailing columns, dotted with column jl+1
     T* dots_n = reinterpret_cast<T*>(part_n + cta * slot + 2);
@@ -521,10 +859,46 @@ panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
   }
 }
 
+// -- the kernel -------------------------------------------------------------
+
+// One body per variant (kVariant: a Variant); the register variant has a
+// kernel per column count per lane (kCols: 1, 2 or 4; 0 for the others),
+// each allocating the registers of its own body alone.
+template <typename T, int kVariant, int kCols>
+__global__ void __launch_bounds__(kThreads, 1)
+panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
+                float* __restrict__ scratch, unsigned* __restrict__ bar,
+                long long m, int nb, long long off, Grid g) {
+  __shared__ T sh_w[kMaxWidth];
+  __shared__ T sh_red[kMergeGroups][kMaxWidth];
+  __shared__ T sh_alpha;
+  __shared__ float sh_f;
+  __shared__ float sh_s[kWarps], sh_e[kWarps];
+  if constexpr (kVariant == kRegisters) {
+    register_slice<T, kCols>(at, alpha_out, scratch, bar, m, nb, off, g,
+                             sh_w, sh_red, sh_alpha, sh_f, sh_s, sh_e);
+  } else {
+    slice_body<T, kVariant == kShared>(at, alpha_out, scratch, bar, m, nb,
+                                       off, g, sh_w, sh_red, sh_alpha, sh_f,
+                                       sh_s, sh_e);
+  }
+}
+
 template <typename T>
-const void* kernel_for(bool resident) {
-  return resident ? reinterpret_cast<const void*>(panel_qr_kernel<T, true>)
-                  : reinterpret_cast<const void*>(panel_qr_kernel<T, false>);
+const void* kernel_for(int variant, int nb) {
+  if (variant == kRegisters) {
+    switch (cols_per_lane(nb)) {
+      case 1:
+        return reinterpret_cast<const void*>(panel_qr_kernel<T, kRegisters, 1>);
+      case 2:
+        return reinterpret_cast<const void*>(panel_qr_kernel<T, kRegisters, 2>);
+      default:
+        return reinterpret_cast<const void*>(panel_qr_kernel<T, kRegisters, 4>);
+    }
+  }
+  return variant == kShared
+             ? reinterpret_cast<const void*>(panel_qr_kernel<T, kShared, 0>)
+             : reinterpret_cast<const void*>(panel_qr_kernel<T, kStreamed, 0>);
 }
 
 // A panel the kernel cannot take: its width or its offset. Its height has
@@ -541,14 +915,15 @@ bool bad_grid(Grid g, long long active, int sms) {
          static_cast<long long>(g.ctas) * g.rows < active;
 }
 
-// Check the caller's plan for panel_qr_kernel<T, resident> on the current
-// device: its dynamic shared memory, whether the card takes it, and the
-// kernel's attributes.
+// Check the caller's plan for panel_qr_kernel<T, variant> on the current
+// device: a register slice that fits the registers, its dynamic shared
+// memory, whether the card takes it, and the kernel's attributes.
 template <typename T>
-cudaError_t check(long long m, int nb, long long off, Grid g, bool resident,
+cudaError_t check(long long m, int nb, long long off, Grid g, int variant,
                   size_t* bytes, cudaFuncAttributes* fa, int* per_sm) {
-  if (bad_shape(m, nb, off)) return cudaErrorInvalidValue;
-  const void* fn = kernel_for<T>(resident);
+  if (bad_shape(m, nb, off) || variant < kStreamed || variant > kRegisters)
+    return cudaErrorInvalidValue;
+  const void* fn = kernel_for<T>(variant, nb);
   int dev = 0, sms = 0, optin = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -560,7 +935,11 @@ cudaError_t check(long long m, int nb, long long off, Grid g, bool resident,
   if (err == cudaSuccess) err = cudaFuncGetAttributes(fa, fn);
   if (err != cudaSuccess) return err;
   if (bad_grid(g, m - off, sms)) return cudaErrorInvalidValue;
-  *bytes = resident ? static_cast<size_t>(g.rows) * nb * sizeof(T) : 0;
+  if (variant == kRegisters && !fits_registers<T>(g.rows, nb))
+    return cudaErrorInvalidValue;
+  *bytes = variant == kRegisters ? register_smem_bytes<T>(g.rows, nb)
+           : variant == kShared  ? static_cast<size_t>(g.rows) * nb * sizeof(T)
+                                 : 0;
   if (*bytes + fa->sharedSizeBytes > static_cast<size_t>(optin))
     return cudaErrorInvalidValue;  // the slice does not fit on chip
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -576,12 +955,12 @@ cudaError_t check(long long m, int nb, long long off, Grid g, bool resident,
 template <typename T>
 int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
            void* bar, long long m, int nb, long long off, int ctas,
-           int rows, int resident, void* stream) {
+           int rows, int variant, void* stream) {
   Grid g{ctas, rows};
   size_t bytes = 0;
   cudaFuncAttributes fa;
   int per_sm = 0;
-  cudaError_t err = check<T>(m, nb, off, g, resident, &bytes, &fa, &per_sm);
+  cudaError_t err = check<T>(m, nb, off, g, variant, &bytes, &fa, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (scratch_floats < 2 * parity_floats<T>(g.ctas, nb))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -590,7 +969,7 @@ int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
   float* scratch_f = static_cast<float*>(scratch);
   unsigned* bar_u = static_cast<unsigned*>(bar);
   void* args[] = {&at_t, &alpha_t, &scratch_f, &bar_u, &m, &nb, &off, &g};
-  err = cudaLaunchCooperativeKernel(kernel_for<T>(resident), dim3(g.ctas),
+  err = cudaLaunchCooperativeKernel(kernel_for<T>(variant, nb), dim3(g.ctas),
                                     dim3(kThreads), args, bytes,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -599,11 +978,11 @@ int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
 
 template <typename T>
 int info(long long m, int nb, long long off, int ctas, int rows,
-         int resident, int* out) {
+         int variant, int* out) {
   size_t bytes = 0;
   cudaFuncAttributes fa{};
   int per_sm = 0;
-  const cudaError_t err = check<T>(m, nb, off, Grid{ctas, rows}, resident,
+  const cudaError_t err = check<T>(m, nb, off, Grid{ctas, rows}, variant,
                                    &bytes, &fa, &per_sm);
   out[0] = static_cast<int>(bytes);
   out[1] = static_cast<int>(fa.sharedSizeBytes);
@@ -619,23 +998,24 @@ extern "C" {
 
 // Launchers: raw device pointers, the scratch (its length in floats) and
 // the zeroed barrier counter, the panel (its height and offset 64-bit),
-// the caller's grid (CTAs, rows per CTA, and 1 for the slice resident in
-// shared memory, 0 for streamed), and the stream; each returns the
+// the caller's grid (CTAs, rows per CTA, and the variant: 2 for the slice
+// in registers, 1 in shared memory, 0 streamed), and the stream; each
+// returns the
 // cudaError_t of the launch (0 = cudaSuccess).
 int dhqr_panel_qr_f32(void* at, void* alpha, void* scratch,
                       long long scratch_floats, void* bar, long long m,
                       int nb, long long off, int ctas, int rows,
-                      int resident, void* stream) {
+                      int variant, void* stream) {
   return launch<float>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
-                       ctas, rows, resident, stream);
+                       ctas, rows, variant, stream);
 }
 
 int dhqr_panel_qr_c64(void* at, void* alpha, void* scratch,
                       long long scratch_floats, void* bar, long long m,
                       int nb, long long off, int ctas, int rows,
-                      int resident, void* stream) {
+                      int variant, void* stream) {
   return launch<float2>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
-                        ctas, rows, resident, stream);
+                        ctas, rows, variant, stream);
 }
 
 // Floats of scratch a launch of ``ctas`` CTAs on an nb-wide panel needs.
@@ -649,9 +1029,9 @@ long long dhqr_panel_qr_scratch_floats(int complex64, int ctas, int nb) {
 // local (spill) bytes per thread, resident CTAs per SM. Returns the
 // cudaError_t the launch would meet before it runs.
 int dhqr_panel_qr_info(int complex64, long long m, int nb, long long off,
-                       int ctas, int rows, int resident, int* out) {
-  return complex64 ? info<float2>(m, nb, off, ctas, rows, resident, out)
-                   : info<float>(m, nb, off, ctas, rows, resident, out);
+                       int ctas, int rows, int variant, int* out) {
+  return complex64 ? info<float2>(m, nb, off, ctas, rows, variant, out)
+                   : info<float>(m, nb, off, ctas, rows, variant, out);
 }
 
 #ifdef DHQR_PANEL_PROFILE

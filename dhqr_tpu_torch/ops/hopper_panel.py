@@ -3,9 +3,10 @@
 The fused panel factorization (float32, and complex64) runs as a CUDA C++
 kernel written for ``sm_90a`` (``csrc/panel_qr.cu``; its header says what
 bounds it and how it is built): one cooperative grid of up to one CTA per
-SM, each CTA holding a slice of the panel's rows in shared memory (or,
-for a panel too tall for that, streaming it in place), one grid barrier
-per column. This module holds, per kernel:
+SM, each CTA holding a slice of the panel's rows in its registers, in
+shared memory where the slice is too large for the registers, or, for a
+panel too tall for that, streaming it in place; one grid barrier per
+column. This module holds, per kernel:
 
 * the **wrapper** :func:`_panel_qr_kernel` — checks the panel, transposes
   it into a contiguous (nb, m) buffer as the JAX side does, factors that
@@ -21,14 +22,16 @@ per column. This module holds, per kernel:
 * the **schedule model** :func:`_panel_qr_grid_model` — the CUDA kernel's
   row partition and one-round merge in eager PyTorch (tests, and
   ``chip_smoke.py`` as a leaf of the blocked engine on the card);
-* the **launch plan** :func:`kernel_grid` / :func:`kernel_resident` /
-  :func:`kernel_flat_width` — the kernel's row partition, whether the
-  slices fit shared memory, and the leaf width the blocked engine plans
-  with, each for the card's SMs or a cap on them
-  (:data:`LOOKAHEAD_CTAS`), at any height (the kernel's row and element
-  indices are 64-bit). The launcher only checks the plan it is given;
-* the **launch counts** :data:`LAUNCHES`, one integer per kernel, which
-  the wrapper raises by one per launch and nowhere else.
+* the **launch plan** :func:`kernel_grid` / :func:`kernel_variant` /
+  :func:`kernel_flat_width` — the kernel's row partition, where each CTA
+  keeps its slice (:data:`VARIANTS`: registers, shared memory or
+  streamed), and the leaf width the blocked engine plans with, each for
+  the card's SMs or a cap on them (:data:`LOOKAHEAD_CTAS`), at any height
+  (the kernel's row and element indices are 64-bit). The launcher only
+  checks the plan it is given;
+* the **launch counts** :data:`LAUNCHES`, one integer per kernel, and
+  :data:`VARIANT_LAUNCHES`, one per variant, which the wrapper raises by
+  one per launch and nowhere else.
 """
 
 from __future__ import annotations
@@ -58,6 +61,12 @@ H100_SMEM_PER_BLOCK = 232448
 # Shared memory set aside for the kernel's static arrays (ptxas: 2.7 KB
 # f32, 5.3 KB c64); the launcher checks the fit with the real figure.
 KERNEL_STATIC_SMEM = 8192
+# The register variant (csrc/panel_qr.cu kRegFloats, kWarps): each of a
+# CTA's 16 warps holds ceil(rows / 16) rows, rounded up to a multiple of 4,
+# and each lane 1, 2 or 4 columns of them (nb up to 32, 64, 128); a slice
+# is held in registers when that is at most 64 floats per thread.
+KERNEL_WARPS = 16
+KERNEL_REGISTER_FLOATS = 64
 # CTA cap of a panel launched beside a trailing GEMM (the lookahead
 # schedule's side stream, ops/blocked.py): the cooperative grid must be
 # resident at once, so it takes at most this many SMs and leaves the rest
@@ -65,8 +74,11 @@ KERNEL_STATIC_SMEM = 8192
 LOOKAHEAD_CTAS = 66
 
 KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64"}
+# Where a CTA keeps its slice, as the launchers' ``variant`` int names it.
+VARIANTS = {"registers": 2, "shared": 1, "streamed": 0}
 
 LAUNCHES = {name: 0 for name in KERNELS.values()}
+VARIANT_LAUNCHES = {name: 0 for name in VARIANTS}
 
 
 class KernelRefusal(ValueError):
@@ -77,8 +89,9 @@ class KernelRefusal(ValueError):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def device_limits(device=None, ctas: "int | None" = None
@@ -118,13 +131,41 @@ def kernel_resident(rows: int, nb: int, dtype, sms: int = H100_SMS,
     return per * nb * elem <= smem_per_block - KERNEL_STATIC_SMEM
 
 
+def kernel_in_registers(rows: int, nb: int, dtype,
+                        sms: int = H100_SMS) -> bool:
+    """True when each CTA's slice of ``rows`` active rows, ``nb`` columns
+    wide, fits the register variant on a card of ``sms`` SMs: ceil(rows
+    per CTA / 16) rows per warp, rounded up to 4, times the columns per
+    lane (1, 2 or 4 for nb up to 32, 64, 128), times 2 for complex64, at
+    most 64 floats per thread (131072 x 32 f32: 993 rows per CTA, 64 x
+    1)."""
+    per = kernel_grid(rows, sms)[1]
+    warp_rows = (-(-per // KERNEL_WARPS) + 3) // 4 * 4
+    cols = 1 if nb <= 32 else 2 if nb <= 64 else 4
+    floats = 2 if dtype == torch.complex64 else 1
+    return warp_rows * cols * floats <= KERNEL_REGISTER_FLOATS
+
+
+def kernel_variant(rows: int, nb: int, dtype, sms: int = H100_SMS,
+                   smem_per_block: int = H100_SMEM_PER_BLOCK) -> str:
+    """Where each CTA keeps its slice of ``rows`` active rows, ``nb``
+    columns wide, on a card of ``sms`` SMs: ``"registers"`` where it fits
+    them (:func:`kernel_in_registers`), else ``"shared"`` where it fits
+    shared memory (:func:`kernel_resident`), else ``"streamed"``."""
+    if kernel_in_registers(rows, nb, dtype, sms):
+        return "registers"
+    if kernel_resident(rows, nb, dtype, sms, smem_per_block):
+        return "shared"
+    return "streamed"
+
+
 def panel_kernel_supported(m: int, nb: int, dtype) -> bool:
     """True when the kernel takes an (m, nb) panel of ``dtype``: float32 or
     complex64, 1 <= nb <= :data:`KERNEL_MAX_WIDTH` and m >= nb. The height
     has no limit of its own (the kernel's row and element indices are
-    64-bit): any panel that fits the card runs on it, resident in shared
-    memory where its slices fit (:func:`kernel_resident`), streamed where
-    they do not."""
+    64-bit): any panel that fits the card runs on it, its slices in
+    registers or shared memory where they fit (:func:`kernel_variant`),
+    streamed where they do not."""
     return dtype in KERNELS and 1 <= nb <= KERNEL_MAX_WIDTH and m >= nb
 
 
@@ -422,14 +463,16 @@ LAUNCH_ARGS = (
     ("barrier", ctypes.c_void_p), ("m", ctypes.c_longlong),
     ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
     ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
-    ("resident", ctypes.c_int), ("stream", ctypes.c_void_p))
+    ("variant", ctypes.c_int), ("stream", ctypes.c_void_p))
 INFO_ARGS = (
     ("complex64", ctypes.c_int), ("m", ctypes.c_longlong),
     ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
     ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
-    ("resident", ctypes.c_int), ("out", ctypes.POINTER(ctypes.c_int)))
+    ("variant", ctypes.c_int), ("out", ctypes.POINTER(ctypes.c_int)))
 
-# Sections of a column step timed by the build with -DDHQR_PANEL_PROFILE.
+# Sections of a column step timed by the build with -DDHQR_PANEL_PROFILE
+# (the register variant: "trailing_pass" is its one pass from registers,
+# "column_pass" the lanes' pass over columns jl and jl+1).
 PROFILE_SECTIONS = ("merge", "column_pass", "trailing_pass", "barrier")
 
 
@@ -463,48 +506,49 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _plan(m: int, nb: int, offset: int, dtype, device,
-          sms: "int | None" = None) -> "tuple[int, int, bool]":
-    """(CTAs, rows per CTA, resident) of the launch for an (m, nb) panel at
+          sms: "int | None" = None) -> "tuple[int, int, str]":
+    """(CTAs, rows per CTA, variant) of the launch for an (m, nb) panel at
     ``offset`` on ``device``'s card, on at most ``sms`` SMs."""
     limits = device_limits(device, sms)
     ctas, rows = kernel_grid(m - offset, limits[0])
-    return ctas, rows, kernel_resident(m - offset, nb, dtype, *limits)
+    return ctas, rows, kernel_variant(m - offset, nb, dtype, *limits)
 
 
 def kernel_launch_info(m: int, nb: int, offset: int, dtype,
                        device=None, sms: "int | None" = None) -> dict:
     """The launch the CUDA kernel makes for an (m, nb) panel at ``offset``
     on ``device``'s card, on at most ``sms`` SMs: CTAs, rows per CTA and
-    residency as planned here, and from the launcher the shared bytes per
+    variant as planned here, and from the launcher the shared bytes per
     CTA, registers and spill bytes per thread, resident CTAs per SM and the
     scratch's floats. Raises what the launch would raise."""
     device = torch.device("cuda" if device is None else device)
-    ctas, rows, resident = _plan(m, nb, offset, dtype, device, sms)
+    ctas, rows, variant = _plan(m, nb, offset, dtype, device, sms)
     out = (ctypes.c_int * 5)()
     complex64 = int(dtype == torch.complex64)
     with torch.cuda.device(device):
         lib = _library()
         err = lib.dhqr_panel_qr_info(complex64, m, nb, offset, ctas, rows,
-                                     int(resident), out)
+                                     VARIANTS[variant], out)
         _raise_on(err, f"{KERNELS[dtype]} launch plan for ({m}, {nb}) at "
                   f"{offset}")
         scratch = lib.dhqr_panel_qr_scratch_floats(complex64, ctas, nb)
     keys = ("smem_dynamic_bytes", "smem_static_bytes", "registers",
             "spill_bytes", "ctas_per_sm")
-    return {"ctas": ctas, "rows_per_cta": rows, "resident": resident,
+    return {"ctas": ctas, "rows_per_cta": rows, "variant": variant,
             **dict(zip(keys, out)), "scratch_floats": scratch}
 
 
 def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
-            profile: bool = False, sms: "int | None" = None) -> None:
+            profile: bool = False, sms: "int | None" = None) -> str:
     """Launch the kernel on ``at`` on the current stream, on at most
-    ``sms`` SMs; its scratch and barrier are allocated on that stream."""
+    ``sms`` SMs; its scratch and barrier are allocated on that stream.
+    Returns the variant launched."""
     name = KERNELS[at.dtype]
     lib = _library(profile)
     nb, m = at.shape
     if not (at.is_contiguous() and alpha.is_contiguous()):
         raise KernelRefusal("the panel kernel takes contiguous buffers")
-    ctas, rows, resident = _plan(m, nb, offset, at.dtype, at.device, sms)
+    ctas, rows, variant = _plan(m, nb, offset, at.dtype, at.device, sms)
     floats = lib.dhqr_panel_qr_scratch_floats(int(at.dtype == torch.complex64),
                                               ctas, nb)
     scratch = torch.empty(floats, dtype=torch.float32, device=at.device)
@@ -513,10 +557,12 @@ def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
         stream = torch.cuda.current_stream(at.device).cuda_stream
         err = getattr(lib, f"dhqr_{name}")(
             at.data_ptr(), alpha.data_ptr(), scratch.data_ptr(), floats,
-            barrier.data_ptr(), m, nb, offset, ctas, rows, int(resident),
+            barrier.data_ptr(), m, nb, offset, ctas, rows, VARIANTS[variant],
             stream)
     _raise_on(err, f"{name} launch")
     LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[variant] += 1
+    return variant
 
 
 def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
@@ -546,8 +592,8 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     ``householder._panel_qr_masked``. ``panel`` itself is not modified.
 
     A CUDA tensor launches the Hopper kernel on the current stream, on at
-    most ``sms`` SMs (default: all; its slices resident in shared memory
-    where they fit, streamed where they do not); a CPU tensor runs the
+    most ``sms`` SMs (default: all; its slices in registers or shared
+    memory where they fit, streamed where they do not); a CPU tensor runs the
     plain version. Anything the kernel does not take raises, and so does a
     panel that autograd follows: the kernel writes through a raw pointer
     (the differentiable route is ``ops.differentiable.householder_factor``,
@@ -568,9 +614,10 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
                          f"{tuple(panel.shape)}")
     at = torch.empty((nb, m), dtype=panel.dtype, device=panel.device)
     at.copy_(panel.T)  # (nb, m): panel column j -> row j
+    variant = ""
     if panel.device.type == "cuda":
         alpha = torch.empty(nb, dtype=panel.dtype, device=panel.device)
-        _launch(at, alpha, int(offset), sms=sms)
+        variant = _launch(at, alpha, int(offset), sms=sms)
     elif panel.device.type == "cpu":
         alpha = _PLAIN[panel.dtype](at, int(offset))
     else:
@@ -578,7 +625,7 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     if _oplog.ARMED is not None:  # the op log's pallas_call eqn
         _oplog.kernel(KERNELS[panel.dtype],
                       "kernel" if panel.device.type == "cuda" else "plain",
-                      panel.shape, panel.dtype, offset)
+                      panel.shape, panel.dtype, offset, variant)
     return at.T, alpha
 
 

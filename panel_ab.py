@@ -30,9 +30,14 @@ from dhqr_tpu_torch.ops import hopper_panel as hp  # noqa: E402
 SHAPES = [("f32", 16384, 128, 0, None), ("f32", 65536, 128, 0, None),
           ("f32", 524288, 16, 0, None), ("c64", 8192, 128, 0, None),
           ("c64", 32768, 128, 7, None), ("c64", 262144, 16, 3, None),
-          ("f32", 16384, 128, 0, 66), ("c64", 8192, 128, 0, 66)]
+          ("f32", 16384, 128, 0, 66), ("c64", 8192, 128, 0, 66),
+          ("f32", 131072, 32, 0, None), ("f32", 131072, 32, 96, None),
+          ("c64", 65536, 32, 3, None), ("f32", 65536, 64, 0, None),
+          ("f32", 100000, 64, 0, None), ("c64", 100000, 32, 0, None)]
 SECTION_SHAPES = [("f32", 16384, 128), ("c64", 8192, 128),
-                  ("f32", 524288, 16), ("c64", 262144, 16)]
+                  ("f32", 524288, 16), ("c64", 262144, 16),
+                  ("f32", 131072, 32), ("c64", 65536, 32),
+                  ("f32", 65536, 64)]
 
 
 def _panel(g, name, m, nb):

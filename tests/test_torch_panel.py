@@ -142,7 +142,8 @@ def test_kernel_source_carries_its_note():
                    "cudaGetLastError", "fmaf(x, x, -p)",
                    "cudaLaunchCooperativeKernel",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize",
-                   "memory_order_acquire", "__ldcg"):
+                   "memory_order_acquire", "__ldcg", "register variant",
+                   "fits_registers", "kRegisters"):
         assert needle in src
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert set(hp.KERNELS.values()) == set(hp.LAUNCHES)

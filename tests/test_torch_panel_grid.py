@@ -260,7 +260,7 @@ def test_leaf_past_32_bit_indices_plans_onto_the_kernel(m, dtype):
     assert ctas <= hp.H100_SMS and (ctas - 1) * per < m <= ctas * per
     assert per < 2**31
     assert hp._plan(m, 16, 3, dtype, "cpu") == (*hp.kernel_grid(m - 3),
-                                                False)
+                                                "streamed")
     for args in (dict(hp.LAUNCH_ARGS), dict(hp.INFO_ARGS)):
         assert args["m"] is ctypes.c_longlong
         assert args["offset"] is ctypes.c_longlong
@@ -274,6 +274,75 @@ def test_tall_lstsq_plans_streamed_leaves():
     assert plan == [(0, 128, 16)]
     assert not hp.kernel_resident(524288, 16, torch.float32)
     assert tbl.kernel_leaves(128, 16) == 8
+
+
+# -- where a CTA keeps its slice ----------------------------------------------
+
+@pytest.mark.parametrize("m,nb,dtype,sms,variant", [
+    (131072, 32, torch.float32, None, "registers"),  # the lsq leaf: 993 rows
+    (16384, 128, torch.float32, None, "registers"),  # 125 rows
+    (8192, 128, torch.complex64, None, "registers"),  # 63 rows
+    (16384, 128, torch.float32, 66, "registers"),    # capped: 249 rows
+    (65536, 64, torch.float32, None, "registers"),   # 497 rows
+    (65536, 32, torch.complex64, None, "registers"),  # 497 rows x 2 floats
+    (100000, 64, torch.float32, None, "shared"),     # 758 rows x 64
+    (100000, 32, torch.complex64, None, "shared"),   # 758 rows x 32 x 2
+    (65536, 128, torch.float32, None, "streamed"),
+    (524288, 16, torch.float32, None, "streamed"),
+])
+def test_kernel_variant_rule(m, nb, dtype, sms, variant):
+    """The register variant takes a slice of at most 64 floats per thread
+    (rows per warp, rounded up to 4, x columns per lane x 2 for c64);
+    shared memory a taller slice that fits it; past that it streams."""
+    cap = hp.device_limits("cpu", sms)[0]
+    assert hp.kernel_variant(m, nb, dtype, cap) == variant
+    assert hp._plan(m, nb, 0, dtype, "cpu", sms)[2] == variant
+    assert hp.kernel_in_registers(m, nb, dtype, cap) == (variant == "registers")
+    if variant != "streamed":
+        assert hp.kernel_resident(m, nb, dtype, cap)
+
+
+@pytest.mark.parametrize("nb,dtype,most_rows", [
+    (32, torch.float32, 1024), (64, torch.float32, 512),
+    (96, torch.float32, 256), (128, torch.float32, 256),
+    (16, torch.complex64, 512), (128, torch.complex64, 128),
+])
+def test_register_budget_edge(nb, dtype, most_rows):
+    """The tallest CTA slice the register variant takes, one CTA per 132
+    SMs: rows per warp (a multiple of 4) x columns per lane x floats per
+    element at most 64, as csrc/panel_qr.cu's fits_registers counts."""
+    assert hp.kernel_in_registers(132 * most_rows, nb, dtype)
+    assert not hp.kernel_in_registers(132 * (most_rows + 1), nb, dtype)
+
+
+def test_register_constants_match_the_source():
+    from dhqr_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "panel_qr.cu").read_text()
+    assert f"constexpr int kRegFloats = {hp.KERNEL_REGISTER_FLOATS};" in src
+    assert "constexpr int kWarps = kThreads / 32;" in src
+    assert "constexpr int kThreads = 512;" in src
+    assert hp.KERNEL_WARPS == 512 // 32
+    assert {v: hp.VARIANTS[v] for v in hp.VARIANTS} == {
+        "registers": 2, "shared": 1, "streamed": 0}
+    for name, code in hp.VARIANTS.items():
+        assert f"k{name.capitalize()} = {code}" in src
+
+
+def test_variant_launches_sum_to_launches_and_reset():
+    """One count per variant beside the count per kernel; the CPU's plain
+    version launches nothing, so both stay 0 here."""
+    assert set(hp.VARIANT_LAUNCHES) == {"registers", "shared", "streamed"}
+    hp.reset_launches()
+    P = torch.from_numpy(_panel(96, 16, np.float32, seed=28))
+    hp._panel_qr_kernel(P, 0)
+    assert sum(hp.VARIANT_LAUNCHES.values()) == sum(hp.LAUNCHES.values()) == 0
+    hp.VARIANT_LAUNCHES["registers"] += 2
+    hp.LAUNCHES["panel_qr_f32"] += 2
+    assert sum(hp.VARIANT_LAUNCHES.values()) == sum(hp.LAUNCHES.values())
+    hp.reset_launches()
+    assert not any(hp.VARIANT_LAUNCHES.values()) and not any(
+        hp.LAUNCHES.values())
 
 
 # -- the lookahead schedule's capped grid -------------------------------------
@@ -293,7 +362,9 @@ def test_capped_plan_at_h100_values(cap, dtype, ctas, per, leaf):
     sms, smem = hp.device_limits("cpu", cap)
     assert (sms, smem) == (cap, hp.H100_SMEM_PER_BLOCK)
     assert hp.kernel_grid(rows, sms) == (ctas, per)
-    assert hp._plan(rows, leaf, 0, dtype, "cpu", cap) == (ctas, per, True)
+    assert hp._plan(rows, leaf, 0, dtype, "cpu", cap) == (ctas, per,
+                                                          "registers")
+    assert hp.kernel_resident(rows, leaf, dtype, sms)
     assert hp.kernel_flat_width(rows, dtype, sms, smem) == leaf
     wider = [w for w in hp.KERNEL_LEAF_WIDTHS if w > leaf]
     assert not any(hp.kernel_resident(rows, w, dtype, sms) for w in wider)
