@@ -20,14 +20,18 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    data over every SM, slices past the registers, which the kernel keeps
    in shared memory, and panels too tall for shared memory, which it
    streams, and the lookahead schedule's launches capped at
-   ``LOOKAHEAD_CTAS`` SMs), with its grid, variant (registers with no
+   ``LOOKAHEAD_CTAS`` SMs), and the port-only float64 kernel at the
+   source's 4400 x 4000 test problem's panels (4400 x 128 at offsets 0,
+   1984 and 3968), the square and tall leaves, its grid edges, 12-decade
+   data and its shared and streamed variants, with its grid, variant
+   (registers with no
    spill, shared or streamed), shared memory, registers and spills, a
    bit-identical repeat launch, and at the main path's shapes, the
    ``lstsq`` leaves and the shared, streamed and capped ones its time,
    the plain version's time, ``torch.geqrf``'s time on the same panel (a
    yardstick the port never calls) and the card's bound for the work;
    then the panels past 32-bit indices (``TALL_CASES``: the 16-wide
-   streamed leaf at 2^27 + 8191 rows, f32 and c64, more than 2^31
+   streamed leaf at 2^27 + 8191 rows, f32, c64 and f64, more than 2^31
    elements, and one f32 column of 2^31 + 4097 rows), made on the card
    from a seeded generator, each held against its plain version in
    pieces with a bit-identical repeat, with its grid, registers, spills,
@@ -44,9 +48,9 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    block of rows at a time, with each call's peak device memory;
 4. main path, complex64: ``qr`` (first and second call) -> ``solve`` at
    8192 x 4096;
-5. the reference's criterion: ``lstsq`` at 4400 x 4000, float32 and
-   complex64, within 8x of numpy's LAPACK QR on the normal-equations
-   residual;
+5. the reference's criterion: ``lstsq`` at 4400 x 4000, float32,
+   complex64 and float64 (the source's own type, on the f64 kernel),
+   within 8x of numpy's LAPACK QR on the normal-equations residual;
 6. where the time goes: ``torch.profiler`` device time of one 16384^2
    float32 ``qr`` by kernel class (panel kernel, GEMM, triangular solve,
    other) and the device's busy share of the call's wall time;
@@ -104,7 +108,8 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    ``torch.profiler`` device time in which a panel kernel and a GEMM ran
    at once, and ``lstsq`` at 4400 x 4000 per schedule under the 8x bar;
 12. reconstruct: ``qr`` + ``solve`` with ``panel_impl="reconstruct"`` and
-   ``"reconstruct:4096"`` at 16384 x 2048, f32 (plain panel path) and f64,
+   ``"reconstruct:4096"`` at 16384 x 2048, f32 and f64 (plain panel
+   path: ``use_pallas="never"``, as the kernel would take the panels),
    beside the ``"loop"`` engine, and ``lstsq`` at 4400 x 4000 under 8x;
 13. sketch: ``lstsq(engine="sketch")`` at 65536 x 256 and 131072 x 256 f32
    and 32768 x 256 c64 (SRHT by "auto"), and the count sketch at 65536 x
@@ -327,14 +332,20 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 SIMT FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FLOP/s: FP32 on the
+# CUDA cores, which is also the FP64 tensor-core rate, the most any float64
+# kernel can reach on the card.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FLOP_PER_S = 67e12
 
 # Stated tolerances.
 TOL_F32 = 2e-5       # kernel vs plain, f32: relative to max|.| of the plain result
 TOL_C64 = 5e-5       # kernel vs plain, c64
+TOL_F64 = 1e-12      # kernel vs plain, f64: the two sum in different orders,
+                     # ~1e-14 of roundings at these heights, so 100x room
 TOL_DECADES = 5e-7   # |alpha_0| vs the f64 column norm on 12-decade data
+TOL_DECADES_F64 = 1e-12  # the same for the f64 kernel (numpy's own f64 norm
+                         # carries ~1e-14 of rounding)
 TOL_BACKWARD_F32 = 1e-5   # ||QR - A|| / ||A||, float32 (BASELINE.json)
 TOL_BACKWARD_C64 = 5e-5   # the same, complex64
 TOL_SOLVE_AGREE = 1e-5    # ||x - x2|| / ||x2||, qr().solve vs lstsq
@@ -355,13 +366,18 @@ KERNEL_SOURCE = "dhqr_tpu_torch/csrc/panel_qr.cu"
 # (d) replays it through the scheduler and holds it bit for bit).
 _SHARED: dict = {}
 REPLACES = {"panel_qr_f32": "dhqr_tpu/ops/pallas_panel.py:192",
-            "panel_qr_c64": "dhqr_tpu/ops/pallas_panel.py:247"}
+            "panel_qr_c64": "dhqr_tpu/ops/pallas_panel.py:247",
+            # port-only: the JAX package's float64 panels are plain XLA ops
+            "panel_qr_f64": None}
+KERNEL_TOLS = {"panel_qr_f32": TOL_F32, "panel_qr_c64": TOL_C64,
+               "panel_qr_f64": TOL_F64}
 # Phase 1's panels past 32-bit indices, (kernel, m, nb, offset): the
 # blocked engine's 16-wide streamed leaf at 2^27 + 8191 rows (2^31 + 131056
 # elements; 8.6 GB f32, 17.2 GB c64) and one column of 2^31 + 4097 rows
 # (8.6 GB), whose row index itself passes 32 bits.
 TALL_CASES = (("panel_qr_f32", 2**27 + 8191, 16, 3),
               ("panel_qr_c64", 2**27 + 8191, 16, 3),
+              ("panel_qr_f64", 2**27 + 8191, 16, 3),
               ("panel_qr_f32", 2**31 + 4097, 1, 5))
 PIECE = 2**26   # elements per piece of a comparison over such a panel
 
@@ -406,13 +422,13 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def panel_bound(m: int, nb: int, complex_: bool):
+def panel_bound(m: int, nb: int, dtype):
     """(ms, "bytes" | "operations"): the least time for one (m, nb) panel,
     the larger of reading + writing the panel (and alpha) over HBM and
-    ~2 m nb^2 FP32 operations (x4 complex) over the SIMT peak."""
-    words = 2 if complex_ else 1
-    t_bytes = (2 * m * nb + nb) * 4 * words / HBM_BYTES_PER_S
-    t_ops = 2 * m * nb * nb * (4 if complex_ else 1) / FP32_FLOP_PER_S
+    ~2 m nb^2 operations (x4 complex) over the card's FP32 / FP64 peak."""
+    complex_ = dtype == torch.complex64
+    t_bytes = (2 * m * nb + nb) * dtype.itemsize / HBM_BYTES_PER_S
+    t_ops = 2 * m * nb * nb * (4 if complex_ else 1) / FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -427,6 +443,8 @@ def random_panel(rng, m, nb, dtype, decades=False):
     if dtype == torch.complex64:
         x = x + 1j * rng.standard_normal((m, nb))
         return torch.from_numpy(x.astype(np.complex64)).cuda()
+    if dtype == torch.float64:
+        return torch.from_numpy(x).cuda()
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
@@ -542,6 +560,26 @@ def phase_kernels(seed):
         ("panel_qr_c64", 1920, 128, 0, False, False, "registers"),
         ("panel_qr_c64", 4400, 125, 0, False, False, "registers"),
         ("panel_qr_c64", 525, 125, 0, False, False, "registers"),
+        # float64 (port-only kernel): the source's test problem's rows
+        # (4400 x 4000: the first and last panels' offsets and one
+        # midway; 34, 32 and 31 rows per CTA), the grid edges, the square
+        # and tall leaves,
+        # 12-decade data, and the shared and streamed variants (8-byte
+        # elements: c64's capacity)
+        ("panel_qr_f64", 4400, 128, 0, False, True, "registers"),
+        ("panel_qr_f64", 4400, 128, 1984, False, False, "registers"),
+        ("panel_qr_f64", 4400, 128, 3968, False, False, "registers"),
+        ("panel_qr_f64", 8193, 128, 64, False, False, "registers"),
+        ("panel_qr_f64", 129, 128, 0, False, False, "registers"),
+        ("panel_qr_f64", 16384, 8, 0, True, False, "registers"),
+        ("panel_qr_f64", 16384, 128, 0, False, False, "registers"),
+        ("panel_qr_f64", 4096, 32, 5, False, False, "registers"),
+        # the one-column kernel's 24 rows per warp, and just past them
+        ("panel_qr_f64", 50000, 32, 0, False, False, "registers"),
+        ("panel_qr_f64", 60000, 32, 0, False, False, "shared"),
+        ("panel_qr_f64", 131072, 16, 0, False, False, "shared"),
+        ("panel_qr_f64", 131072, 32, 0, False, False, "streamed"),
+        ("panel_qr_f64", 262144, 16, 3, False, False, "streamed"),  # leaf
     ]
     # timed beside the main-path shapes, the streamed, shared and capped
     # launches: the lsq leaves
@@ -553,9 +591,9 @@ def phase_kernels(seed):
         ("panel_qr_f32", 16384, 128, 0, False, False, "registers", cap),
         ("panel_qr_c64", 8192, 128, 0, False, False, "registers", cap)]
     stats = {}
+    dtypes = {name: dtype for dtype, name in hp.KERNELS.items()}
     for name, m, nb, off, decades, main_shape, variant, sms in cases:
-        dtype = torch.float32 if name.endswith("f32") else torch.complex64
-        tol = TOL_F32 if dtype == torch.float32 else TOL_C64
+        dtype, tol = dtypes[name], KERNEL_TOLS[name]
         grid = hp.kernel_launch_info(m, nb, off, dtype, sms=sms)
         panel = random_panel(rng, m, nb, dtype, decades)
         pf, alpha = hp._panel_qr_kernel(panel, off, sms)
@@ -580,7 +618,7 @@ def phase_kernels(seed):
         ok = (err_pf <= tol and err_alpha <= tol and kept and finite
               and repeat_equal and grid["variant"] == variant
               and (variant != "registers" or (grid["spill_bytes"] == 0)))
-        if m <= 1024:  # the schedule model at the kernel's grid
+        if m <= 1024 and dtype != torch.float64:  # the schedule model
             at_m = panel.T.contiguous()
             alpha_m = hp._panel_qr_grid_model(at_m, off, grid["ctas"])
             row["rel_err_vs_grid_model"] = max(rel_err(pf, at_m.T),
@@ -589,10 +627,13 @@ def phase_kernels(seed):
         if decades:
             s64 = float(np.linalg.norm(panel[:, 0].double().cpu().numpy()))
             dev = abs(abs(float(alpha[0])) - s64) / s64
-            row.update(alpha0_rel_dev=dev, tol_decades=TOL_DECADES)
-            ok = ok and dev < TOL_DECADES
+            tol_dec = TOL_DECADES_F64 if dtype == torch.float64 \
+                else TOL_DECADES
+            row.update(alpha0_rel_dev=dev, tol_decades=tol_dec)
+            ok = ok and dev < tol_dec
         if (main_shape or variant != "registers" or sms
-                or ((name, m, nb) in timed and not decades)):
+                or ((name, m, nb) in timed and not decades)
+                or (dtype == torch.float64 and not decades and m > 1024)):
             row["ms"] = cuda_ms(lambda: hp._panel_qr_kernel(panel, off, sms),
                                 5)
             at2 = panel.T.contiguous()
@@ -600,8 +641,7 @@ def phase_kernels(seed):
                 lambda: hp._PLAIN[dtype](at2.copy_(panel.T), off),
                 2 if main_shape else 1)
             row["library_ms"] = cuda_ms(lambda: torch.geqrf(panel), 5)
-            row["bound_ms"], row["bound_by"] = panel_bound(
-                m, nb, dtype == torch.complex64)
+            row["bound_ms"], row["bound_by"] = panel_bound(m, nb, dtype)
             del at2
         row["ok"] = ok
         emit(row)
@@ -654,7 +694,7 @@ def geqrf_room(m, nb, dtype):
         return False, (f"{m} rows > {GEQRF_MAX_ROWS}: cuSOLVER's geqrf "
                        "refuses the height")
     torch.cuda.empty_cache()
-    need = (2 * m * nb + nb) * (8 if dtype == torch.complex64 else 4)
+    need = (2 * m * nb + nb) * dtype.itemsize
     free = torch.cuda.mem_get_info()[0]
     return need <= free, (f"needs {need} B (output, tau and a panel of "
                           f"workspace), {free} B free")
@@ -665,8 +705,8 @@ def phase_kernel_tall(hp, seed, name, m, nb, off):
     version, compared in pieces (the panel and its copies take up to 51 GB
     of the card), a bit-identical repeat, and the times; returns the
     largest absolute difference."""
-    dtype = torch.float32 if name.endswith("f32") else torch.complex64
-    tol = TOL_F32 if dtype == torch.float32 else TOL_C64
+    dtype = next(d for d, k in hp.KERNELS.items() if k == name)
+    tol = KERNEL_TOLS[name]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     grid = hp.kernel_launch_info(m, nb, off, dtype)
@@ -689,7 +729,7 @@ def phase_kernel_tall(hp, seed, name, m, nb, off):
     peak = torch.cuda.max_memory_allocated()
     fits, room = geqrf_room(m, nb, dtype)
     library_ms = once_ms(lambda: torch.geqrf(panel))[1] if fits else None
-    bound_ms, bound_by = panel_bound(m, nb, dtype == torch.complex64)
+    bound_ms, bound_by = panel_bound(m, nb, dtype)
     row = {"phase": 1, "kernel": name, "m": m, "nb": nb, "offset": off,
            "elements": m * nb, "cta_cap": None, "grid": grid,
            "rel_err_pf": err_pf, "rel_err_alpha": err_alpha,
@@ -895,7 +935,8 @@ def phase_reference(dt, hp, seed, m=4400, n=4000):
     from dhqr_tpu_torch.utils.testing import normal_equations_residual
 
     for dtype, name in ((np.float32, "panel_qr_f32"),
-                        (np.complex64, "panel_qr_c64")):
+                        (np.complex64, "panel_qr_c64"),
+                        (np.float64, "panel_qr_f64")):
         A, b, oracle = oracle_of(m, n, dtype, seed + 3)
         l0 = hp.LAUNCHES[name]
         x, t = wall(lambda: dt.lstsq(A, b))
@@ -1818,7 +1859,7 @@ def phase_reconstruct(dt, hp, seed, m=16384, n=2048):
         A = torch.rand((m, n), generator=g, device="cuda", dtype=dtype)
         b = torch.rand((m,), generator=g, device="cuda", dtype=dtype)
         tol = TOL_BACKWARD_F32 if dtype == torch.float32 else TOL_BACKWARD_F64
-        kw = {"use_pallas": "never"} if dtype == torch.float32 else {}
+        kw = {"use_pallas": "never"}  # the kernel would take the panels
         _, t_loop = wall(lambda: dt.qr(A, **kw))
         for impl in ("reconstruct", "reconstruct:4096"):
             dt.qr(A, panel_impl=impl, **kw)
@@ -1838,7 +1879,7 @@ def phase_reconstruct(dt, hp, seed, m=16384, n=2048):
         torch.cuda.empty_cache()
     for dtype in (np.float32, np.float64):
         A, b, oracle = oracle_of(4400, 4000, dtype, seed + 3)
-        kw = {"use_pallas": "never"} if dtype == np.float32 else {}
+        kw = {"use_pallas": "never"}
         for impl in ("reconstruct", "reconstruct:4096"):
             x, t = wall(lambda: dt.lstsq(A, b, panel_impl=impl, **kw))
             res = normal_equations_residual(A, x.cpu().numpy(), b)
@@ -2258,8 +2299,9 @@ def _rank_grad_case(dt, parallel, hp, device, seed, m, n, dtype, routes,
                     Ar, br = _with_grad(A_, b_)
                     return _grads(_weighted(call(Ar, br), ws_), (Ar, br))
 
-                yardsticks[key] = (
-                    grads_of(lambda A_, b_: single(A_, b_, norm="fast"),
+                yardsticks[key] = (  # both on the plain panels
+                    grads_of(lambda A_, b_: single(A_, b_, norm="fast",
+                                                   use_pallas="never"),
                              A.to(wide), b.to(wide),
                              [w.to(wide) for w in natural]),
                     grads_of(lambda A_, b_: single(A_, b_,
@@ -5179,7 +5221,8 @@ def phase_harness(dt, hp, seed, card):
                "shape": list(A.shape), "dtype": "float32", "s": t,
                "launches": launched, "ratio_to_torch_lstsq": ratio,
                "criterion": CRITERION}
-        row["ok"] = launched == {"panel_qr_f32": 4, "panel_qr_c64": 0} \
+        row["ok"] = launched == {**dict.fromkeys(hp.KERNELS.values(), 0),
+                                 "panel_qr_f32": 4} \
             and bool(torch.isfinite(x).all()) and ratio < CRITERION
         emit(row)
         if not row["ok"]:
@@ -5383,7 +5426,8 @@ def phase_graph(dt, hp, seed, card):
                  and not any(k.endswith(":plain") for k in events)
                  and all(events.get(f"{k}:kernel", 0) == v
                          for k, v in launched.items())
-                 and all(v >= 1 for v in launched.values()))
+                 and all(launched[k] >= 1
+                         for k in ("panel_qr_f32", "panel_qr_c64")))
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"phase 22 (a) jaxpr pass failed: {row}")
@@ -5606,12 +5650,16 @@ def main(argv=None) -> int:
     kernels = []
     on_paths = ("main", "tsqr", "gradients", "schedules", "sharded",
                 "guarded", "wire", "tune_armor", "harness", "graph")
-    # the main path's phases that launch each kernel (c64: 4 and 5)
-    main_phases = {"panel_qr_f32": {2, 3, 5}, "panel_qr_c64": {4, 5}}
+    # the main path's phases that launch each kernel (c64: 4 and 5, f64:
+    # 5); f64 must launch there, and runs on the other paths only where
+    # they factor a float64 matrix on "auto"
+    main_phases = {"panel_qr_f32": {2, 3, 5}, "panel_qr_c64": {4, 5},
+                   "panel_qr_f64": {5}}
     for name in hp.KERNELS.values():
         st = stats.get(name, {})
-        for key in on_paths + (("update", "serve_async")
-                               if name == "panel_qr_f32" else ()):
+        required = ("main",) if name == "panel_qr_f64" else on_paths + (
+            ("update", "serve_async") if name == "panel_qr_f32" else ())
+        for key in required:
             if key == "main" and not phases & main_phases[name]:
                 continue
             if key in paths and paths[key][name] < 1:

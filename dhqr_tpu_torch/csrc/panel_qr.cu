@@ -3,8 +3,12 @@
 // Replaces the two Pallas TPU kernels of dhqr_tpu/ops/pallas_panel.py:
 //   K1  _panel_kernel      (float32;   reached from _panel_qr_pallas_jit)
 //   K2  _panel_kernel_c64  (complex64; same entry, planar re/im planes)
-// with _sumsq_compensated inlined in both. One templated body serves both
-// (T = float, or float2 for PyTorch's interleaved complex64). Each launch
+// with _sumsq_compensated inlined in both, and adds a third that replaces
+// no TPU kernel (the JAX package's float64 panels are plain XLA ops):
+//   panel_qr_f64           (float64)
+// One templated body serves all three (T = float, float2 for PyTorch's
+// interleaved complex64, or double); the norm's compensated pair, f and the
+// scratch's words are T's real type (Real<T>: float, or double). Each launch
 // factors one panel in place: the panel is held transposed, At (nb, m), one
 // panel column per row of m contiguous elements, and the reflector of local
 // column jl starts at row j = off + jl (rows above off hold R entries of
@@ -23,6 +27,12 @@
 // rate; at (16384, 128) f32 that is 5.0 us of bytes against 8.0 us of
 // operations, so the work is operation-bound. The column steps are serial,
 // so in practice a panel pays nb grid-wide synchronisations on top.
+// float64 runs on the CUDA cores' FP64 units at half FP32's rate (34
+// TFLOP/s) and moves twice f32's bytes; the step is latency-bound as the
+// f32 one is (a few us per column against ~0.1 us of operations at
+// 4400 x 128), so the slower arithmetic barely shows: its slices take c64's
+// bytes with one value per element, and so c64's register and shared-memory
+// capacity.
 //
 // What this design does about it: the panel is spread over the whole card
 // and kept on chip. One persistent cooperative grid, at most one CTA per SM
@@ -32,7 +42,8 @@
 // back once at the end, so HBM sees the panel's bytes once each way. Where
 // it keeps the slice is the variant, chosen by the slice's size (Python
 // plans it: ops/hopper_panel.kernel_variant; the launcher's int):
-//   * registers (2), where the slice fits 64 floats per thread: warp w owns
+//   * registers (2), where the slice fits 64 floats per thread (48 in the
+//     float64 one-column kernel, register_floats): warp w owns
 //     the contiguous rows [w R, (w + 1) R), R = ceil(rows / 16) rounded up
 //     to 4, and lane c of every warp columns c, c + 32, ... of them, in
 //     registers from load to write-back (staged through shared memory both
@@ -100,7 +111,11 @@
 //     Veltkamp split. The squares use the exact two-product instead,
 //     p = x*x, e = fmaf(x, x, -p) (exact on Hopper), and every TwoSum step is
 //     spelled with __fadd_rn/__fsub_rn/__fmul_rn so nothing is contracted.
-//   * 1/sqrt uses the correctly rounded __fdiv_rn/__fsqrt_rn, not rsqrt.
+//     float64 has no wider type to square in, so its pair is the same
+//     two-product in doubles, e = fma(x, x, -p), accumulated by the same
+//     TwoSum spelled with __dadd_rn/__dsub_rn/__dmul_rn.
+//   * 1/sqrt uses the correctly rounded __fdiv_rn/__fsqrt_rn (float64:
+//     __ddiv_rn/__dsqrt_rn), not rsqrt.
 //   * Cross-CTA data: scratch is written with __stcg and read with __ldcg
 //     (L2, never a stale L1 line); the barrier is a device-scope
 //     release/acquire counter that the wrapper zeroes before each launch.
@@ -158,6 +173,12 @@ struct Grid {
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The real type of an element: the word of the norm's compensated pair, of
+// f and of the scratch (float for float and float2, double for double).
+template <typename T> struct RealOf { using type = float; };
+template <> struct RealOf<double> { using type = double; };
+template <typename T> using Real = typename RealOf<T>::type;
+
 // The register variant's split of a CTA's slice: lane c of every warp owns
 // columns c, c + 32, ... (cols_per_lane of them: 1, 2 or 4, one kernel
 // each), warp w the contiguous rows [w * R, (w + 1) * R) with R = warp_rows
@@ -168,10 +189,18 @@ __host__ __device__ constexpr int cols_per_lane(int nb) {
 __host__ __device__ constexpr int warp_rows(int rows) {
   return (ceil_div(rows, kWarps) + 3) & ~3;
 }
+// The slice floats per thread of the kernel with ``cols`` columns per
+// lane: kRegFloats, but 48 (24 rows) in the float64 one-column kernel,
+// whose 32 rows of doubles spill 96 bytes (ptxas, sm_90a; 48 spill none).
+template <typename T>
+__host__ __device__ constexpr int register_floats(int cols) {
+  return std::is_same<T, double>::value && cols == 1 ? 48 : kRegFloats;
+}
 template <typename T>
 __host__ __device__ constexpr bool fits_registers(int rows, int nb) {
   return warp_rows(rows) * cols_per_lane(nb) *
-             static_cast<int>(sizeof(T) / sizeof(float)) <= kRegFloats;
+             static_cast<int>(sizeof(T) / sizeof(float)) <=
+         register_floats<T>(cols_per_lane(nb));
 }
 // Its dynamic shared memory: the slice's staging copy (column stride
 // rows | 1, odd, so lane c reading S[c * ld + r] hits 32 banks), each
@@ -188,15 +217,21 @@ __host__ __device__ constexpr size_t register_smem_bytes(int rows, int nb) {
          static_cast<size_t>(kWarps) * nb * sizeof(T);
 }
 
-// Scratch, in floats: per column parity, one slot per CTA ((s, err) and the
-// nb partial dots) and the pivot row's nb entries.
+// Scratch, in words of Real<T>: per column parity, one slot per CTA ((s,
+// err) and the nb partial dots) and the pivot row's nb entries.
 template <typename T>
-__host__ __device__ long long slot_floats(int nb) {
-  return 2 + static_cast<long long>(nb) * (sizeof(T) / sizeof(float));
+__host__ __device__ long long slot_words(int nb) {
+  return 2 + static_cast<long long>(nb) * (sizeof(T) / sizeof(Real<T>));
 }
 template <typename T>
-__host__ __device__ long long parity_floats(int ctas, int nb) {
-  return ctas * slot_floats<T>(nb) + nb * (sizeof(T) / sizeof(float));
+__host__ __device__ long long parity_words(int ctas, int nb) {
+  return ctas * slot_words<T>(nb) + nb * (sizeof(T) / sizeof(Real<T>));
+}
+// The whole scratch (both parities) in floats, the unit the wrapper sizes.
+template <typename T>
+long long scratch_floats_for(int ctas, int nb) {
+  return 2 * parity_words<T>(ctas, nb) *
+         static_cast<long long>(sizeof(Real<T>) / sizeof(float));
 }
 
 // -- compensated arithmetic -------------------------------------------------
@@ -224,12 +259,35 @@ __device__ __forceinline__ void comp_merge(float& s, float& err, float s2,
   err = __fadd_rn(err, e2);
 }
 
+// The same three in doubles (float64 panels).
+__device__ __forceinline__ void two_sum_acc(double& s, double& err, double x) {
+  const double t = __dadd_rn(s, x);
+  const double z = __dsub_rn(t, s);
+  const double c = __dadd_rn(__dsub_rn(s, __dsub_rn(t, z)), __dsub_rn(x, z));
+  s = t;
+  err = __dadd_rn(err, c);
+}
+
+__device__ __forceinline__ void acc_square(double& s, double& err, double x) {
+  const double p = __dmul_rn(x, x);
+  const double e = fma(x, x, -p);
+  two_sum_acc(s, err, p);
+  err = __dadd_rn(err, e);
+}
+
+__device__ __forceinline__ void comp_merge(double& s, double& err, double s2,
+                                           double e2) {
+  two_sum_acc(s, err, s2);
+  err = __dadd_rn(err, e2);
+}
+
 // (s, err) of one warp, merged into lane 0 in a fixed order.
-__device__ __forceinline__ void warp_comp_merge(float& s, float& err) {
+template <typename R>
+__device__ __forceinline__ void warp_comp_merge(R& s, R& err) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float s2 = __shfl_down_sync(0xffffffffu, s, o);
-    const float e2 = __shfl_down_sync(0xffffffffu, err, o);
+    const R s2 = __shfl_down_sync(0xffffffffu, s, o);
+    const R e2 = __shfl_down_sync(0xffffffffu, err, o);
     comp_merge(s, err, s2, e2);
   }
 }
@@ -237,6 +295,18 @@ __device__ __forceinline__ void warp_comp_merge(float& s, float& err) {
 __device__ __forceinline__ float inv_scale(float sn, float mag) {
   const float denom = __fmul_rn(sn, __fadd_rn(sn, mag));
   return denom > 0.f ? __fdiv_rn(1.f, __fsqrt_rn(denom)) : 0.f;
+}
+__device__ __forceinline__ double inv_scale(double sn, double mag) {
+  const double denom = __dmul_rn(sn, __dadd_rn(sn, mag));
+  return denom > 0.0 ? __ddiv_rn(1.0, __dsqrt_rn(denom)) : 0.0;
+}
+
+// sqrt(s + err), the column norm from its compensated pair.
+__device__ __forceinline__ float comp_sqrt(float s, float err) {
+  return __fsqrt_rn(__fadd_rn(s, err));
+}
+__device__ __forceinline__ double comp_sqrt(double s, double err) {
+  return __dsqrt_rn(__dadd_rn(s, err));
 }
 
 // -- element operations, real and complex -----------------------------------
@@ -246,11 +316,13 @@ template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ float2 zero<float2>() {
   return make_float2(0.f, 0.f);
 }
+template <> __device__ __forceinline__ double zero<double>() { return 0.0; }
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float2 add(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 
 __device__ __forceinline__ float shfl_xor(float a, int o) {
   return __shfl_xor_sync(0xffffffffu, a, o);
@@ -258,6 +330,9 @@ __device__ __forceinline__ float shfl_xor(float a, int o) {
 __device__ __forceinline__ float2 shfl_xor(float2 a, int o) {
   return make_float2(__shfl_xor_sync(0xffffffffu, a.x, o),
                      __shfl_xor_sync(0xffffffffu, a.y, o));
+}
+__device__ __forceinline__ double shfl_xor(double a, int o) {
+  return __shfl_xor_sync(0xffffffffu, a, o);
 }
 
 // One step of the warp's reduction of v[0..2H): lanes with bit 4H set keep
@@ -293,6 +368,15 @@ __device__ __forceinline__ void store4(float2* p, const float2 (&v)[4]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0].x, v[0].y, v[1].x, v[1].y);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[2].x, v[2].y, v[3].x, v[3].y);
 }
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
 
 // (s, err) += |x|^2
 __device__ __forceinline__ void acc_sq(float& s, float& err, float x) {
@@ -301,6 +385,9 @@ __device__ __forceinline__ void acc_sq(float& s, float& err, float x) {
 __device__ __forceinline__ void acc_sq(float& s, float& err, float2 x) {
   acc_square(s, err, x.x);
   acc_square(s, err, x.y);
+}
+__device__ __forceinline__ void acc_sq(double& s, double& err, double x) {
+  acc_square(s, err, x);
 }
 
 // d += conj(x) y
@@ -311,6 +398,9 @@ __device__ __forceinline__ void acc_dot(float2& d, float2 x, float2 y) {
   d.x = fmaf(y.x, x.x, fmaf(y.y, x.y, d.x));
   d.y = fmaf(y.y, x.x, fmaf(-y.x, x.y, d.y));
 }
+__device__ __forceinline__ void acc_dot(double& d, double x, double y) {
+  d = fma(y, x, d);
+}
 
 // y - w v
 __device__ __forceinline__ float sub_scaled(float y, float w, float v) {
@@ -319,6 +409,9 @@ __device__ __forceinline__ float sub_scaled(float y, float w, float v) {
 __device__ __forceinline__ float2 sub_scaled(float2 y, float2 w, float2 v) {
   return make_float2(__fsub_rn(y.x, fmaf(w.x, v.x, -__fmul_rn(w.y, v.y))),
                      __fsub_rn(y.y, fmaf(w.x, v.y, __fmul_rn(w.y, v.x))));
+}
+__device__ __forceinline__ double sub_scaled(double y, double w, double v) {
+  return fma(-w, v, y);
 }
 
 // f x, and f (x - alpha) for the pivot
@@ -332,6 +425,10 @@ __device__ __forceinline__ float pivot(float x, float alpha, float f) {
 __device__ __forceinline__ float2 pivot(float2 x, float2 alpha, float f) {
   return make_float2(__fmul_rn(__fsub_rn(x.x, alpha.x), f),
                      __fmul_rn(__fsub_rn(x.y, alpha.y), f));
+}
+__device__ __forceinline__ double scale(double x, double f) { return __dmul_rn(x, f); }
+__device__ __forceinline__ double pivot(double x, double alpha, double f) {
+  return __dmul_rn(__dsub_rn(x, alpha), f);
 }
 
 // alpha from the column norm and the pivot; mag = |a_jj|
@@ -348,6 +445,11 @@ __device__ __forceinline__ float2 make_alpha(float sn, float2 a, float& mag) {
   }
   return make_float2(-sn, __fmul_rn(sn, 0.f));  // -s on a zero pivot
 }
+__device__ __forceinline__ double make_alpha(double sn, double a,
+                                             double& mag) {
+  mag = fabs(a);
+  return a >= 0.0 ? -sn : sn;
+}
 
 // W = f (d - conj(alpha) y_j), d = sum conj(x_i) y_i over rows >= j
 __device__ __forceinline__ float w_coef(float d, float alpha, float yj, float f) {
@@ -358,6 +460,10 @@ __device__ __forceinline__ float2 w_coef(float2 d, float2 a, float2 y, float f) 
   const float ci = fmaf(a.x, y.y, -__fmul_rn(a.y, y.x));
   return make_float2(__fmul_rn(f, __fsub_rn(d.x, cr)),
                      __fmul_rn(f, __fsub_rn(d.y, ci)));
+}
+__device__ __forceinline__ double w_coef(double d, double alpha, double yj,
+                                         double f) {
+  return __dmul_rn(f, fma(-alpha, yj, d));
 }
 
 // -- the grid barrier -------------------------------------------------------
@@ -416,11 +522,11 @@ __device__ unsigned long long g_prof[1024][kProfSections];
 // W of every trailing column, into shared memory (alpha_out[jl] from CTA
 // 0). Thread (grp, kk) sums column k = jl+1+kk over CTA group grp; the last
 // warp merges the norm. Every load is issued before its use.
-template <typename T>
+template <typename T, typename Word = Real<T>>
 __device__ __forceinline__ void merge_column(
-    const float* __restrict__ part, long long slot, int jl, int nb,
+    const Word* __restrict__ part, long long slot, int jl, int nb,
     T* __restrict__ alpha_out, T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha,
-    float& sh_f) {
+    Word& sh_f) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cta = blockIdx.x, ctas = gridDim.x;
   const T* rowj = reinterpret_cast<const T*>(part + ctas * slot);
@@ -430,14 +536,14 @@ __device__ __forceinline__ void merge_column(
   const int cend = (grp + 1) * ctas / kMergeGroups;
   const T yj = live && grp == 0 ? __ldcg(rowj + k) : zero<T>();
   const bool norm_warp = warp == kWarps - 1;
-  float ns[kNormPerLane], ne[kNormPerLane];
+  Word ns[kNormPerLane], ne[kNormPerLane];
   T a_jj = zero<T>();
   if (norm_warp) {
     const int cb = lane * ctas / 32, ce = (lane + 1) * ctas / 32;
 #pragma unroll
     for (int u = 0; u < kNormPerLane; ++u) {
-      ns[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot) : 0.f;
-      ne[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot + 1) : 0.f;
+      ns[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot) : Word(0);
+      ne[u] = cb + u < ce ? __ldcg(part + (cb + u) * slot + 1) : Word(0);
     }
     if (lane == 0) a_jj = __ldcg(rowj + jl);
   }
@@ -455,13 +561,13 @@ __device__ __forceinline__ void merge_column(
   }
   sh_red[grp][kk] = d;
   if (norm_warp) {
-    float s = 0.f, err = 0.f;
+    Word s = 0, err = 0;
 #pragma unroll
     for (int u = 0; u < kNormPerLane; ++u) comp_merge(s, err, ns[u], ne[u]);
     warp_comp_merge(s, err);
     if (lane == 0) {
-      const float sn = __fsqrt_rn(__fadd_rn(s, err));
-      float mag;
+      const Word sn = comp_sqrt(s, err);
+      Word mag;
       const T alpha = make_alpha(sn, a_jj, mag);
       sh_alpha = alpha;
       sh_f = inv_scale(sn, mag);
@@ -480,12 +586,12 @@ __device__ __forceinline__ void merge_column(
 
 // The CTA's compensated norm over the warps' (s, err), merged by the last
 // warp in warp order and published to its scratch slot.
-__device__ __forceinline__ void publish_norm(float* __restrict__ slot_p,
-                                             const float* sh_s,
-                                             const float* sh_e) {
+template <typename R>
+__device__ __forceinline__ void publish_norm(R* __restrict__ slot_p,
+                                             const R* sh_s, const R* sh_e) {
   const int lane = threadIdx.x & 31;
-  float s = lane < kWarps ? sh_s[lane] : 0.f;
-  float err = lane < kWarps ? sh_e[lane] : 0.f;
+  R s = lane < kWarps ? sh_s[lane] : R(0);
+  R err = lane < kWarps ? sh_e[lane] : R(0);
   warp_comp_merge(s, err);
   if (lane == 0) {
     __stcg(slot_p, s);
@@ -572,15 +678,16 @@ __device__ __forceinline__ void stage_column(const T (&y)[kRows * NC], T* bx,
 // and write both into the staging copy, which so holds every finished
 // column and is written back at the end. A register of a finished column
 // is never read again, so the pass may update it with W = 0.
-template <typename T, int NC>
+template <typename T, int NC, typename Word = Real<T>>
 __device__ __forceinline__ void register_slice(
-    T* __restrict__ at, T* __restrict__ alpha_out, float* __restrict__ scratch,
+    T* __restrict__ at, T* __restrict__ alpha_out, Word* __restrict__ scratch,
     unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
-    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, float& sh_f, float* sh_s,
-    float* sh_e) {
+    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
+    Word* sh_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kEl = sizeof(T) / sizeof(float);
-  constexpr int kRows = (kRegFloats / kEl / NC) & ~3;  // most rows per warp
+  // most rows per warp
+  constexpr int kRows = (register_floats<T>(NC) / kEl / NC) & ~3;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cta = blockIdx.x, ctas = gridDim.x;
   const long long row0 = off + static_cast<long long>(cta) * g.rows;
@@ -589,8 +696,8 @@ __device__ __forceinline__ void register_slice(
   const int first = static_cast<int>(
       min(static_cast<long long>(cta) * g.rows,
           static_cast<long long>(kMaxWidth) + 2));
-  const long long slot = slot_floats<T>(nb);
-  const long long half = parity_floats<T>(ctas, nb);
+  const long long slot = slot_words<T>(nb);
+  const long long half = parity_words<T>(ctas, nb);
   const int ld = register_ld(g.rows);
   const int R = warp_rows(g.rows), wrow = warp * R;
   T* S = reinterpret_cast<T*>(smem_raw);
@@ -630,15 +737,15 @@ __device__ __forceinline__ void register_slice(
                       sh_w, sh_red, sh_alpha, sh_f);
     PROF_MARK(0);
 
-    float* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
+    Word* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
     T* rowj_n = reinterpret_cast<T*>(part_n + ctas * slot);
     const T alpha = apply ? sh_alpha : zero<T>();
-    const float f = apply ? sh_f : 0.f;
+    const Word f = apply ? sh_f : Word(0);
     const T w1 = apply && next ? sh_w[jl + 1] : zero<T>();
 
     // -- v over column jl; column jl+1 (staged in bx) updated, its norm;
     // a row or two per lane
-    float s = 0.f, err = 0.f;
+    Word s = 0, err = 0;
 #pragma unroll
     for (int h = 0; h < kRows; h += 32) {
       const int rr = lane + h, r = wrow + rr;
@@ -720,12 +827,12 @@ __device__ __forceinline__ void register_slice(
 
 // kResident: the slice lives in dynamic shared memory; otherwise it is
 // streamed in place from At (a panel too tall for shared memory).
-template <typename T, bool kResident>
+template <typename T, bool kResident, typename Word = Real<T>>
 __device__ __forceinline__ void slice_body(
-    T* __restrict__ at, T* __restrict__ alpha_out, float* __restrict__ scratch,
+    T* __restrict__ at, T* __restrict__ alpha_out, Word* __restrict__ scratch,
     unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
-    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, float& sh_f, float* sh_s,
-    float* sh_e) {
+    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
+    Word* sh_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cta = blockIdx.x, ctas = gridDim.x;
@@ -737,8 +844,8 @@ __device__ __forceinline__ void slice_body(
   const int first = static_cast<int>(
       min(static_cast<long long>(cta) * g.rows,
           static_cast<long long>(kMaxWidth) + 2));
-  const long long slot = slot_floats<T>(nb);
-  const long long half = parity_floats<T>(ctas, nb);
+  const long long slot = slot_words<T>(nb);
+  const long long half = parity_words<T>(ctas, nb);
   // The slice: row r of column k at S[k * ld + r]; a streamed slice's
   // column stride is the panel's height, so its offsets are 64-bit.
   using Index = std::conditional_t<kResident, int, long long>;
@@ -769,16 +876,16 @@ __device__ __forceinline__ void slice_body(
                       sh_w, sh_red, sh_alpha, sh_f);
     PROF_MARK(0);
 
-    float* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
+    Word* part_n = scratch + ((jl + 1) & 1) * half;  // column jl+1's half
     T* rowj_n = reinterpret_cast<T*>(part_n + ctas * slot);
     T* Sv = S + static_cast<Index>(apply ? jl : 0) * ld;  // column jl
     T* Sx = S + static_cast<Index>(jl + 1) * ld;  // column jl+1 (if next)
     const T alpha = apply ? sh_alpha : zero<T>();
-    const float f = apply ? sh_f : 0.f;
+    const Word f = apply ? sh_f : Word(0);
 
     // -- v over column jl; update column jl+1 and its compensated norm
     const T w1 = apply && next ? sh_w[jl + 1] : zero<T>();
-    float s = 0.f, err = 0.f;
+    Word s = 0, err = 0;
     for (int r = tid; r < nrows; r += kThreads) {
       T v = zero<T>();
       if (apply && r >= jr) {
@@ -867,13 +974,13 @@ __device__ __forceinline__ void slice_body(
 template <typename T, int kVariant, int kCols>
 __global__ void __launch_bounds__(kThreads, 1)
 panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
-                float* __restrict__ scratch, unsigned* __restrict__ bar,
+                Real<T>* __restrict__ scratch, unsigned* __restrict__ bar,
                 long long m, int nb, long long off, Grid g) {
   __shared__ T sh_w[kMaxWidth];
   __shared__ T sh_red[kMergeGroups][kMaxWidth];
   __shared__ T sh_alpha;
-  __shared__ float sh_f;
-  __shared__ float sh_s[kWarps], sh_e[kWarps];
+  __shared__ Real<T> sh_f;
+  __shared__ Real<T> sh_s[kWarps], sh_e[kWarps];
   if constexpr (kVariant == kRegisters) {
     register_slice<T, kCols>(at, alpha_out, scratch, bar, m, nb, off, g,
                              sh_w, sh_red, sh_alpha, sh_f, sh_s, sh_e);
@@ -962,11 +1069,11 @@ int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
   int per_sm = 0;
   cudaError_t err = check<T>(m, nb, off, g, variant, &bytes, &fa, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (scratch_floats < 2 * parity_floats<T>(g.ctas, nb))
+  if (scratch_floats < scratch_floats_for<T>(g.ctas, nb))
     return static_cast<int>(cudaErrorInvalidValue);
   T* at_t = static_cast<T*>(at);
   T* alpha_t = static_cast<T*>(alpha);
-  float* scratch_f = static_cast<float*>(scratch);
+  Real<T>* scratch_f = static_cast<Real<T>*>(scratch);
   unsigned* bar_u = static_cast<unsigned*>(bar);
   void* args[] = {&at_t, &alpha_t, &scratch_f, &bar_u, &m, &nb, &off, &g};
   err = cudaLaunchCooperativeKernel(kernel_for<T>(variant, nb), dim3(g.ctas),
@@ -1018,20 +1125,40 @@ int dhqr_panel_qr_c64(void* at, void* alpha, void* scratch,
                         ctas, rows, variant, stream);
 }
 
-// Floats of scratch a launch of ``ctas`` CTAs on an nb-wide panel needs.
-long long dhqr_panel_qr_scratch_floats(int complex64, int ctas, int nb) {
-  return complex64 ? 2 * parity_floats<float2>(ctas, nb)
-                   : 2 * parity_floats<float>(ctas, nb);
+int dhqr_panel_qr_f64(void* at, void* alpha, void* scratch,
+                      long long scratch_floats, void* bar, long long m,
+                      int nb, long long off, int ctas, int rows,
+                      int variant, void* stream) {
+  return launch<double>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
+                        ctas, rows, variant, stream);
+}
+
+// ``dtype`` in the two calls below names the element type: 0 float32, 1
+// complex64, 2 float64.
+
+// Floats of scratch a launch of ``ctas`` CTAs on an nb-wide panel needs (-1
+// for an unknown dtype).
+long long dhqr_panel_qr_scratch_floats(int dtype, int ctas, int nb) {
+  switch (dtype) {
+    case 0: return scratch_floats_for<float>(ctas, nb);
+    case 1: return scratch_floats_for<float2>(ctas, nb);
+    case 2: return scratch_floats_for<double>(ctas, nb);
+    default: return -1;
+  }
 }
 
 // What a launch with the same arguments would get on the current device, in
 // out[5]: dynamic and static shared bytes per CTA, registers per thread,
 // local (spill) bytes per thread, resident CTAs per SM. Returns the
 // cudaError_t the launch would meet before it runs.
-int dhqr_panel_qr_info(int complex64, long long m, int nb, long long off,
+int dhqr_panel_qr_info(int dtype, long long m, int nb, long long off,
                        int ctas, int rows, int variant, int* out) {
-  return complex64 ? info<float2>(m, nb, off, ctas, rows, variant, out)
-                   : info<float>(m, nb, off, ctas, rows, variant, out);
+  switch (dtype) {
+    case 0: return info<float>(m, nb, off, ctas, rows, variant, out);
+    case 1: return info<float2>(m, nb, off, ctas, rows, variant, out);
+    case 2: return info<double>(m, nb, off, ctas, rows, variant, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 #ifdef DHQR_PANEL_PROFILE

@@ -173,11 +173,13 @@ def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
     """Map a ``use_pallas`` value to "does the blocked engine route the
     panels of an m-row matrix through the Hopper kernel?".
 
-    "auto": yes for float32/complex64 on a CUDA device; float64/complex128
-    and CPU tensors take the plain panel engine (as the JAX package's
-    "auto" stays on the XLA path off-TPU). "always": yes — on a CPU tensor
-    the wrapper then runs the kernel's plain version, the analogue of the
-    Pallas interpreter; raises ValueError for another dtype. "never": no.
+    "auto": yes for float32, float64 and complex64 on a CUDA device (the
+    kernel's :data:`KERNELS`; float64 has a kernel here though the JAX
+    package has none); complex128 and CPU tensors take the plain panel
+    engine (as the JAX package's "auto" stays on the XLA path off-TPU).
+    "always": yes — on a CPU tensor the wrapper then runs the kernel's
+    plain version, the analogue of the Pallas interpreter; raises
+    :class:`KernelRefusal` (a ValueError) for complex128. "never": no.
     Every height runs on the kernel: resident in shared memory where a
     leaf's slices fit, streamed past that, with 64-bit row and element
     indices past 2^31 (the height is never a reason to leave the kernel).
@@ -192,7 +194,7 @@ def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
         return False
     if dtype not in KERNELS:
         raise KernelRefusal(f"use_pallas='always' but the panel kernel takes "
-                         f"float32/complex64 only, got {dtype}")
+                            f"float32/float64/complex64 only, got {dtype}")
     return True
 
 

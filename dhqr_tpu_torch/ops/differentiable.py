@@ -151,8 +151,9 @@ _PALLAS_MODES = {True: "always", False: "never", "auto": "auto"}
 
 def _kernel_mode(pallas, use_pallas) -> str:
     """The ``use_pallas`` spelling of ``pallas`` (True: the Hopper kernel,
-    False: the plain panel engine, "auto": the kernel for float32/complex64
-    on the card), checked against the keyword-only alias ``use_pallas``."""
+    False: the plain panel engine, "auto": the kernel for float32, float64
+    and complex64 on the card), checked against the keyword-only alias
+    ``use_pallas``."""
     if not (isinstance(pallas, bool) or pallas == "auto"):
         raise ValueError(
             f"pallas must be True, False or 'auto', got {pallas!r}")
@@ -182,7 +183,7 @@ def lstsq_diff(A, b, block_size: int = DEFAULT_BLOCK_SIZE,
     The forward pass is the blocked engine, Q^H b and back-substitution;
     ``b`` may be (m,) or (m, k). ``pallas=True`` puts the panels on the
     Hopper kernel, ``False`` on the plain panel engine, and ``"auto"`` (the
-    port's default) on the kernel for float32/complex64 on the card;
+    port's default) on the kernel for float32/float64/complex64 on the card;
     ``use_pallas`` ("auto"/"always"/"never") is a keyword-only alias.
     ``pallas_interpret=True`` runs the kernel's plain version in its place
     (the Pallas interpreter's counterpart), and ``pallas_flat`` caps the

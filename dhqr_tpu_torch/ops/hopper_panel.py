@@ -1,8 +1,9 @@
 """Hopper panel factorization kernels — port of ``dhqr_tpu/ops/pallas_panel.py``.
 
-The fused panel factorization (float32, and complex64) runs as a CUDA C++
-kernel written for ``sm_90a`` (``csrc/panel_qr.cu``; its header says what
-bounds it and how it is built): one cooperative grid of up to one CTA per
+The fused panel factorization (float32 and complex64, the two TPU kernels'
+types, and float64, which the JAX package factors with plain XLA ops) runs
+as a CUDA C++ kernel written for ``sm_90a`` (``csrc/panel_qr.cu``; its
+header says what bounds it and how it is built): one cooperative grid of up to one CTA per
 SM, each CTA holding a slice of the panel's rows in its registers, in
 shared memory where the slice is too large for the registers, or, for a
 panel too tall for that, streaming it in place; one grid barrier per
@@ -13,12 +14,12 @@ column. This module holds, per kernel:
   buffer in place and returns ``(pf, alpha)``. A CUDA tensor launches the
   kernel or raises; only a CPU tensor takes the plain version (the
   counterpart of the Pallas interpreter). There is no fallback;
-* the **plain versions** :func:`_panel_qr_plain` and
-  :func:`_panel_qr_plain_c64` — the TPU kernels' algorithm step by step in
-  eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch rounds
-  every op on its own, so the Veltkamp split holds as written), a row at a
-  time in pieces of :data:`PLAIN_CHUNK` elements, so that the plain twin
-  of a panel that fills much of the card fits beside it;
+* the **plain versions** :func:`_panel_qr_plain` (float32 and float64)
+  and :func:`_panel_qr_plain_c64` — the TPU kernels' algorithm step by step
+  in eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch
+  rounds every op on its own, so the Veltkamp split holds as written), a
+  row at a time in pieces of :data:`PLAIN_CHUNK` elements, so that the
+  plain twin of a panel that fills much of the card fits beside it;
 * the **schedule model** :func:`_panel_qr_grid_model` — the CUDA kernel's
   row partition and one-round merge in eager PyTorch (tests, and
   ``chip_smoke.py`` as a leaf of the blocked engine on the card);
@@ -67,13 +68,19 @@ KERNEL_STATIC_SMEM = 8192
 # is held in registers when that is at most 64 floats per thread.
 KERNEL_WARPS = 16
 KERNEL_REGISTER_FLOATS = 64
+# ... but at most 48 in the float64 one-column kernel (csrc/panel_qr.cu
+# register_floats: 32 rows of doubles spill there), so 24 rows per warp.
+KERNEL_REGISTER_FLOATS_F64_ONE_COLUMN = 48
 # CTA cap of a panel launched beside a trailing GEMM (the lookahead
 # schedule's side stream, ops/blocked.py): the cooperative grid must be
 # resident at once, so it takes at most this many SMs and leaves the rest
 # to cuBLAS. Chosen from the cap sweep of chip_smoke.py phase 11.
 LOOKAHEAD_CTAS = 66
 
-KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64"}
+KERNELS = {torch.float32: "panel_qr_f32", torch.complex64: "panel_qr_c64",
+           torch.float64: "panel_qr_f64"}
+# The element type as the launch-plan calls of csrc/panel_qr.cu name it.
+DTYPE_CODES = {torch.float32: 0, torch.complex64: 1, torch.float64: 2}
 # Where a CTA keeps its slice, as the launchers' ``variant`` int names it.
 VARIANTS = {"registers": 2, "shared": 1, "streamed": 0}
 
@@ -127,8 +134,7 @@ def kernel_resident(rows: int, nb: int, dtype, sms: int = H100_SMS,
     wide, fits its shared memory on a card of ``sms`` SMs: the kernel then
     keeps the slice on chip; otherwise it streams the slice in place."""
     per = kernel_grid(rows, sms)[1]
-    elem = 8 if dtype == torch.complex64 else 4
-    return per * nb * elem <= smem_per_block - KERNEL_STATIC_SMEM
+    return per * nb * dtype.itemsize <= smem_per_block - KERNEL_STATIC_SMEM
 
 
 def kernel_in_registers(rows: int, nb: int, dtype,
@@ -136,14 +142,18 @@ def kernel_in_registers(rows: int, nb: int, dtype,
     """True when each CTA's slice of ``rows`` active rows, ``nb`` columns
     wide, fits the register variant on a card of ``sms`` SMs: ceil(rows
     per CTA / 16) rows per warp, rounded up to 4, times the columns per
-    lane (1, 2 or 4 for nb up to 32, 64, 128), times 2 for complex64, at
-    most 64 floats per thread (131072 x 32 f32: 993 rows per CTA, 64 x
-    1)."""
+    lane (1, 2 or 4 for nb up to 32, 64, 128), times 2 for complex64 and
+    float64 (an 8-byte element takes two registers), at most 64 floats per
+    thread (131072 x 32 f32: 993 rows per CTA, 64 x 1; f64 holds half as
+    many values: 4400 x 128, 34 rows per CTA, 4 x 4 x 2), or 48 floats for
+    float64 at one column per lane (nb up to 32: 24 rows per warp)."""
     per = kernel_grid(rows, sms)[1]
     warp_rows = (-(-per // KERNEL_WARPS) + 3) // 4 * 4
     cols = 1 if nb <= 32 else 2 if nb <= 64 else 4
-    floats = 2 if dtype == torch.complex64 else 1
-    return warp_rows * cols * floats <= KERNEL_REGISTER_FLOATS
+    floats = dtype.itemsize // 4
+    limit = KERNEL_REGISTER_FLOATS_F64_ONE_COLUMN \
+        if dtype == torch.float64 and cols == 1 else KERNEL_REGISTER_FLOATS
+    return warp_rows * cols * floats <= limit
 
 
 def kernel_variant(rows: int, nb: int, dtype, sms: int = H100_SMS,
@@ -160,8 +170,9 @@ def kernel_variant(rows: int, nb: int, dtype, sms: int = H100_SMS,
 
 
 def panel_kernel_supported(m: int, nb: int, dtype) -> bool:
-    """True when the kernel takes an (m, nb) panel of ``dtype``: float32 or
-    complex64, 1 <= nb <= :data:`KERNEL_MAX_WIDTH` and m >= nb. The height
+    """True when the kernel takes an (m, nb) panel of ``dtype``: float32,
+    float64 or complex64 (:data:`KERNELS`), 1 <= nb <=
+    :data:`KERNEL_MAX_WIDTH` and m >= nb. The height
     has no limit of its own (the kernel's row and element indices are
     64-bit): any panel that fits the card runs on it, its slices in
     registers or shared memory where they fit (:func:`kernel_variant`),
@@ -181,7 +192,8 @@ def kernel_flat_width(rows: int, dtype, sms: int = H100_SMS,
     On an H100: 16384 rows f32 -> 128 (125 rows x 512 B per CTA); 65536
     rows f32 -> 64 (497 rows x 256 B; 512 B would not fit 227 KB); from
     ~462k rows f32 -> 16, streamed, up to 2^27 rows and past them (a leaf
-    of more than 2^31 elements).
+    of more than 2^31 elements). float64 takes c64's bytes: 4400 rows ->
+    128, 65536 rows -> 32, from ~231k rows -> 16, streamed.
     """
     if dtype not in KERNELS or rows < 1:
         return 0
@@ -205,11 +217,17 @@ def _pieces(n: int, chunk: int) -> "list[slice]":
     return [slice(i, min(n, i + chunk)) for i in range(0, n, chunk)]
 
 
+# Veltkamp's splitting constant 2^s + 1, s = ceil(mantissa bits / 2): it
+# cuts a word into two halves whose products are exact.
+VELTKAMP = {torch.float32: 4097.0, torch.float64: 134217729.0}
+
+
 def _sumsq_compensated(x: torch.Tensor) -> torch.Tensor:
-    """Compensated sum of squares of a 1-D float32 row, as the TPU kernel
-    computes it: a Veltkamp split (constant 2^12 + 1) makes every square
-    exact as p + e; the p plane is zero-padded to the next power of two
-    (widths >= 256) and summed by a contiguous-halving TwoSum tree down to
+    """Compensated sum of squares of a 1-D float32 (or float64) row, as the
+    TPU kernel computes it: a Veltkamp split (:data:`VELTKAMP`; in float64
+    the CUDA kernel forms the same exact error with an FMA) makes every
+    square exact as p + e; the p plane is zero-padded to the next power of
+    two (widths >= 256) and summed by a contiguous-halving TwoSum tree down to
     128 lanes with the errors folded into a scalar; a plain sum ends it.
 
     The tree halves p in place, :data:`PLAIN_CHUNK` lanes at a time, and
@@ -218,10 +236,11 @@ def _sumsq_compensated(x: torch.Tensor) -> torch.Tensor:
     w = x.shape[0]
     p = torch.empty_like(x)
     err = x.new_zeros(())
+    split = VELTKAMP[x.dtype]
     for sl in _pieces(w, PLAIN_CHUNK):
         xc = x[sl]
         pc = torch.mul(xc, xc, out=p[sl])
-        c = xc * 4097.0
+        c = xc * split
         hi = c - (c - xc)
         lo = xc - hi
         e = ((hi * hi - pc) + 2.0 * hi * lo) + lo * lo
@@ -255,9 +274,12 @@ def _reflector(x: torch.Tensor, j: int, x_jj, alpha_j, f) -> torch.Tensor:
 
 
 def _panel_qr_plain(at: torch.Tensor, offset: int) -> torch.Tensor:
-    """Float32 kernel, plain: factor the transposed panel ``at`` (nb, m) in
-    place; returns alpha (nb,). Its temporaries are a few rows (the
-    trailing update goes :data:`PLAIN_CHUNK` elements at a time)."""
+    """Float32 (and float64) kernel, plain: factor the transposed panel
+    ``at`` (nb, m) in place; returns alpha (nb,). Its temporaries are a few
+    rows (the trailing update goes :data:`PLAIN_CHUNK` elements at a
+    time). In float64 it is the CUDA kernel's arithmetic (every square
+    exact, TwoSum accumulation, alpha, f and W as the kernel forms them)
+    in the TPU kernel's summation order."""
     nb, m = at.shape
     alpha = at.new_zeros(nb)
     step = max(1, PLAIN_CHUNK // m)  # trailing rows per update piece
@@ -321,7 +343,8 @@ def _panel_qr_plain_c64(at: torch.Tensor, offset: int) -> torch.Tensor:
     return alpha
 
 
-_PLAIN = {torch.float32: _panel_qr_plain, torch.complex64: _panel_qr_plain_c64}
+_PLAIN = {torch.float32: _panel_qr_plain, torch.complex64: _panel_qr_plain_c64,
+          torch.float64: _panel_qr_plain}
 
 
 # -- the CUDA kernel's schedule, in plain PyTorch ----------------------------
@@ -378,8 +401,12 @@ def _panel_qr_grid_model(at: torch.Tensor, offset: int,
     float32 square is exact, and split into two float32 words. Tests and
     ``chip_smoke.py`` hold it against the JAX kernel, the plain versions
     and the CUDA kernel, and ``chip_smoke.py`` runs it on the card as the
-    blocked engine's leaf (:func:`_panel_qr_grid_leaf`).
+    blocked engine's leaf (:func:`_panel_qr_grid_leaf`). A float64 panel
+    raises: no wider type makes its squares exact here.
     """
+    if at.dtype not in (torch.float32, torch.complex64):
+        raise KernelRefusal(f"the grid model takes float32/complex64 panels, "
+                            f"got {at.dtype}")
     nb, m = at.shape
     rows = m - offset
     per = -(-rows // n_slices)
@@ -453,8 +480,9 @@ def _panel_qr_plain_leaf(panel: torch.Tensor, offset: int,
 
 _LIBS: "dict[bool, ctypes.CDLL]" = {}
 
-# The C signatures of the launchers (``dhqr_panel_qr_f32`` / ``_c64``) and
-# of ``dhqr_panel_qr_info`` in csrc/panel_qr.cu, by parameter. A panel's
+# The C signatures of the launchers (``dhqr_panel_qr_f32`` / ``_c64`` /
+# ``_f64``) and of ``dhqr_panel_qr_info`` (whose ``dtype`` is a
+# :data:`DTYPE_CODES` value) in csrc/panel_qr.cu, by parameter. A panel's
 # height and offset are 64-bit there and here: a 32-bit ctypes int would cut
 # a height past 2^31 short without a word.
 LAUNCH_ARGS = (
@@ -465,7 +493,7 @@ LAUNCH_ARGS = (
     ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
     ("variant", ctypes.c_int), ("stream", ctypes.c_void_p))
 INFO_ARGS = (
-    ("complex64", ctypes.c_int), ("m", ctypes.c_longlong),
+    ("dtype", ctypes.c_int), ("m", ctypes.c_longlong),
     ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
     ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
     ("variant", ctypes.c_int), ("out", ctypes.POINTER(ctypes.c_int)))
@@ -524,14 +552,14 @@ def kernel_launch_info(m: int, nb: int, offset: int, dtype,
     device = torch.device("cuda" if device is None else device)
     ctas, rows, variant = _plan(m, nb, offset, dtype, device, sms)
     out = (ctypes.c_int * 5)()
-    complex64 = int(dtype == torch.complex64)
+    code = DTYPE_CODES[dtype]
     with torch.cuda.device(device):
         lib = _library()
-        err = lib.dhqr_panel_qr_info(complex64, m, nb, offset, ctas, rows,
+        err = lib.dhqr_panel_qr_info(code, m, nb, offset, ctas, rows,
                                      VARIANTS[variant], out)
         _raise_on(err, f"{KERNELS[dtype]} launch plan for ({m}, {nb}) at "
                   f"{offset}")
-        scratch = lib.dhqr_panel_qr_scratch_floats(complex64, ctas, nb)
+        scratch = lib.dhqr_panel_qr_scratch_floats(code, ctas, nb)
     keys = ("smem_dynamic_bytes", "smem_static_bytes", "registers",
             "spill_bytes", "ctas_per_sm")
     return {"ctas": ctas, "rows_per_cta": rows, "variant": variant,
@@ -549,8 +577,8 @@ def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
     if not (at.is_contiguous() and alpha.is_contiguous()):
         raise KernelRefusal("the panel kernel takes contiguous buffers")
     ctas, rows, variant = _plan(m, nb, offset, at.dtype, at.device, sms)
-    floats = lib.dhqr_panel_qr_scratch_floats(int(at.dtype == torch.complex64),
-                                              ctas, nb)
+    floats = lib.dhqr_panel_qr_scratch_floats(DTYPE_CODES[at.dtype], ctas,
+                                              nb)
     scratch = torch.empty(floats, dtype=torch.float32, device=at.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=at.device)
     with torch.cuda.device(at.device):
@@ -606,9 +634,9 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
     m, nb = panel.shape
     if not panel_kernel_supported(m, nb, panel.dtype):
         raise KernelRefusal(
-            f"the panel kernel takes float32/complex64 panels with m >= nb "
-            f"and nb <= {KERNEL_MAX_WIDTH}, got {tuple(panel.shape)} "
-            f"{panel.dtype}")
+            f"the panel kernel takes float32/float64/complex64 panels with "
+            f"m >= nb and nb <= {KERNEL_MAX_WIDTH}, got "
+            f"{tuple(panel.shape)} {panel.dtype}")
     if not 0 <= offset <= m - nb:
         raise KernelRefusal(f"panel offset {offset} out of range for "
                          f"{tuple(panel.shape)}")
@@ -630,12 +658,13 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
 
 
 def panel_qr_kernel(panel: torch.Tensor):
-    """Factor an (m, nb) float32/complex64 panel with the Hopper kernel
-    (plain version for a CPU tensor); returns ``(pf, alpha)``."""
+    """Factor an (m, nb) float32/float64/complex64 panel with the Hopper
+    kernel (plain version for a CPU tensor); returns ``(pf, alpha)``."""
     m, nb = panel.shape
     if m < nb:
         raise KernelRefusal(f"panel_qr_kernel requires m >= nb, got {tuple(panel.shape)}")
     if panel.dtype not in KERNELS:
         raise KernelRefusal(
-            f"panel_qr_kernel supports float32/complex64, got {panel.dtype}")
+            f"panel_qr_kernel supports float32/float64/complex64, got "
+            f"{panel.dtype}")
     return _panel_qr_kernel(panel, 0)

@@ -8,7 +8,9 @@ Imports ``dhqr_tpu_torch`` from the current directory (whichever checkout
 that is: this script may live in another), builds its kernels, and prints
 one JSON line ``{"tag": TAG, "rows": {...}}``: for each of ``chip_smoke.py``
 phase 1's timed shapes, five device times in ms, each the mean of ten
-launches of the kernel wrapper (CUDA events, after one warm-up). With
+launches of the kernel wrapper (CUDA events, after one warm-up); a checkout
+whose kernels do not take a shape's type (float64 before it had a kernel)
+leaves that shape out. With
 ``--sections`` it prints ``{"tag": TAG, "cycles": {...}}`` instead: the
 SM cycles per column of each section of a column step (merge, column pass,
 trailing pass, grid barrier), the mean over the CTAs, from three launches
@@ -33,7 +35,12 @@ SHAPES = [("f32", 16384, 128, 0, None), ("f32", 65536, 128, 0, None),
           ("f32", 16384, 128, 0, 66), ("c64", 8192, 128, 0, 66),
           ("f32", 131072, 32, 0, None), ("f32", 131072, 32, 96, None),
           ("c64", 65536, 32, 3, None), ("f32", 65536, 64, 0, None),
-          ("f32", 100000, 64, 0, None), ("c64", 100000, 32, 0, None)]
+          ("f32", 100000, 64, 0, None), ("c64", 100000, 32, 0, None),
+          ("f64", 4400, 128, 0, None), ("f64", 4400, 128, 1984, None),
+          ("f64", 4400, 128, 3968, None), ("f64", 16384, 128, 0, None),
+          ("f64", 131072, 16, 0, None), ("f64", 131072, 32, 0, None),
+          ("f64", 262144, 16, 3, None)]
+DTYPES = {"f32": torch.float32, "c64": torch.complex64, "f64": torch.float64}
 SECTION_SHAPES = [("f32", 16384, 128), ("c64", 8192, 128),
                   ("f32", 524288, 16), ("c64", 262144, 16),
                   ("f32", 131072, 32), ("c64", 65536, 32),
@@ -41,13 +48,15 @@ SECTION_SHAPES = [("f32", 16384, 128), ("c64", 8192, 128),
 
 
 def _panel(g, name, m, nb):
-    dtype = torch.float32 if name == "f32" else torch.complex64
-    return torch.randn((m, nb), generator=g, device="cuda", dtype=dtype)
+    return torch.randn((m, nb), generator=g, device="cuda",
+                       dtype=DTYPES[name])
 
 
 def times(g) -> dict:
     out = {}
     for name, m, nb, off, cap in SHAPES:
+        if DTYPES[name] not in hp.KERNELS:
+            continue
         panel = _panel(g, name, m, nb)
 
         def launch():

@@ -137,12 +137,13 @@ def test_kernel_routing_modes():
     cpu = torch.device("cpu")
     assert tbl._resolve_kernel("auto", 1024, torch.float32, cuda)
     assert tbl._resolve_kernel("auto", 1024, torch.complex64, cuda)
-    assert not tbl._resolve_kernel("auto", 1024, torch.float64, cuda)
+    assert tbl._resolve_kernel("auto", 1024, torch.float64, cuda)
+    assert not tbl._resolve_kernel("auto", 1024, torch.complex128, cuda)
     assert not tbl._resolve_kernel("auto", 1024, torch.float32, cpu)
     assert tbl._resolve_kernel("always", 1024, torch.float32, cpu)
     assert not tbl._resolve_kernel("never", 1024, torch.float32, cuda)
-    with pytest.raises(ValueError):
-        tbl._resolve_kernel("always", 1024, torch.float64, cpu)
+    with pytest.raises(hp.KernelRefusal):
+        tbl._resolve_kernel("always", 1024, torch.complex128, cpu)
     with pytest.raises(ValueError):
         tbl._resolve_kernel("sometimes", 1024, torch.float32, cpu)
     # past 2^31 elements (2^27 x 16) and 2^31 rows: still the kernel, whose

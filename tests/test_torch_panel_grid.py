@@ -169,7 +169,7 @@ def test_kernel_flat_width_at_the_main_path_shapes():
     assert hp.kernel_flat_width(2**24, f32) == 16   # too tall at any leaf:
     assert not hp.kernel_resident(2**24, 16, f32)   # streamed
     assert hp.kernel_flat_width(2**27, f32) == 16   # 2^31 elements: 64-bit
-    assert hp.kernel_flat_width(1024, torch.float64) == 0
+    assert hp.kernel_flat_width(1024, torch.complex128) == 0
     assert hp.kernel_flat_width(5, f32) == 128      # a panel shorter than 16
     # the card's own values decide: fewer SMs, taller slices
     assert hp.kernel_flat_width(57000, f32) == 128
