@@ -2,12 +2,12 @@
 """On-card smoke run of dhqr_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases 0,1,2,...,20,21,22]
+                          [--phases 0,1,2,...,21,22,23]
                           [--accuracy-seeds N]
 
 Needs one CUDA card (an H100 for the bounds below); exits non-zero without
 one, and without the port beside it. Phases, each of which fails the run
-on any error (0-6 and 8-22 run by default, 7 on request):
+on any error (0-6 and 8-23 run by default, 7 on request):
 
 0. setup: the card's name and power limit, the nvcc build of the port's
    kernels (timed as set-up), and the full-FP32 matmul check;
@@ -284,7 +284,19 @@ on any error (0-6 and 8-22 run by default, 7 on request):
    ``python -m dhqr_tpu_torch.analysis check`` with every pass in a child
    process (uncounted): exit 0, ``0 finding(s)``, its wall time; and, as
    a guard on the disarmed seam, steady-state ``qr`` 16384^2 f32 within
-   PERF.md's spread (0.245-0.250 s) plus 2%.
+   PERF.md's spread (0.245-0.250 s) plus 2%;
+23. in place: the kernel on a view of the matrix H itself, its rows read
+   and written through H's row stride (the blocked engine's leaf,
+   ``hopper_panel._panel_qr_kernel_in_place``), against the wrapper's
+   transposed copy at ``IN_PLACE_CASES`` (the tall ``lstsq``'s 32-wide
+   leaf at columns 0 and 96 of 131072 x 512, 16384 x 128 in 16384^2,
+   uncapped and capped at ``LOOKAHEAD_CTAS``, the float64 4400 x 128 at
+   offsets 0, 1984 and 3968 of 4400 x 4000 and its last panel, 32 wide,
+   8192 x 128 c64, 100000 x 64 in shared memory, and a streamed 524288 x
+   16 leaf, which must take the transposed copy): the factors and alpha
+   bit for bit, H outside the view's active rows untouched, the layout
+   taken, and the device time of the in-place entry beside the wrapper's
+   and of the kernel alone in each layout.
 
 Launch counts are zeroed right before each counted path and read right
 after it: the main path (phases 2-5), the precision path (8), the TSQR
@@ -309,9 +321,11 @@ runs in a child process of its own, uncounted), on which both kernels
 must launch, and the analysis path (21), whose witness burst goes through
 the serve tier's column loop and may launch none, and the graph path
 (22; its comms ranks and its CLI child uncounted), on which both kernels
-must launch. The ``kernels`` line sums the paths.
-Phases 6 and 7 are measurements and are not counted. Each phase prints
-JSON lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
+must launch. The ``kernels`` line sums the paths. Phases 2 and 3 also
+print each call's launches by layout (``LAYOUT_LAUNCHES``) beside those
+by variant, held to ``blocked.plan_layouts``. Phases 6, 7 and 23 are
+measurements and checks and are not counted. Each phase prints JSON
+lines; then the ``kernels`` line, the card's ``nvidia-smi`` name and
 power limit, and last the result line. Imports nothing of JAX or of the
 JAX package.
 """
@@ -380,6 +394,24 @@ TALL_CASES = (("panel_qr_f32", 2**27 + 8191, 16, 3),
               ("panel_qr_f64", 2**27 + 8191, 16, 3),
               ("panel_qr_f32", 2**31 + 4097, 1, 5))
 PIECE = 2**26   # elements per piece of a comparison over such a panel
+# Phase 23's panels, (kernel, H's shape, first column c, width, row offset,
+# CTA cap, layout): the view H[:, c:c + width] factored from the offset
+# down, as the blocked engine's leaves lie in H (offset c: a leaf of the
+# first panel; 4400 x 4000's last panel is 32 wide, so its 128-wide case at
+# offset 3968 takes the columns before it).
+IN_PLACE_CASES = (
+    ("panel_qr_f32", (131072, 512), 0, 32, 0, None, "in_place"),
+    ("panel_qr_f32", (131072, 512), 96, 32, 96, None, "in_place"),
+    ("panel_qr_f32", (16384, 16384), 0, 128, 0, None, "in_place"),
+    ("panel_qr_f32", (16384, 16384), 0, 128, 0, 66, "in_place"),
+    ("panel_qr_f64", (4400, 4000), 0, 128, 0, None, "in_place"),
+    ("panel_qr_f64", (4400, 4000), 1984, 128, 1984, None, "in_place"),
+    ("panel_qr_f64", (4400, 4000), 3840, 128, 3968, None, "in_place"),
+    ("panel_qr_f64", (4400, 4000), 3968, 32, 3968, None, "in_place"),
+    ("panel_qr_c64", (8192, 4096), 0, 128, 0, None, "in_place"),
+    ("panel_qr_f32", (100000, 256), 0, 64, 0, None, "in_place"),  # shared
+    ("panel_qr_f32", (524288, 128), 0, 16, 0, None, "transposed"),  # streamed
+)
 
 
 def emit(obj) -> None:
@@ -773,16 +805,33 @@ def expected_launches(m, n, dtype):
     return sum(blocked.kernel_leaves(w, leaf) for k, w, leaf in plan if leaf)
 
 
+def expected_layouts(m, n, dtype):
+    """``LAYOUT_LAUNCHES`` of one factorization by the engine's own plan."""
+    from dhqr_tpu_torch.ops import blocked
+
+    cuda = torch.device("cuda")
+    kernel = blocked._resolve_kernel("auto", m, dtype, cuda)
+    plan = blocked.panel_plan(m, n, blocked.DEFAULT_BLOCK_SIZE, kernel, dtype,
+                              cuda)
+    return blocked.plan_layouts(m, plan, dtype, cuda)
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in before}
+
+
 def phase_square(dt, hp, seed, n=16384):
     g = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.rand((n, n), generator=g, device="cuda", dtype=torch.float32)
     b = torch.rand((n,), generator=g, device="cuda", dtype=torch.float32)
     expect = expected_launches(n, n, torch.float32)
     l0 = hp.LAUNCHES["panel_qr_f32"]
-    v0 = dict(hp.VARIANT_LAUNCHES)
+    v0, y0 = dict(hp.VARIANT_LAUNCHES), dict(hp.LAYOUT_LAUNCHES)
     fact, t_factor_first = wall(lambda: dt.qr(A))  # first-use set-up inside
     l_qr = hp.LAUNCHES["panel_qr_f32"] - l0
-    variants_qr = {k: hp.VARIANT_LAUNCHES[k] - v0[k] for k in v0}
+    variants_qr = _diff(hp.VARIANT_LAUNCHES, v0)
+    layouts_qr = _diff(hp.LAYOUT_LAUNCHES, y0)
+    layouts_want = expected_layouts(n, n, torch.float32)
     del fact
     fact, t_factor = wall(lambda: dt.qr(A))
     x, t_solve_first = wall(lambda: fact.solve(b))  # first-use set-up inside
@@ -812,11 +861,14 @@ def phase_square(dt, hp, seed, n=16384):
            "x_vs_lstsq": agree, "bit_equal": bool(torch.equal(x, x2)),
            "launches_qr": l_qr, "launches_qr_lstsq": l_all,
            "variant_launches_qr": variants_qr,
+           "layout_launches_qr": layouts_qr,
+           "expected_layouts": layouts_want,
            "expected_per_factorization": expect, "finite": finite}
     row["ok"] = (backward < TOL_BACKWARD_F32 and agree <= TOL_SOLVE_AGREE
                  and finite and expect >= 1 and l_qr == expect
                  and l_all == 3 * expect
-                 and sum(variants_qr.values()) == l_qr)
+                 and sum(variants_qr.values()) == l_qr
+                 and layouts_qr == layouts_want)
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"main path f32 square failed: {row}")
@@ -862,14 +914,17 @@ def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128),
         b = torch.rand((m,), generator=g, device="cuda", dtype=torch.float32)
         expect = expected_launches(m, n, torch.float32)
         l0 = hp.LAUNCHES["panel_qr_f32"]
-        v0 = dict(hp.VARIANT_LAUNCHES)
+        v0, y0 = dict(hp.VARIANT_LAUNCHES), dict(hp.LAYOUT_LAUNCHES)
         x, t_lstsq = wall(lambda: dt.lstsq(A, b))
         l_run = hp.LAUNCHES["panel_qr_f32"] - l0
-        row_variants = {k: hp.VARIANT_LAUNCHES[k] - v0[k] for k in v0}
+        row_layouts = _diff(hp.LAYOUT_LAUNCHES, y0)
+        layouts_want = expected_layouts(m, n, torch.float32)
         peak_lstsq = torch.cuda.max_memory_allocated()
         res = ne_residual_f64(A, x, b)
         row = {"phase": 3, "name": "main_f32_tall", "shape": [m, n],
-               "variant_launches": row_variants}
+               "variant_launches": _diff(hp.VARIANT_LAUNCHES, v0),
+               "layout_launches": row_layouts,
+               "expected_layouts": layouts_want}
         if m * n <= LSTSQ_MAX_ELEMENTS:
             x_ref, t_ref = wall(
                 lambda: torch.linalg.lstsq(A, b[:, None]).solution[:, 0])
@@ -893,7 +948,7 @@ def phase_tall(dt, hp, seed, shapes=((65536, 256), (524288, 128),
                     "peak_bytes_lstsq": peak_lstsq,
                     "peak_bytes": torch.cuda.max_memory_allocated()})
         row["ok"] = bool(np.isfinite(res)) and res <= CRITERION * res_ref \
-            and l_run == expect
+            and l_run == expect and row_layouts == layouts_want
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"main path f32 tall failed: {row}")
@@ -5542,12 +5597,67 @@ def phase_graph(dt, hp, seed, card):
           "ok": True})
 
 
+def phase_in_place(hp, seed):
+    """Phase 23: each ``IN_PLACE_CASES`` panel factored in place in a
+    copy of H by the engine's leaf and by the wrapper on its transposed
+    copy, compared bit for bit, with the device times of both entries and
+    of the kernel alone in each layout (CUDA events; a repeated launch
+    factors the factors again, which takes the same time)."""
+    dtypes = {name: dtype for dtype, name in hp.KERNELS.items()}
+    l0, v0, y0 = (dict(c) for c in (hp.LAUNCHES, hp.VARIANT_LAUNCHES,
+                                     hp.LAYOUT_LAUNCHES))
+    for i, (name, shape, c, w, off, sms, layout) in enumerate(IN_PLACE_CASES):
+        dtype = dtypes[name]
+        g = torch.Generator(device="cuda").manual_seed(seed + 23 + i)
+        H = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+        view = H[:, c:c + w]
+        pf, alpha = hp._panel_qr_kernel(view, off, sms)
+        H2 = H.clone()
+        alpha2 = torch.zeros(shape[1], dtype=dtype, device="cuda")
+        v2, a2 = H2[:, c:c + w], alpha2[c:c + w]
+        took = hp._panel_qr_kernel_in_place(v2, off, a2, sms)
+        torch.cuda.synchronize()
+        kept = bool(torch.equal(H2[:, :c], H[:, :c])
+                    and torch.equal(H2[:, c + w:], H[:, c + w:])
+                    and torch.equal(v2[:off], view[:off])
+                    and not alpha2[:c].any() and not alpha2[c + w:].any())
+        equal = bool(torch.equal(v2[off:], pf[off:])
+                     and torch.equal(a2, alpha))
+        plan = hp._plan(shape[0], w, off, dtype, H.device, sms)
+        at = view.T.contiguous()
+        a = torch.empty(w, dtype=dtype, device="cuda")
+        row = {"phase": 23, "kernel": name, "H": list(shape), "column": c,
+               "m": shape[0], "nb": w, "offset": off, "cta_cap": sms,
+               "variant": plan[2], "layout": took, "want_layout": layout,
+               "bit_equal": equal, "outside_kept": kept,
+               "ms_in_place_entry": cuda_ms(
+                   lambda: hp._panel_qr_kernel_in_place(v2, off, a2, sms), 5),
+               "ms_wrapper": cuda_ms(
+                   lambda: hp._panel_qr_kernel(view, off, sms), 5)}
+        if took == "in_place":
+            row["ms_kernel_in_place"] = cuda_ms(
+                lambda: hp._launch(v2, a2, off, plan, "in_place"), 5)
+        row["ms_kernel_transposed"] = cuda_ms(
+            lambda: hp._launch(at.T, a, off, plan, "transposed"), 5)
+        row["bound_ms"], row["bound_by"] = panel_bound(shape[0] - off, w,
+                                                       dtype)
+        row["ok"] = equal and kept and took == layout
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"in-place check failed: {row}")
+        del H, H2, pf, at, view, v2
+        torch.cuda.empty_cache()
+    emit({"phase": 23, "launches": _diff(hp.LAUNCHES, l0),
+          "variant_launches": _diff(hp.VARIANT_LAUNCHES, v0),
+          "layout_launches": _diff(hp.LAYOUT_LAUNCHES, y0)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19,"
-                            "20,21,22",
+                            "20,21,22,23",
                     help="comma-separated phases to run (0 always runs; 7, "
                          "the section timers, only on request)")
     ap.add_argument("--accuracy-seeds", type=int, default=1,
@@ -5641,6 +5751,8 @@ def main(argv=None) -> int:
         counted("analysis", lambda: phase_analysis(args.seed, smi))
     if 22 in phases:
         counted("graph", lambda: phase_graph(dt, hp, args.seed, smi))
+    if 23 in phases:
+        phase_in_place(hp, args.seed)
     emit({"launches_by_path": paths})
     # paths with no panel kernel on them
     for key in ("reconstruct", "sketch", "serve"):

@@ -9,10 +9,15 @@
 // One templated body serves all three (T = float, float2 for PyTorch's
 // interleaved complex64, or double); the norm's compensated pair, f and the
 // scratch's words are T's real type (Real<T>: float, or double). Each launch
-// factors one panel in place: the panel is held transposed, At (nb, m), one
-// panel column per row of m contiguous elements, and the reflector of local
-// column jl starts at row j = off + jl (rows above off hold R entries of
-// earlier panels; they are never loaded and stay bit for bit). Per column:
+// factors one (m, nb) panel in place where it lies: element (row r, column
+// k) at a[r * rs + k * cs] (Layout, both strides 64-bit). The wrapper's
+// transposed buffer At (nb, m), one panel column per row of m contiguous
+// elements, is rs = 1, cs = m; a view of the row-major matrix H (n columns)
+// is rs = n, cs = 1, which the blocked engine factors in place. The
+// reflector of local column jl starts at row j = off + jl (rows above off
+// hold R entries of earlier panels; they are never loaded and stay bit for
+// bit; columns outside the panel are never touched). Written below for
+// At, the arithmetic being the same in either layout. Per column:
 //   s       = compensated ||At[jl, j:]||
 //   alpha   = -sign(a_jj) s (complex: s * (-a_jj/|a_jj|); -s on a zero pivot)
 //   f       = 1/sqrt(s (s + |a_jj|))  (0 when that is 0: a zero column gives v = 0)
@@ -39,7 +44,9 @@
 // (at least 32 rows per CTA, so a short panel takes a few CTAs), splits the
 // active rows [off, m) into contiguous slices. Each CTA loads its slice of
 // all nb columns once, keeps it on chip for the whole panel and writes it
-// back once at the end, so HBM sees the panel's bytes once each way. Where
+// back once at the end, so HBM sees the panel's bytes once each way (with
+// the column fastest across the threads where the rows are contiguous, cs
+// == 1, so that a warp moves whole rows: 128 B at nb = 32 f32). Where
 // it keeps the slice is the variant, chosen by the slice's size (Python
 // plans it: ops/hopper_panel.kernel_variant; the launcher's int):
 //   * registers (2), where the slice fits 64 floats per thread (48 in the
@@ -56,6 +63,8 @@
 //   * streamed (0), a slice too tall for shared memory: the same body with
 //     the slice left in place in At, each column step reading and writing
 //     the CTA's trailing rows through L2/HBM (65536 x 128 f32, 524288 x 16).
+//     It walks whole columns on every step, so it takes contiguous columns
+//     only (rs = 1); the launcher refuses any other layout for it.
 // Per column there is ONE grid barrier: before it, each CTA publishes to a
 // global scratch slot its compensated (s, err) over its rows >= j and its
 // partial dots <x, At[k]> for every trailing column k, and the CTA owning
@@ -100,7 +109,11 @@
 // so the merge is now the largest section, and in the register variant
 // it reads ~800 cycles (c64 ~1300) more than the same code in the shared
 // one, the slice holding 64 of each thread's 128 registers. Pre-reducing
-// the partials inside thread-block clusters is the next step. The streamed
+// the partials inside thread-block clusters was tried and did not resolve:
+// on the 4400 x 4000 float64 solve, 3,405.0 -> 3,485.7 GFLOP/s (+2.4%,
+// 5 of 6 pairs won) and the f64 panel's roofline share 0.248 -> 0.270%;
+// what is left per column is a fixed chain of latency (barrier, L2 round
+// trips, divide and square root) that needs a larger redesign. The streamed
 // variant pays a pass over its trailing rows through L2/HBM per column
 // (524288 x 16: 88k of 110k cycles); the blocked engine gives it only the
 // narrowest leaf (16 columns), past the heights where any leaf's slices
@@ -124,8 +137,9 @@
 //   * Determinism: merges run in a fixed order whose float additions are
 //     the same on every CTA (and commutative where lanes swap operands), so
 //     two launches on the same input give bit-identical results.
-//   * Indices: the panel's height and offset, each CTA's first row and a
-//     streamed slice's column stride (the height) are 64-bit, so a panel
+//   * Indices: the panel's height and offset, each CTA's first row and
+//     both strides (a streamed slice's column stride is the height) are
+//     64-bit, so a panel
 //     past 2^31 elements or 2^31 rows (8.6 GB of f32: it fits the card)
 //     runs like any other. A CTA's own rows, the column index and the
 //     resident slice's offsets stay 32-bit (a CTA holds at most
@@ -169,6 +183,12 @@ enum Variant : int { kStreamed = 0, kShared = 1, kRegisters = 2 };
 struct Grid {
   int ctas;  // CTAs in the launch
   int rows;  // rows per CTA (the last CTA may hold fewer)
+};
+
+// Where the panel's elements lie: (row r, column k) at a[r * rs + k * cs].
+struct Layout {
+  long long rs;  // row stride: 1 in the transposed buffer, n in a view of H
+  long long cs;  // column stride: m in the transposed buffer, 1 in a view of H
 };
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -599,6 +619,45 @@ __device__ __forceinline__ void publish_norm(R* __restrict__ slot_p,
   }
 }
 
+// -- the slice's one load and one write-back ----------------------------------
+
+// Move the CTA's slice, rows [row0, row0 + nrows) of every column, between
+// the panel and its on-chip copy S (row r of column k at S[k * ld + r]):
+// from the panel with kLoad, else back to it; each element once. One loop
+// nest serves both layouts: the inner index runs along the panel's unit
+// stride (the rows of a column where rs == 1, the columns of a row where
+// cs == 1) over 2^shift consecutive threads, the outer one over the groups
+// of 2^shift threads. Where the columns are contiguous that is every
+// thread along a column; where the rows are, a warp (nb <= 32) or two or
+// four moves each row, so a warp moves whole rows (128 B at nb = 32 f32).
+// The empty asm statements here, and the register variant's before its
+// write-back, make the write-back form its indices anew from the launch's
+// parameters: otherwise the compiler carries values it shares with the
+// load across the column steps, whose 128 registers are full, and a
+// register kernel spills (4-88 bytes, ptxas sm_90a) or runs its steps
+// slower (c64 8192 x 128 on an H100: 1.29 ms a launch against 0.75).
+template <bool kLoad, typename T>
+__device__ __forceinline__ void move_slice(T* S, int ld, T* __restrict__ a,
+                                           Layout lay, long long row0,
+                                           int nrows, int nb) {
+  int tid = threadIdx.x;
+  asm volatile("" : "+r"(tid));
+  asm volatile("" : "+r"(nb), "+r"(nrows), "+r"(ld));
+  const bool rows = lay.cs == 1;
+  const int inner = rows ? nb : nrows, outer = rows ? nrows : nb;
+  const long long step = rows ? lay.rs : lay.cs;  // outer stride in a
+  const int s_in = rows ? ld : 1, s_out = rows ? 1 : ld;  // strides in S
+  const int shift = rows ? (nb <= 32 ? 5 : nb <= 64 ? 6 : 7) : 9;
+  T* base = a + row0 * lay.rs;
+  for (int o = tid >> shift; o < outer; o += kThreads >> shift) {
+    T* line = base + o * step;
+    for (int i = tid & ((1 << shift) - 1); i < inner; i += 1 << shift) {
+      if constexpr (kLoad) S[o * s_out + i * s_in] = line[i];
+      else line[i] = S[o * s_out + i * s_in];
+    }
+  }
+}
+
 // -- the register variant -----------------------------------------------------
 
 // Column q of row rr of a thread's registers, q picked at run time by an
@@ -680,9 +739,9 @@ __device__ __forceinline__ void stage_column(const T (&y)[kRows * NC], T* bx,
 // is never read again, so the pass may update it with W = 0.
 template <typename T, int NC, typename Word = Real<T>>
 __device__ __forceinline__ void register_slice(
-    T* __restrict__ at, T* __restrict__ alpha_out, Word* __restrict__ scratch,
+    T* __restrict__ a, T* __restrict__ alpha_out, Word* __restrict__ scratch,
     unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
-    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
+    Layout lay, T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
     Word* sh_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kEl = sizeof(T) / sizeof(float);
@@ -707,9 +766,7 @@ __device__ __forceinline__ void register_slice(
   T* bx = bv + kRegFloats / kEl;
   T* sh_dot = reinterpret_cast<T*>(bcast + kWarps * 2 * kRegFloats);
 
-  for (int k = 0; k < nb; ++k)  // load the slice of every column once
-    for (int r = tid; r < nrows; r += kThreads)
-      S[k * ld + r] = at[static_cast<long long>(k) * m + row0 + r];
+  move_slice<true>(S, ld, a, lay, row0, nrows, nb);  // load it once
   __syncthreads();
   T y[kRows * NC];
 #pragma unroll
@@ -818,20 +875,26 @@ __device__ __forceinline__ void register_slice(
   __syncthreads();
   PROF_STORE();
 
-  for (int k = 0; k < nb; ++k)  // write the slice back once
-    for (int r = tid; r < nrows; r += kThreads)
-      at[static_cast<long long>(k) * m + row0 + r] = S[k * ld + r];
+  // write the slice back once, its rows formed anew from the launch's
+  // parameters (see move_slice)
+  int cta_w = blockIdx.x;
+  asm volatile("" : "+r"(cta_w));
+  const long long row0_w = off + static_cast<long long>(cta_w) * g.rows;
+  move_slice<false>(S, register_ld(g.rows), a, lay, row0_w,
+                    static_cast<int>(min(static_cast<long long>(g.rows),
+                                         m - row0_w)), nb);
 }
 
 // -- the shared and streamed variants -----------------------------------------
 
 // kResident: the slice lives in dynamic shared memory; otherwise it is
-// streamed in place from At (a panel too tall for shared memory).
+// streamed in place from the panel (a panel too tall for shared memory,
+// its columns contiguous: rs = 1).
 template <typename T, bool kResident, typename Word = Real<T>>
 __device__ __forceinline__ void slice_body(
-    T* __restrict__ at, T* __restrict__ alpha_out, Word* __restrict__ scratch,
+    T* __restrict__ a, T* __restrict__ alpha_out, Word* __restrict__ scratch,
     unsigned* __restrict__ bar, long long m, int nb, long long off, Grid g,
-    T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
+    Layout lay, T* sh_w, T (*sh_red)[kMaxWidth], T& sh_alpha, Word& sh_f, Word* sh_s,
     Word* sh_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -847,16 +910,15 @@ __device__ __forceinline__ void slice_body(
   const long long slot = slot_words<T>(nb);
   const long long half = parity_words<T>(ctas, nb);
   // The slice: row r of column k at S[k * ld + r]; a streamed slice's
-  // column stride is the panel's height, so its offsets are 64-bit.
+  // column stride is the panel's (at least its height), so its offsets are
+  // 64-bit.
   using Index = std::conditional_t<kResident, int, long long>;
-  T* S = kResident ? reinterpret_cast<T*>(smem_raw) : at + row0;
+  T* S = kResident ? reinterpret_cast<T*>(smem_raw) : a + row0;
   const Index ld = kResident ? static_cast<Index>(g.rows)
-                             : static_cast<Index>(m);
+                             : static_cast<Index>(lay.cs);
 
   if constexpr (kResident) {  // load the slice of every column once
-    for (int k = 0; k < nb; ++k)
-      for (int r = tid; r < nrows; r += kThreads)
-        S[k * ld + r] = at[static_cast<long long>(k) * m + row0 + r];
+    move_slice<true>(S, static_cast<int>(ld), a, lay, row0, nrows, nb);
     __syncthreads();
   }
 
@@ -959,11 +1021,8 @@ __device__ __forceinline__ void slice_body(
   __syncthreads();
   PROF_STORE();
 
-  if constexpr (kResident) {  // write the slice back once
-    for (int k = 0; k < nb; ++k)
-      for (int r = tid; r < nrows; r += kThreads)
-        at[static_cast<long long>(k) * m + row0 + r] = S[k * ld + r];
-  }
+  if constexpr (kResident)  // write the slice back once
+    move_slice<false>(S, static_cast<int>(ld), a, lay, row0, nrows, nb);
 }
 
 // -- the kernel -------------------------------------------------------------
@@ -973,21 +1032,21 @@ __device__ __forceinline__ void slice_body(
 // each allocating the registers of its own body alone.
 template <typename T, int kVariant, int kCols>
 __global__ void __launch_bounds__(kThreads, 1)
-panel_qr_kernel(T* __restrict__ at, T* __restrict__ alpha_out,
+panel_qr_kernel(T* __restrict__ a, T* __restrict__ alpha_out,
                 Real<T>* __restrict__ scratch, unsigned* __restrict__ bar,
-                long long m, int nb, long long off, Grid g) {
+                long long m, int nb, long long off, Grid g, Layout lay) {
   __shared__ T sh_w[kMaxWidth];
   __shared__ T sh_red[kMergeGroups][kMaxWidth];
   __shared__ T sh_alpha;
   __shared__ Real<T> sh_f;
   __shared__ Real<T> sh_s[kWarps], sh_e[kWarps];
   if constexpr (kVariant == kRegisters) {
-    register_slice<T, kCols>(at, alpha_out, scratch, bar, m, nb, off, g,
+    register_slice<T, kCols>(a, alpha_out, scratch, bar, m, nb, off, g, lay,
                              sh_w, sh_red, sh_alpha, sh_f, sh_s, sh_e);
   } else {
-    slice_body<T, kVariant == kShared>(at, alpha_out, scratch, bar, m, nb,
-                                       off, g, sh_w, sh_red, sh_alpha, sh_f,
-                                       sh_s, sh_e);
+    slice_body<T, kVariant == kShared>(a, alpha_out, scratch, bar, m, nb,
+                                       off, g, lay, sh_w, sh_red, sh_alpha,
+                                       sh_f, sh_s, sh_e);
   }
 }
 
@@ -1012,6 +1071,15 @@ const void* kernel_for(int variant, int nb) {
 // no limit of its own: every index that can pass 2^31 is 64-bit.
 bool bad_shape(long long m, int nb, long long off) {
   return nb < 1 || nb > kMaxWidth || m < nb || off < 0 || off > m - nb;
+}
+
+// A layout the kernel cannot take: neither the columns (rs == 1, cs >= m)
+// nor the rows (cs == 1, rs >= nb) contiguous, or a streamed slice whose
+// columns are not (it walks them through L2 and HBM on every column step).
+bool bad_layout(long long m, int nb, Layout lay, int variant) {
+  const bool columns = lay.rs == 1 && lay.cs >= m;
+  const bool rows = lay.cs == 1 && lay.rs >= nb;
+  return !(columns || rows) || (variant == kStreamed && lay.rs != 1);
 }
 
 // A grid that does not cut the active rows into g.ctas non-empty slices of
@@ -1060,22 +1128,25 @@ cudaError_t check(long long m, int nb, long long off, Grid g, int variant,
 }
 
 template <typename T>
-int launch(void* at, void* alpha, void* scratch, long long scratch_floats,
-           void* bar, long long m, int nb, long long off, int ctas,
-           int rows, int variant, void* stream) {
+int launch(void* a, void* alpha, void* scratch, long long scratch_floats,
+           void* bar, long long m, int nb, long long off, long long rs,
+           long long cs, int ctas, int rows, int variant, void* stream) {
   Grid g{ctas, rows};
+  Layout lay{rs, cs};
   size_t bytes = 0;
   cudaFuncAttributes fa;
   int per_sm = 0;
   cudaError_t err = check<T>(m, nb, off, g, variant, &bytes, &fa, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (scratch_floats < scratch_floats_for<T>(g.ctas, nb))
+  if (bad_layout(m, nb, lay, variant) ||
+      scratch_floats < scratch_floats_for<T>(g.ctas, nb))
     return static_cast<int>(cudaErrorInvalidValue);
-  T* at_t = static_cast<T*>(at);
+  T* a_t = static_cast<T*>(a);
   T* alpha_t = static_cast<T*>(alpha);
   Real<T>* scratch_f = static_cast<Real<T>*>(scratch);
   unsigned* bar_u = static_cast<unsigned*>(bar);
-  void* args[] = {&at_t, &alpha_t, &scratch_f, &bar_u, &m, &nb, &off, &g};
+  void* args[] = {&a_t, &alpha_t, &scratch_f, &bar_u, &m, &nb, &off, &g,
+                  &lay};
   err = cudaLaunchCooperativeKernel(kernel_for<T>(variant, nb), dim3(g.ctas),
                                     dim3(kThreads), args, bytes,
                                     static_cast<cudaStream_t>(stream));
@@ -1104,33 +1175,34 @@ int info(long long m, int nb, long long off, int ctas, int rows,
 extern "C" {
 
 // Launchers: raw device pointers, the scratch (its length in floats) and
-// the zeroed barrier counter, the panel (its height and offset 64-bit),
-// the caller's grid (CTAs, rows per CTA, and the variant: 2 for the slice
-// in registers, 1 in shared memory, 0 streamed), and the stream; each
-// returns the
-// cudaError_t of the launch (0 = cudaSuccess).
-int dhqr_panel_qr_f32(void* at, void* alpha, void* scratch,
+// the zeroed barrier counter, the panel (its height and offset 64-bit, and
+// its row and column strides in elements: 1 and m for the transposed
+// buffer, n and 1 for a view of the row-major matrix), the caller's grid
+// (CTAs, rows per CTA, and the variant: 2 for the slice in registers, 1 in
+// shared memory, 0 streamed, which takes rs = 1 only), and the stream;
+// each returns the cudaError_t of the launch (0 = cudaSuccess).
+int dhqr_panel_qr_f32(void* a, void* alpha, void* scratch,
                       long long scratch_floats, void* bar, long long m,
-                      int nb, long long off, int ctas, int rows,
-                      int variant, void* stream) {
-  return launch<float>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
-                       ctas, rows, variant, stream);
+                      int nb, long long off, long long rs, long long cs,
+                      int ctas, int rows, int variant, void* stream) {
+  return launch<float>(a, alpha, scratch, scratch_floats, bar, m, nb, off,
+                       rs, cs, ctas, rows, variant, stream);
 }
 
-int dhqr_panel_qr_c64(void* at, void* alpha, void* scratch,
+int dhqr_panel_qr_c64(void* a, void* alpha, void* scratch,
                       long long scratch_floats, void* bar, long long m,
-                      int nb, long long off, int ctas, int rows,
-                      int variant, void* stream) {
-  return launch<float2>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
-                        ctas, rows, variant, stream);
+                      int nb, long long off, long long rs, long long cs,
+                      int ctas, int rows, int variant, void* stream) {
+  return launch<float2>(a, alpha, scratch, scratch_floats, bar, m, nb, off,
+                        rs, cs, ctas, rows, variant, stream);
 }
 
-int dhqr_panel_qr_f64(void* at, void* alpha, void* scratch,
+int dhqr_panel_qr_f64(void* a, void* alpha, void* scratch,
                       long long scratch_floats, void* bar, long long m,
-                      int nb, long long off, int ctas, int rows,
-                      int variant, void* stream) {
-  return launch<double>(at, alpha, scratch, scratch_floats, bar, m, nb, off,
-                        ctas, rows, variant, stream);
+                      int nb, long long off, long long rs, long long cs,
+                      int ctas, int rows, int variant, void* stream) {
+  return launch<double>(a, alpha, scratch, scratch_floats, bar, m, nb, off,
+                        rs, cs, ctas, rows, variant, stream);
 }
 
 // ``dtype`` in the two calls below names the element type: 0 float32, 1

@@ -31,11 +31,15 @@ from dhqr_tpu_torch.ops import gemm
 from dhqr_tpu_torch.ops.hopper_panel import (
     KERNEL_MAX_WIDTH,
     KERNELS,
+    LAYOUTS,
     LOOKAHEAD_CTAS,
     KernelRefusal,
     _panel_qr_kernel,
+    _panel_qr_kernel_in_place,
     device_limits,
     kernel_flat_width,
+    kernel_layout,
+    kernel_variant,
 )
 from dhqr_tpu_torch.ops.householder import (
     DEFAULT_PRECISION,
@@ -160,6 +164,30 @@ def _panel_factor_kernel(panel, offset, base, precision=DEFAULT_PRECISION,
                                leaf=_panel_qr_kernel if leaf is None else leaf)
 
 
+def _panel_factor_in_place(panel, offset, base, alpha,
+                           precision=DEFAULT_PRECISION, sms=None) -> None:
+    """The kernel panel factorization in place in H: ``panel`` (a view of
+    H) is factored where it lies and its alpha written into ``alpha`` (a
+    view of the engine's). The geqrt3 recursion of
+    :func:`_panel_factor_kernel` with nothing copied or joined: the left
+    half in place, its reflectors applied to the right half in H, the
+    right half in place at row ``offset + h``. A leaf of width <= ``base``
+    is one :func:`~dhqr_tpu_torch.ops.hopper_panel._panel_qr_kernel_in_place`
+    on at most ``sms`` SMs (which takes the transposed copy where
+    :func:`~dhqr_tpu_torch.ops.hopper_panel.kernel_layout` says so)."""
+    b = panel.shape[-1]
+    if b <= base:
+        _panel_qr_kernel_in_place(panel, offset, alpha, sms)
+        return
+    h = b // 2
+    _panel_factor_in_place(panel[:, :h], offset, base, alpha[:h], precision,
+                           sms)
+    apply_block_reflector_h(shifted_tril(panel[:, :h], offset), panel[:, h:],
+                            precision, inplace=True)
+    _panel_factor_in_place(panel[:, h:], offset + h, base, alpha[h:],
+                           precision, sms)
+
+
 def kernel_leaves(width: int, base: int = KERNEL_FLAT_WIDTH) -> int:
     """Kernel launches :func:`_panel_factor_kernel` makes for a panel of
     ``width`` columns (the recursion halves until the width fits)."""
@@ -167,6 +195,25 @@ def kernel_leaves(width: int, base: int = KERNEL_FLAT_WIDTH) -> int:
         return 1
     h = width // 2
     return kernel_leaves(h, base) + kernel_leaves(width - h, base)
+
+
+def leaf_layouts(rows: int, width: int, base: int, dtype, device=None,
+                 sms: "int | None" = None, offset: int = 0,
+                 counts: "dict | None" = None) -> dict:
+    """The launches :func:`_panel_factor_in_place` makes on a ``rows`` x
+    ``width`` view of the engine's H (at ``offset``, on at most ``sms`` SMs
+    of ``device``'s card), by layout: the count it adds to
+    ``hopper_panel.LAYOUT_LAUNCHES``, added to ``counts``."""
+    counts = {name: 0 for name in LAYOUTS} if counts is None else counts
+    if width <= base:
+        variant = kernel_variant(rows - offset, width, dtype,
+                                 *device_limits(device, sms))
+        counts[kernel_layout(variant, (width, 1))] += 1
+        return counts
+    h = width // 2
+    leaf_layouts(rows, h, base, dtype, device, sms, offset, counts)
+    return leaf_layouts(rows, width - h, base, dtype, device, sms,
+                        offset + h, counts)
 
 
 def _resolve_kernel(mode: str, m: int, dtype, device) -> bool:
@@ -219,7 +266,8 @@ def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None,
     memory. ``flat`` caps the leaf width (``lstsq_diff``'s ``pallas_flat``).
     The engine follows this list, so the kernel launches of a
     factorization are
-    ``sum(kernel_leaves(w, leaf) for k, w, leaf in panel_plan(...) if leaf)``.
+    ``sum(kernel_leaves(w, leaf) for k, w, leaf in panel_plan(...) if leaf)``,
+    by layout :func:`plan_layouts`.
     """
     nb = min(nb, n)
     plan = []
@@ -230,6 +278,20 @@ def panel_plan(m: int, n: int, nb: int, kernel: bool, dtype, device=None,
                                  *device_limits(device, cap)) if kernel else 0
         plan.append((k, width, min(leaf, flat) if flat and leaf else leaf))
     return plan
+
+
+def plan_layouts(m: int, plan, dtype, device=None,
+                 lookahead_ctas: "int | None" = None) -> dict:
+    """``hopper_panel.LAYOUT_LAUNCHES`` of one factorization of an m-row
+    matrix by ``plan`` (:func:`panel_plan`, with the same ``lookahead_ctas``
+    for the lookahead schedule) on the kernel's own leaf."""
+    counts = {name: 0 for name in LAYOUTS}
+    n = plan[-1][0] + plan[-1][1] if plan else 0
+    for i, (k, w, leaf) in enumerate(plan):
+        if leaf:
+            cap = lookahead_ctas if _beside_gemm(i, k, w, n) else None
+            leaf_layouts(m - k, w, leaf, dtype, device, cap, counts=counts)
+    return counts
 
 
 def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
@@ -245,9 +307,11 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     The panels and T factors run at ``precision``, the trailing-update
     GEMMs at ``trailing_precision`` (None: the same). ``lookahead`` and
     ``agg_panels`` pick the schedule (:func:`_lookahead_schedule`,
-    :func:`_grouped_schedule`); ``leaf`` stands in for the kernel's
-    wrapper and ``lookahead_ctas`` is the lookahead schedule's CTA cap
-    (both for measurements); ``flat`` caps the kernel's leaf width
+    :func:`_grouped_schedule`); the kernel's own leaf factors each panel in
+    place in H (:func:`_panel_factor_in_place`), while a ``leaf`` standing
+    in for the kernel's wrapper takes the out-of-place recursion and a
+    copy back; ``leaf`` and ``lookahead_ctas``, the lookahead schedule's
+    CTA cap, are for measurements; ``flat`` caps the kernel's leaf width
     (:func:`panel_plan`).
 
     A stack H (B, m, n) factors every matrix of the stack in one panel
@@ -257,7 +321,6 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
     with phase("dhqr.factor"):
         m, n = H.shape[-2:]
         alpha = H.new_zeros(H.shape[:-2] + (n,))
-        leaf = _panel_qr_kernel if leaf is None else leaf
         if H.ndim != 2 and (kernel or lookahead or agg_panels):
             raise ValueError("a stack of matrices takes the plain panel "
                              "engines and the default schedule only")
@@ -268,6 +331,10 @@ def _blocked_qr_impl(H: torch.Tensor, block_size: int, kernel: bool = False,
             the factored panel. One ``dhqr.panel`` span."""
             with phase("dhqr.panel"):
                 panel = H[..., k:, k:k + b]
+                if width_leaf and leaf is None:
+                    _panel_factor_in_place(panel, 0, width_leaf,
+                                           alpha[k:k + b], precision, sms)
+                    return panel
                 if width_leaf:
                     kleaf = leaf if sms is None \
                         else functools.partial(leaf, sms=sms)

@@ -14,6 +14,11 @@ column. This module holds, per kernel:
   buffer in place and returns ``(pf, alpha)``. A CUDA tensor launches the
   kernel or raises; only a CPU tensor takes the plain version (the
   counterpart of the Pallas interpreter). There is no fallback;
+* the **in-place entry** :func:`_panel_qr_kernel_in_place` — the blocked
+  engine's leaf: the kernel launched on the engine's view of H itself,
+  its rows read and written through H's row stride, alpha written into the
+  engine's own, where :func:`kernel_layout` allows; else through the
+  wrapper's transposed copy and a write-back;
 * the **plain versions** :func:`_panel_qr_plain` (float32 and float64)
   and :func:`_panel_qr_plain_c64` — the TPU kernels' algorithm step by step
   in eager PyTorch, including :func:`_sumsq_compensated` (eager PyTorch
@@ -30,9 +35,10 @@ column. This module holds, per kernel:
   the card's SMs or a cap on them (:data:`LOOKAHEAD_CTAS`), at any height
   (the kernel's row and element indices are 64-bit). The launcher only
   checks the plan it is given;
-* the **launch counts** :data:`LAUNCHES`, one integer per kernel, and
-  :data:`VARIANT_LAUNCHES`, one per variant, which the wrapper raises by
-  one per launch and nowhere else.
+* the **launch counts** :data:`LAUNCHES`, one integer per kernel,
+  :data:`VARIANT_LAUNCHES`, one per variant, and :data:`LAYOUT_LAUNCHES`,
+  one per layout (in place in the caller's matrix, or on the transposed
+  copy), each raised by one per launch in :func:`_launch` and nowhere else.
 """
 
 from __future__ import annotations
@@ -84,8 +90,13 @@ DTYPE_CODES = {torch.float32: 0, torch.complex64: 1, torch.float64: 2}
 # Where a CTA keeps its slice, as the launchers' ``variant`` int names it.
 VARIANTS = {"registers": 2, "shared": 1, "streamed": 0}
 
+# Where a launch finds its panel: the caller's matrix itself, or the
+# wrapper's contiguous transposed copy (:func:`kernel_layout`).
+LAYOUTS = ("in_place", "transposed")
+
 LAUNCHES = {name: 0 for name in KERNELS.values()}
 VARIANT_LAUNCHES = {name: 0 for name in VARIANTS}
+LAYOUT_LAUNCHES = {name: 0 for name in LAYOUTS}
 
 
 class KernelRefusal(ValueError):
@@ -96,7 +107,7 @@ class KernelRefusal(ValueError):
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+    for counts in (LAUNCHES, VARIANT_LAUNCHES, LAYOUT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -167,6 +178,19 @@ def kernel_variant(rows: int, nb: int, dtype, sms: int = H100_SMS,
     if kernel_resident(rows, nb, dtype, sms, smem_per_block):
         return "shared"
     return "streamed"
+
+
+def kernel_layout(variant: str, strides: "tuple[int, int]") -> str:
+    """Where :func:`_panel_qr_kernel_in_place` launches the kernel on a
+    panel of ``strides`` (row, column) whose slices take ``variant``:
+    ``"in_place"`` on the panel itself where its rows are contiguous
+    (column stride 1, a view of the row-major H) and the slices stay on
+    chip (registers or shared memory: one load and one write-back of the
+    rows); else ``"transposed"``, on the wrapper's contiguous (nb, m)
+    copy, which a streamed slice needs (it walks whole columns through L2
+    and HBM on every column step)."""
+    return "in_place" if variant != "streamed" and strides[1] == 1 \
+        else "transposed"
 
 
 def panel_kernel_supported(m: int, nb: int, dtype) -> bool:
@@ -485,11 +509,13 @@ _LIBS: "dict[bool, ctypes.CDLL]" = {}
 # :data:`DTYPE_CODES` value) in csrc/panel_qr.cu, by parameter. A panel's
 # height and offset are 64-bit there and here: a 32-bit ctypes int would cut
 # a height past 2^31 short without a word.
+# The panel's element (r, k) lies at ``a[r * row_stride + k * col_stride]``.
 LAUNCH_ARGS = (
-    ("at", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
+    ("a", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
     ("scratch", ctypes.c_void_p), ("scratch_floats", ctypes.c_longlong),
     ("barrier", ctypes.c_void_p), ("m", ctypes.c_longlong),
     ("nb", ctypes.c_int), ("offset", ctypes.c_longlong),
+    ("row_stride", ctypes.c_longlong), ("col_stride", ctypes.c_longlong),
     ("ctas", ctypes.c_int), ("rows", ctypes.c_int),
     ("variant", ctypes.c_int), ("stream", ctypes.c_void_p))
 INFO_ARGS = (
@@ -566,31 +592,35 @@ def kernel_launch_info(m: int, nb: int, offset: int, dtype,
             **dict(zip(keys, out)), "scratch_floats": scratch}
 
 
-def _launch(at: torch.Tensor, alpha: torch.Tensor, offset: int,
-            profile: bool = False, sms: "int | None" = None) -> str:
-    """Launch the kernel on ``at`` on the current stream, on at most
-    ``sms`` SMs; its scratch and barrier are allocated on that stream.
-    Returns the variant launched."""
-    name = KERNELS[at.dtype]
+def _launch(panel: torch.Tensor, alpha: torch.Tensor, offset: int,
+            plan: "tuple[int, int, str]", layout: str,
+            profile: bool = False) -> None:
+    """Launch the kernel on the (m, nb) ``panel`` where it lies (its
+    element (r, k) at its two strides: the wrapper's transposed buffer
+    ``at.T``, or a view of the engine's H), alpha into the contiguous
+    ``alpha``, by ``plan`` (:func:`_plan`), on the current stream; its
+    scratch and barrier are allocated on that stream. ``layout`` (one of
+    :data:`LAYOUTS`) is what the launch is counted as."""
+    name = KERNELS[panel.dtype]
     lib = _library(profile)
-    nb, m = at.shape
-    if not (at.is_contiguous() and alpha.is_contiguous()):
-        raise KernelRefusal("the panel kernel takes contiguous buffers")
-    ctas, rows, variant = _plan(m, nb, offset, at.dtype, at.device, sms)
-    floats = lib.dhqr_panel_qr_scratch_floats(DTYPE_CODES[at.dtype], ctas,
+    m, nb = panel.shape
+    if not alpha.is_contiguous():
+        raise KernelRefusal("the panel kernel writes a contiguous alpha")
+    ctas, rows, variant = plan
+    floats = lib.dhqr_panel_qr_scratch_floats(DTYPE_CODES[panel.dtype], ctas,
                                               nb)
-    scratch = torch.empty(floats, dtype=torch.float32, device=at.device)
-    barrier = torch.zeros(1, dtype=torch.int32, device=at.device)
-    with torch.cuda.device(at.device):
-        stream = torch.cuda.current_stream(at.device).cuda_stream
+    scratch = torch.empty(floats, dtype=torch.float32, device=panel.device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=panel.device)
+    with torch.cuda.device(panel.device):
+        stream = torch.cuda.current_stream(panel.device).cuda_stream
         err = getattr(lib, f"dhqr_{name}")(
-            at.data_ptr(), alpha.data_ptr(), scratch.data_ptr(), floats,
-            barrier.data_ptr(), m, nb, offset, ctas, rows, VARIANTS[variant],
-            stream)
+            panel.data_ptr(), alpha.data_ptr(), scratch.data_ptr(), floats,
+            barrier.data_ptr(), m, nb, offset, *panel.stride(), ctas, rows,
+            VARIANTS[variant], stream)
     _raise_on(err, f"{name} launch")
     LAUNCHES[name] += 1
     VARIANT_LAUNCHES[variant] += 1
-    return variant
+    LAYOUT_LAUNCHES[layout] += 1
 
 
 def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
@@ -601,9 +631,10 @@ def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
     m, nb = panel.shape
     at = panel.T.contiguous()
     alpha = torch.empty(nb, dtype=panel.dtype, device=panel.device)
-    _launch(at, alpha, offset, profile=True)
+    plan = _plan(m, nb, offset, panel.dtype, panel.device)
+    _launch(at.T, alpha, offset, plan, "transposed", profile=True)
     torch.cuda.synchronize(panel.device)
-    ctas = _plan(m, nb, offset, panel.dtype, panel.device)[0]
+    ctas = plan[0]
     buf = (ctypes.c_ulonglong * (len(PROFILE_SECTIONS) * ctas))()
     with torch.cuda.device(panel.device):
         _raise_on(_library(True).dhqr_panel_qr_profile(buf, ctas),
@@ -613,20 +644,11 @@ def kernel_section_cycles(panel: torch.Tensor, offset: int = 0) -> dict:
             "max": dict(zip(PROFILE_SECTIONS, cycles.max(0).values.tolist()))}
 
 
-def _panel_qr_kernel(panel: torch.Tensor, offset: int,
-                     sms: "int | None" = None):
-    """Factor an (m, nb) panel whose reflector for local column jj starts at
-    row ``offset + jj``; returns ``(pf, alpha)`` in the packed storage of
-    ``householder._panel_qr_masked``. ``panel`` itself is not modified.
-
-    A CUDA tensor launches the Hopper kernel on the current stream, on at
-    most ``sms`` SMs (default: all; its slices in registers or shared
-    memory where they fit, streamed where they do not); a CPU tensor runs the
-    plain version. Anything the kernel does not take raises, and so does a
-    panel that autograd follows: the kernel writes through a raw pointer
-    (the differentiable route is ``ops.differentiable.householder_factor``,
-    whose forward calls this wrapper with grad off).
-    """
+def _check_panel(panel: torch.Tensor, offset: int) -> None:
+    """Raise for a panel the kernel route does not take: one that autograd
+    follows (the kernel writes through a raw pointer), a dtype, width or
+    offset the kernel does not take, a device that is neither the card nor
+    the CPU (whose tensors take the plain version)."""
     refuse_grad(panel, "the Hopper panel kernel", reason=(
         "it writes its factors through a raw pointer, where autograd "
         "cannot follow; every public factorization differentiates through "
@@ -639,22 +661,76 @@ def _panel_qr_kernel(panel: torch.Tensor, offset: int,
             f"{tuple(panel.shape)} {panel.dtype}")
     if not 0 <= offset <= m - nb:
         raise KernelRefusal(f"panel offset {offset} out of range for "
-                         f"{tuple(panel.shape)}")
+                            f"{tuple(panel.shape)}")
+    if panel.device.type not in ("cuda", "cpu"):
+        raise KernelRefusal(f"no panel kernel for device {panel.device}")
+
+
+def _log_kernel(panel: torch.Tensor, offset: int, variant: str) -> None:
+    if _oplog.ARMED is not None:  # the op log's pallas_call eqn
+        _oplog.kernel(KERNELS[panel.dtype],
+                      "kernel" if panel.device.type == "cuda" else "plain",
+                      panel.shape, panel.dtype, offset, variant)
+
+
+def _panel_qr_kernel(panel: torch.Tensor, offset: int,
+                     sms: "int | None" = None):
+    """Factor an (m, nb) panel whose reflector for local column jj starts at
+    row ``offset + jj``; returns ``(pf, alpha)`` in the packed storage of
+    ``householder._panel_qr_masked``. ``panel`` itself is not modified.
+
+    A CUDA tensor launches the Hopper kernel on the current stream, on at
+    most ``sms`` SMs (default: all; its slices in registers or shared
+    memory where they fit, streamed where they do not), on a contiguous
+    transposed copy; a CPU tensor runs the plain version. Anything the
+    kernel does not take raises (:func:`_check_panel`): the differentiable
+    route is ``ops.differentiable.householder_factor``, whose forward
+    calls this wrapper with grad off.
+    """
+    _check_panel(panel, offset)
+    m, nb = panel.shape
     at = torch.empty((nb, m), dtype=panel.dtype, device=panel.device)
     at.copy_(panel.T)  # (nb, m): panel column j -> row j
     variant = ""
     if panel.device.type == "cuda":
         alpha = torch.empty(nb, dtype=panel.dtype, device=panel.device)
-        variant = _launch(at, alpha, int(offset), sms=sms)
-    elif panel.device.type == "cpu":
-        alpha = _PLAIN[panel.dtype](at, int(offset))
+        plan = _plan(m, nb, offset, panel.dtype, panel.device, sms)
+        _launch(at.T, alpha, int(offset), plan, "transposed")
+        variant = plan[2]
     else:
-        raise KernelRefusal(f"no panel kernel for device {panel.device}")
-    if _oplog.ARMED is not None:  # the op log's pallas_call eqn
-        _oplog.kernel(KERNELS[panel.dtype],
-                      "kernel" if panel.device.type == "cuda" else "plain",
-                      panel.shape, panel.dtype, offset, variant)
+        alpha = _PLAIN[panel.dtype](at, int(offset))
+    _log_kernel(panel, offset, variant)
     return at.T, alpha
+
+
+def _panel_qr_kernel_in_place(panel: torch.Tensor, offset: int,
+                              alpha: torch.Tensor,
+                              sms: "int | None" = None) -> str:
+    """Factor the (m, nb) ``panel`` in place, as :func:`_panel_qr_kernel`
+    factors its copy: its rows ``offset:`` take the packed factors, alpha
+    is written into ``alpha`` (nb,); rows above ``offset`` and everything
+    outside the panel stay bit for bit. The blocked engine's leaf, on its
+    view of H. Returns the layout (:func:`kernel_layout`) it took.
+
+    A CUDA tensor launches the kernel, on at most ``sms`` SMs: on the panel
+    itself where the layout is ``"in_place"`` (no copy), else through the
+    wrapper's transposed copy (a streamed slice, or a panel whose rows
+    are not contiguous), whose rows ``offset:`` are written back. A CPU
+    tensor takes the wrapper's plain version, written back the same way.
+    Raises as :func:`_panel_qr_kernel` does.
+    """
+    _check_panel(panel, offset)
+    m, nb = panel.shape
+    plan = _plan(m, nb, offset, panel.dtype, panel.device, sms)
+    layout = kernel_layout(plan[2], panel.stride())
+    if layout == "in_place" and panel.device.type == "cuda":
+        _launch(panel, alpha, int(offset), plan, layout)
+        _log_kernel(panel, offset, plan[2])
+    else:
+        pf, alpha_k = _panel_qr_kernel(panel, offset, sms)
+        panel[offset:].copy_(pf[offset:])
+        alpha.copy_(alpha_k)
+    return layout
 
 
 def panel_qr_kernel(panel: torch.Tensor):

@@ -347,6 +347,11 @@ def _inner(ws, xs) -> torch.Tensor:
     return sum(torch.sum(torch.real(w.conj() * x)) for w, x in zip(ws, xs))
 
 
+# The blocked engine's names of the panel kernel's two entries: the
+# wrapper, and the leaf that factors in place in H.
+_KERNEL_ENTRIES = ("_panel_qr_kernel", "_panel_qr_kernel_in_place")
+
+
 def run_grads(device, cases):
     """Worker: differentiate each case on this rank; per case ``("ok",
     result)`` with tensors as numpy arrays, or ``("raised", exception type
@@ -373,19 +378,22 @@ def run_grads(device, cases):
     from dhqr_tpu_torch.parallel import wire
 
     mesh_of = _mesh_getter(device)
-    real_kernel = blocked._panel_qr_kernel
+    real = {name: getattr(blocked, name) for name in _KERNEL_ENTRIES}
     calls = []
 
-    def counting(*args, **kwargs):
-        calls.append(1)
-        return real_kernel(*args, **kwargs)
+    def counting(fn):
+        def count(*args, **kwargs):
+            calls.append(1)
+            return fn(*args, **kwargs)
+        return count
 
     def outputs(case, args):
         value = _run_steps(case["steps"], mesh_of, device, args)
         return value, [_picked(value, o) for o in case.get("out", [None])]
 
     out = []
-    blocked._panel_qr_kernel = counting
+    for name, fn in real.items():
+        setattr(blocked, name, counting(fn))
     try:
         for case in cases:
             try:
@@ -424,7 +432,8 @@ def run_grads(device, cases):
             except Exception as exc:  # the case's outcome, for the caller
                 out.append(("raised", type(exc).__name__, str(exc)))
     finally:
-        blocked._panel_qr_kernel = real_kernel
+        for name, fn in real.items():
+            setattr(blocked, name, fn)
     return out
 
 

@@ -204,3 +204,138 @@ def test_auto_block_size_is_128():
     assert tbl.KERNEL_FLAT_WIDTH == max(hp.KERNEL_LEAF_WIDTHS)
     assert [leaf for _, _, leaf in
             tbl.panel_plan(65536, 256, 128, True, torch.float32)] == [64, 64]
+
+
+# -- the kernel's leaf in place in H ------------------------------------------
+
+# (m, n, block_size, flat): the geqrt3 recursion over 32-wide leaves (a
+# 256-wide panel, and 128-wide ones past a ragged first), and flat
+# 128-wide panels, which take no recursion.
+IN_PLACE_SHAPES = [(2048, 256, 256, 32), (1000, 300, 128, 32),
+                   (600, 384, 128, None)]
+IN_PLACE_TOL = {np.float32: 2e-5, np.complex64: 5e-5, np.float64: 1e-12}
+
+
+def in_place_and_transposed(m, n, nb, flat, dtype, seed=41):
+    """The engine's factors on the kernel's own leaf (in place in H) and
+    with the wrapper as a stand-in leaf (the transposed copies, the
+    out-of-place recursion and the write-back), on the plain twin."""
+    A = torch.from_numpy(random_problem(m, n, dtype, seed=seed)[0])
+    got = tbl._blocked_qr_impl(A.clone(), nb, kernel=True, flat=flat)
+    want = tbl._blocked_qr_impl(A.clone(), nb, kernel=True, flat=flat,
+                                leaf=hp._panel_qr_kernel)
+    return got, want
+
+
+def check_in_place_route(m, n, nb, flat, dtype):
+    (H, alpha), (H0, alpha0) = in_place_and_transposed(m, n, nb, flat, dtype)
+    if flat is None:  # no recursion: the same operations bit for bit
+        assert torch.equal(H, H0) and torch.equal(alpha, alpha0)
+    tol = IN_PLACE_TOL[dtype]
+    torch.testing.assert_close(H, H0, atol=tol, rtol=tol)
+    torch.testing.assert_close(alpha, alpha0, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+@pytest.mark.parametrize("m,n,nb,flat", IN_PLACE_SHAPES)
+def test_in_place_panels_match_the_transposed_route(m, n, nb, flat, dtype):
+    """The recursion in place in H gives the factors of the transposed
+    route: the leaves are the same bits, and only the GEMMs' operand
+    layouts differ (H's row stride where a contiguous half stood)."""
+    check_in_place_route(m, n, nb, flat, dtype)
+
+
+def test_layout_launches_follow_the_plan():
+    """``plan_layouts`` is ``LAYOUT_LAUNCHES`` of a factorization (the
+    H100's plan on the CPU): the tall lstsq's 16 leaves 32 wide in place,
+    the square qr's 128 panels in place, capped or not, and streamed
+    16-wide leaves on the transposed copy."""
+    lsq = tbl.panel_plan(131072, 512, 128, True, torch.float32)
+    assert [leaf for *_, leaf in lsq] == [32] * 4
+    assert tbl.plan_layouts(131072, lsq, torch.float32) == {
+        "in_place": 16, "transposed": 0}
+    for cap in (None, hp.LOOKAHEAD_CTAS):
+        sq = tbl.panel_plan(16384, 16384, 128, True, torch.float32, None,
+                            cap)
+        assert tbl.plan_layouts(16384, sq, torch.float32, None, cap) == {
+            "in_place": 128, "transposed": 0}
+    tall = tbl.panel_plan(524288, 128, 128, True, torch.float32)
+    assert tbl.plan_layouts(524288, tall, torch.float32) == {
+        "in_place": 0, "transposed": 8}
+    ref = tbl.panel_plan(4400, 4000, 128, True, torch.float64)
+    assert tbl.plan_layouts(4400, ref, torch.float64) == {
+        "in_place": 32, "transposed": 0}
+    assert tbl.leaf_layouts(4096, 128, 32, torch.complex64) == {
+        "in_place": 4, "transposed": 0}
+
+
+def test_engine_leaves_take_the_planned_layouts(monkeypatch):
+    """Every kernel leaf of the engine goes through the in-place entry, in
+    the layout the plan predicts: with the lookahead cap at one CTA, the
+    panel beside the GEMM gets 16-wide streamed leaves, which take the
+    transposed copy; the others stay in place. The factors are the default
+    schedule's to roundoff."""
+    layouts = []
+    real = tbl._panel_qr_kernel_in_place
+
+    def spy(panel, offset, alpha, sms=None):
+        layouts.append(real(panel, offset, alpha, sms))
+        return layouts[-1]
+
+    monkeypatch.setattr(tbl, "_panel_qr_kernel_in_place", spy)
+    A = torch.from_numpy(random_problem(4000, 192, np.float32, seed=42)[0])
+    H, alpha = tbl._blocked_qr_impl(A.clone(), 64, kernel=True,
+                                    lookahead=True, lookahead_ctas=1)
+    plan = tbl.panel_plan(4000, 192, 64, True, torch.float32, "cpu", 1)
+    assert [leaf for *_, leaf in plan] == [128, 16, 128]
+    want = tbl.plan_layouts(4000, plan, torch.float32, "cpu", 1)
+    assert want == {"in_place": 2, "transposed": 4}
+    assert {name: layouts.count(name) for name in hp.LAYOUTS} == want
+    H0, alpha0 = tbl._blocked_qr_impl(A.clone(), 64, kernel=True)
+    torch.testing.assert_close(H, H0, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(alpha, alpha0, atol=5e-4, rtol=5e-4)
+
+
+def test_a_stand_in_leaf_keeps_the_out_of_place_contract(monkeypatch):
+    """A ``leaf=`` passed for a measurement is called as the wrapper is,
+    on a panel it must not modify (the out-of-place recursion copies the
+    result back), and the in-place entry is never reached."""
+    seen = []
+
+    def leaf(panel, offset, sms=None):
+        before = panel.clone()
+        out = hp._panel_qr_kernel(panel, offset, sms)
+        seen.append(torch.equal(panel, before))
+        return out
+
+    def no_in_place(*args, **kwargs):
+        raise AssertionError("the in-place entry took a stand-in's panel")
+
+    monkeypatch.setattr(tbl, "_panel_qr_kernel_in_place", no_in_place)
+    A = torch.from_numpy(random_problem(600, 256, np.float32, seed=43)[0])
+    H, alpha = tbl._blocked_qr_impl(A.clone(), 256, kernel=True, flat=64,
+                                    leaf=leaf)
+    assert seen == [True] * 4
+    monkeypatch.undo()
+    H0, alpha0 = tbl._blocked_qr_impl(A.clone(), 256, kernel=True, flat=64)
+    torch.testing.assert_close(H, H0, atol=2e-5, rtol=2e-5)
+
+
+def test_rank_hook_counts_the_in_place_leaves(monkeypatch):
+    """``parallel/_ranks.run_grads`` counts the kernel's calls by patching
+    the engine's entries: the in-place leaves count as the wrapper's calls
+    did, once per leaf of the plan, with grad off and on."""
+    from dhqr_tpu_torch.parallel import _ranks
+
+    monkeypatch.setattr(_ranks, "_mesh_getter", lambda device: None)
+    A, b = random_problem(300, 96, np.float32, seed=44)
+    case = {"inputs": [A, b],
+            "steps": [("lstsq", (_ranks.Arg(0), _ranks.Arg(1)),
+                       {"block_size": 32, "use_pallas": "always",
+                        "device": "cpu"})],
+            "weights": [np.ones(96, np.float32)]}
+    [(status, result)] = _ranks.run_grads("cpu", [case])
+    plan = tbl.panel_plan(300, 96, 32, True, torch.float32)
+    want = sum(tbl.kernel_leaves(w, leaf) for _, w, leaf in plan if leaf)
+    assert status == "ok" and tuple(result["calls"]) == (want, want) == (3, 3)
+    assert tbl._panel_qr_kernel_in_place is hp._panel_qr_kernel_in_place

@@ -52,13 +52,15 @@ def test_entry_takes_the_kernel_flag_auto_resolves_to(monkeypatch):
     to the kernel, whose wrapper runs its plain version on a CPU tensor."""
     fn, (A, b) = graft_entry.entry(device="cpu")
     calls = []
-    real = blocked._panel_qr_kernel
 
-    def counting(panel, offset, *args, **kwargs):
-        calls.append(tuple(panel.shape))
-        return real(panel, offset, *args, **kwargs)
+    def counting(real):
+        def count(panel, offset, *args, **kwargs):
+            calls.append(tuple(panel.shape))
+            return real(panel, offset, *args, **kwargs)
+        return count
 
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", counting)
+    for name in ("_panel_qr_kernel", "_panel_qr_kernel_in_place"):
+        monkeypatch.setattr(blocked, name, counting(getattr(blocked, name)))
     x_plain = fn(A, b)
     assert calls == []
     monkeypatch.setattr(blocked, "_resolve_kernel", lambda *a: True)

@@ -405,8 +405,15 @@ def test_plan_stays_refused_under_guards():
 # ------------------------------------------- the kernel is never a rung
 
 
-def _failing_kernel(panel, offset, sms=None):
+def _failing_kernel(panel, offset, *args):
     raise RuntimeError("panel_qr_f32 launch: cudaErrorLaunchFailure")
+
+
+def _patch_kernel(monkeypatch, kernel):
+    """Both of the blocked engine's kernel entries: the wrapper and the
+    leaf that factors in place in H."""
+    for name in ("_panel_qr_kernel", "_panel_qr_kernel_in_place"):
+        monkeypatch.setattr(blocked, name, kernel)
 
 
 def test_kernel_failure_on_rung0_propagates(monkeypatch):
@@ -414,7 +421,7 @@ def test_kernel_failure_on_rung0_propagates(monkeypatch):
     card): guarded_lstsq re-raises it, records no attempt and counts no
     fallback — no quiet move to the plain version or another engine."""
     A, b = _problem(m=64, n=16)
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", _failing_kernel)
+    _patch_kernel(monkeypatch, _failing_kernel)
     before = tladder.COUNTERS.snapshot().get("fallbacks", 0)
     with obs.observed() as rec:
         with pytest.raises(RuntimeError, match="launch"):
@@ -431,7 +438,7 @@ def test_kernel_failure_on_a_fallback_rung_propagates(monkeypatch):
     card: the two injected breakdowns before it stay recorded, the kernel's
     error ends the call."""
     A, b = _problem(m=64, n=8)
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", _failing_kernel)
+    _patch_kernel(monkeypatch, _failing_kernel)
     monkeypatch.setattr(tsqr, "_resolve_kernel", lambda *a: True)
     with obs.observed() as rec:
         with faults.injected(tconfig.FaultConfig(
@@ -450,11 +457,11 @@ def test_kernel_refusal_on_a_fallback_rung_propagates(monkeypatch):
     and is not recorded as an inapplicable rung."""
     A, b = _problem(m=64, n=8)
 
-    def refusing_kernel(panel, offset, sms=None):
+    def refusing_kernel(panel, offset, *args):
         raise hopper_panel.KernelRefusal(
             "the panel kernel takes contiguous buffers")
 
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", refusing_kernel)
+    _patch_kernel(monkeypatch, refusing_kernel)
     monkeypatch.setattr(tsqr, "_resolve_kernel", lambda *a: True)
     with obs.observed() as rec:
         with faults.injected(tconfig.FaultConfig(

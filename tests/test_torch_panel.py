@@ -147,3 +147,92 @@ def test_kernel_source_carries_its_note():
         assert needle in src
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert set(hp.KERNELS.values()) == set(hp.LAUNCHES)
+
+
+# -- the in-place entry: the blocked engine's leaf, in place in H ------------
+
+def _in_place_case(rows, cols, off, dtype, seed, strides=None):
+    """A view (rows, cols) of a larger matrix H, at row 7 and column 16,
+    with its alpha a view of a longer vector, and copies of both."""
+    H = torch.from_numpy(_panel(rows + 7, cols + 40, dtype, seed))
+    if strides == "columns":  # a column-major H: column stride != 1
+        H = H.T.contiguous().T
+    alpha = torch.full((cols + 40,), 7.0, dtype=H.dtype)
+    return H, alpha, H[7:, 16:16 + cols], alpha[16:16 + cols]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+@pytest.mark.parametrize("rows,cols,off", [(300, 32, 0), (300, 32, 5),
+                                           (300, 128, 96), (129, 128, 1)])
+def test_in_place_entry_is_the_wrapper_in_place(rows, cols, off, dtype):
+    """On a view of H whose rows are contiguous, the in-place entry writes
+    the wrapper's factors (rows ``off:``) and alpha where they lie, bit for
+    bit; every other entry of H (rows above the offset, columns outside
+    the view) and of the alpha vector stays bit for bit."""
+    H, alpha, view, a_view = _in_place_case(rows, cols, off, dtype, seed=31)
+    H0, alpha0 = H.clone(), alpha.clone()
+    pf, a = hp._panel_qr_kernel(view, off)
+    assert torch.equal(H, H0)  # the wrapper leaves its input alone
+    assert hp._panel_qr_kernel_in_place(view, off, a_view) == "in_place"
+    assert torch.equal(view[off:], pf[off:]) and torch.equal(a_view, a)
+    outside = torch.ones(H.shape, dtype=torch.bool)
+    outside[7 + off:, 16:16 + cols] = False
+    assert torch.equal(H[outside], H0[outside])
+    kept = torch.ones(alpha.shape, dtype=torch.bool)
+    kept[16:16 + cols] = False
+    assert torch.equal(alpha[kept], alpha0[kept])
+
+
+def test_layout_rule_is_the_variant_and_the_strides():
+    """In place where the slices stay on chip and the rows are contiguous;
+    a streamed slice, or a panel whose column stride is not 1, takes the
+    wrapper's transposed copy."""
+    assert hp.LAYOUTS == ("in_place", "transposed")
+    for variant in ("registers", "shared"):
+        assert hp.kernel_layout(variant, (512, 1)) == "in_place"
+        assert hp.kernel_layout(variant, (1, 4096)) == "transposed"
+        assert hp.kernel_layout(variant, (1024, 2)) == "transposed"
+    for strides in ((512, 1), (1, 4096)):
+        assert hp.kernel_layout("streamed", strides) == "transposed"
+
+
+@pytest.mark.parametrize("rows,cols,off,strides", [
+    (2**19, 16, 3, None),          # streamed on the H100 (524288 x 16)
+    (300, 32, 5, "columns"),       # a column-major H
+])
+def test_in_place_entry_takes_the_transposed_copy(rows, cols, off, strides,
+                                                  monkeypatch):
+    """A streamed plan, or a view whose column stride is not 1, goes
+    through the wrapper's transposed copy (one wrapper call), whose rows
+    ``off:`` and alpha are written back: the same bits as the wrapper, and
+    rows above the offset kept."""
+    H, alpha, view, a_view = _in_place_case(rows, cols, off, np.float32,
+                                            seed=32, strides=strides)
+    assert hp._plan(rows, cols, off, torch.float32, "cpu")[2] == (
+        "streamed" if strides is None else "registers")
+    H0 = H.clone()
+    pf, a = hp._panel_qr_kernel(view, off)
+    calls = []
+    real = hp._panel_qr_kernel
+
+    def spy(panel, offset, sms=None):
+        calls.append(tuple(panel.shape))
+        return real(panel, offset, sms)
+
+    monkeypatch.setattr(hp, "_panel_qr_kernel", spy)
+    assert hp._panel_qr_kernel_in_place(view, off, a_view) == "transposed"
+    assert calls == [(rows, cols)]
+    assert torch.equal(view[off:], pf[off:]) and torch.equal(a_view, a)
+    assert torch.equal(view[:off], H0[7:7 + off, 16:16 + cols])
+
+
+def test_in_place_entry_refuses_what_the_wrapper_refuses():
+    alpha = torch.zeros(8)
+    with pytest.raises(ValueError):
+        hp._panel_qr_kernel_in_place(torch.zeros((40, 8)), 33, alpha)
+    with pytest.raises(ValueError):
+        hp._panel_qr_kernel_in_place(torch.zeros((64, 8), device="meta"), 0,
+                                     alpha)
+    with pytest.raises(NotImplementedError, match="raw pointer"):
+        hp._panel_qr_kernel_in_place(
+            torch.zeros((64, 8), requires_grad=True), 0, alpha)

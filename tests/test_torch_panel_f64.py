@@ -184,3 +184,40 @@ def test_f64_routing():
     plan = tbl.panel_plan(4400, 4000, 128, True, F64, cuda)
     assert [w for _, w, _ in plan] == [128] * 31 + [32]
     assert all(leaf == 128 for _, _, leaf in plan)
+
+
+@pytest.mark.parametrize("off", [0, 3, 96])
+def test_twin_in_place_entry_is_the_wrapper_in_place(off):
+    """The float64 in-place entry on a view of the source's 440 x 400
+    problem (a 128-wide panel at column 128): the wrapper's factors and
+    alpha where they lie, bit for bit, and H outside the view's rows
+    ``off:`` untouched."""
+    H = _uniform(440, 400, seed=45)
+    H0 = H.clone()
+    alpha = torch.zeros(400, dtype=F64)
+    view = H[128:, 128:256]
+    pf, a = hp._panel_qr_kernel(view, off)
+    assert hp._panel_qr_kernel_in_place(view, off, alpha[128:256]) \
+        == "in_place"
+    assert torch.equal(view[off:], pf[off:])
+    assert torch.equal(alpha[128:256], a)
+    outside = torch.ones(H.shape, dtype=torch.bool)
+    outside[128 + off:, 128:256] = False
+    assert torch.equal(H[outside], H0[outside])
+    assert not alpha[:128].any() and not alpha[256:].any()
+
+
+@pytest.mark.parametrize("m,n,nb,flat", [(440, 400, 128, None),
+                                         (2048, 256, 256, 32)])
+def test_twin_in_place_panels_match_the_transposed_route(m, n, nb, flat):
+    """The engine's float64 panels in place in H against the transposed
+    route (tests/test_torch_blocked.py holds float32 and complex64): the
+    same bits without the recursion, roundoff in its GEMMs with it."""
+    A = _uniform(m, n, seed=46)
+    H, alpha = tbl._blocked_qr_impl(A.clone(), nb, kernel=True, flat=flat)
+    H0, alpha0 = tbl._blocked_qr_impl(A.clone(), nb, kernel=True, flat=flat,
+                                      leaf=hp._panel_qr_kernel)
+    if flat is None:
+        assert torch.equal(H, H0) and torch.equal(alpha, alpha0)
+    _close(H, H0, TOL_PANEL)
+    _close(alpha, alpha0, TOL_PANEL)

@@ -244,13 +244,15 @@ def _counting_kernel(monkeypatch):
     """Count the kernel wrapper's calls (on the CPU it runs the plain
     version, so the launch counters stay at 0)."""
     calls = []
-    real = blocked._panel_qr_kernel
 
-    def wrapper(*args, **kwargs):
-        calls.append(args[0].shape)
-        return real(*args, **kwargs)
+    def counting(real):
+        def wrapper(*args, **kwargs):
+            calls.append(args[0].shape)
+            return real(*args, **kwargs)
+        return wrapper
 
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", wrapper)
+    for name in ("_panel_qr_kernel", "_panel_qr_kernel_in_place"):
+        monkeypatch.setattr(blocked, name, counting(getattr(blocked, name)))
     return calls
 
 

@@ -78,13 +78,15 @@ def test_kernel_leaf_calls_follow_the_panel_plans(monkeypatch):
     as the port's own plan predicts for the leaves and the combine (the
     count chip_smoke.py holds the card's launches to)."""
     calls = []
-    real = blocked._panel_qr_kernel
 
-    def counting(panel, offset):
-        calls.append(panel.shape)
-        return real(panel, offset)
+    def counting(real):
+        def count(panel, offset, *args):
+            calls.append(panel.shape)
+            return real(panel, offset, *args)
+        return count
 
-    monkeypatch.setattr(blocked, "_panel_qr_kernel", counting)
+    for name in ("_panel_qr_kernel", "_panel_qr_kernel_in_place"):
+        monkeypatch.setattr(blocked, name, counting(getattr(blocked, name)))
     A, b = random_problem(1024, 48, np.float32, seed=25)
     x = to_numpy(dt.tsqr_lstsq(A, b, n_blocks=4, block_size=32,
                                use_pallas="always", device="cpu"))
